@@ -1,0 +1,528 @@
+// SoftRas backward kernels for Hopper (sm_90a), with plain C entry points.
+//
+// Replace the TPU kernel jrender_tpu/ops/softras/pxt_impl.py
+// _make_bwd_kernel_pxt (:856, launched at :1116 by soft_rasterize_bwd_pxt)
+// and the face reduction that follows it there (:1128-1171).  They compute
+// the reference's top-K truncated backward (soft_rasterize.py:523-1358),
+// not the derivative of the forward: for every candidate pair (tk_valid)
+// with zp <= thr, the gradient of the pixel with respect to the face's 9
+// coordinates and its texture values, summed over the pixels per face.
+// The per-pair terms are those of pxt_impl.py:913-1038 (pair_grad below).
+//
+// Design.  Three kernels, two entry points.
+//
+//  softras_bwd_kernel: one block of 8 warps per (screen tile, batch
+//    element), as the forward is tiled; it stages the tile's pixel maps
+//    (image 4, aggrs 2, incoming gradient 4, threshold 1) and chunks of
+//    face rows in shared memory.  Unlike the forward it gives each staged
+//    face to one WARP, which walks the pixels of the face's inflated bbox
+//    inside the tile, 32 at a time.  So the sum over a tile's pixels of one
+//    face stays inside a warp: each lane adds its pixels in ascending
+//    order, one xor-butterfly of shuffles adds the lanes, and no block
+//    barrier or shared-memory atomic is needed per face; pixels outside
+//    the bbox (three quarters of a tile list's pairs on the bench sphere)
+//    are never visited.  Surface texels: a pair adds 3 values to the texel
+//    its clipped barycentrics select, so a warp keeps 3T sums in shared
+//    memory and its lanes add to them one after the other in lane order.
+//    The warp writes one row of gslots [B, L, 9 + tex] per (tile, face),
+//    at the pair's position in the binning's sorted run.
+//  softras_bwd_big_kernel: the faces of the big-face list span more tiles
+//    than the binning emits pairs for and have no slots.  One block per
+//    big face walks the face's whole bbox, 256 pixels at a time, and
+//    reduces over its warps in a fixed order into gbig [B, F, 9 + tex]
+//    (row g = the g-th big face).  The grid has a block for every face;
+//    blocks past the list's length return at once (no host sync to learn
+//    the length).  A mesh made of a few screen-filling faces is served by
+//    few blocks: correct, and slow.
+//  softras_bwd_reduce_kernel: one warp per face sums the face's slots in
+//    ascending tile order through gsrc [B, F, mt], the inverse of the
+//    binning's sort (the analogue of the TPU path's prep['gsrc']), or
+//    takes the face's gbig row, and writes grad_face_vertices [B,F,9] and
+//    grad_textures [B,F,tex].
+//
+// The reduction is deterministic: no atomics anywhere, every sum in a
+// fixed order, so two runs give the same bits.  Scratch: L = F * mt slot
+// rows, 39,474 * 12 * 84 floats = 159 MB at the bench's full width;
+// rows of pairs the binning did not emit are neither written nor read.
+// There is no cap: lists of any length, every face kept.
+//
+// Bound.  Operations: the forward's pair math for every pair in a bbox
+// plus about 120 more for a pair within the threshold.  Bytes of the
+// function that the two kernels compute together: the face rows and
+// lists, 11 floats per pixel, one gradient row per face out.  The slot
+// rows, written here and read by the reduction, are this two-pass
+// design's cost on top of that, not the function's; they count only in
+// the reduction's own bound, as its input.  On the bench sphere bytes are
+// the larger by a little (chip_smoke.py computes both from its run).
+#include <cuda_runtime.h>
+
+#include "softras_pair.cuh"
+
+namespace softras {
+
+constexpr int kTile = 16;
+constexpr int kThreads = kTile * kTile;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPix = 11;  // per-pixel inputs: out 4, aggrs 2, grad 4, thr 1
+
+struct BwdArgs {
+  const float* rows;         // [B, F, row]
+  const int* faces_sorted;   // [B, L]
+  const int* starts;         // [B, NT]
+  const int* run_counts;     // [B, NT]
+  const int* glist;          // [B, F]
+  const int* gcount;         // [B]
+  const float* image;        // [B, 4, H, W] the forward's output
+  const float* aggrs;        // [B, 2, H, W]
+  const float* grad;         // [B, 4, H, W] incoming gradient
+  const float* thr;          // [B, H, W], or null: no truncation
+  float* gslots;             // [B, L, GC]
+  float* gbig;               // [B, F, GC]
+  int B, F, L, row, image_size, tiles_x, tiles_y, chunk, GC;
+  int dist_func, rgb_func, alpha_func;
+  Scalars s;
+};
+
+struct ReduceArgs {
+  const float* gslots;       // [B, L, GC]
+  const float* gbig;         // [B, F, GC]
+  const int* gsrc;           // [B, F, mt] slot of each emitted pair, or -1
+  const int* gpos;           // [B, F] place in the big-face list, or -1
+  float* grad_face;          // [B, F, 9]
+  float* grad_tex;           // [B, F, GC - 9]
+  int B, F, L, mt, GC;
+};
+
+struct PixelIn {
+  float o[4];      // the forward's rgba
+  float ag0, ag1;  // softmax sum and max, or hard depth and face index
+  float g[4];      // incoming gradient
+  float thr;
+};
+
+struct PairGrad {
+  float gv[9];     // d pixel / d (x, y, z) of corner k at [3k ..]
+  float tc[3];     // texture coefficient times the rgb gradient
+  float wc[3];     // clipped barycentrics (vertex colours)
+  int idx;         // texel (surface)
+};
+
+// The terms of one (pixel, face) pair, pxt_impl.py:900-1038.  False: the
+// pair is no candidate or lies beyond the threshold, and sends nothing.
+template <int DIST>
+__device__ __forceinline__ bool pair_grad(const float* r, int fid, float xp,
+                                          float yp, const PixelIn& px,
+                                          const BwdArgs& a, PairGrad* o) {
+  const Scalars& s = a.s;
+  PairTerms t;
+  if (!pair_terms<DIST, true>(r, xp, yp, s, &t)) return false;
+  if (!t.tk_valid) return false;
+  if (a.thr != nullptr && !(t.zp <= px.thr)) return false;
+
+  // dist hard: sf = 1 in the backward, so the xy chain vanishes
+  const float sf = DIST == kDistHard ? 1.0f : t.sf;
+  float cxy;
+  if (a.alpha_func == kAlphaHard) {
+    cxy = 0.0f;
+  } else if (a.alpha_func == kAlphaSum) {
+    cxy = px.g[3] / (float)a.F;
+  } else {
+    cxy = px.g[3] * (1.0f - px.o[3]) / fmaxf(1.0f - sf, 1e-6f);
+  }
+
+  const float* tex = r + kTex;
+  const bool surface = s.texture_type == 0;
+  o->idx = surface ? surface_tex_idx(t.wc, s.tex_res) : 0;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) o->wc[k] = t.wc[k];
+
+  float gz[3] = {0.0f, 0.0f, 0.0f};
+  float coef = 0.0f;
+  if (a.rgb_func == kRgbSoftmax) {
+    const float S = fmaxf(px.ag0, 1e-30f);
+    const float zpn = (s.far - t.zp) / s.far_minus_near;
+    const float zsm = sf * expf((zpn - px.ag1) / s.gamma) / S;
+    // colour WITHOUT perspective correction and with no front-side check
+    // (reference backward, soft_rasterize.py:1136-1151)
+    float d = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float col = surface
+          ? tex[3 * o->idx + c]
+          : t.wc[0] * tex[c] + t.wc[1] * tex[3 + c] + t.wc[2] * tex[6 + c];
+      d += px.g[c] * (col - px.o[c]);
+    }
+    const float crgb = d * zsm;
+    cxy += crgb / fmaxf(sf, 1e-30f);
+    const float cz = crgb / s.gamma / (s.near - s.far) * t.zp * t.zp;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float z = r[kFace + 3 * k + 2];
+      gz[k] = cz * t.wc[k] / (z * z);
+    }
+    coef = zsm;
+  } else if (a.rgb_func == kRgbHard) {
+    // the texture gradient goes to the winning face only
+    coef = fid == (int)px.ag1 ? 1.0f : 0.0f;
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) o->tc[c] = px.g[c] * coef;
+
+  // sigmoid chain to the vertex xy (soft_rasterize.py:1336-1347)
+  cxy = cxy * sf * (1.0f - sf) / s.sigma;
+  float gx[3] = {0.0f, 0.0f, 0.0f}, gy[3] = {0.0f, 0.0f, 0.0f};
+  if (DIST == kDistBary) {
+    // reads the unclipped w (soft_rasterize.py:1118-1132)
+    const int pmin = t.w[0] > t.w[1] ? (t.w[1] > t.w[2] ? 2 : 1)
+                                     : (t.w[0] > t.w[2] ? 2 : 0);
+    const float mn = fminf(fminf(t.w[0], t.w[1]), t.w[2]);
+    const float C = cxy * 2.0f * sqrtf(mn * mn);
+    const float ix = r[kInv + 3 * pmin], iy = r[kInv + 3 * pmin + 1];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      gx[k] = -ix * t.w[k] * C;
+      gy[k] = -iy * t.w[k] * C;
+    }
+  } else if (DIST == kDistEuclid) {
+    const float C2 = 2.0f * t.sign * cxy;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      gx[k] = C2 * t.tau[k] * t.dis_x;
+      gy[k] = C2 * t.tau[k] * t.dis_y;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    o->gv[3 * k] = gx[k];
+    o->gv[3 * k + 1] = gy[k];
+    o->gv[3 * k + 2] = gz[k];
+  }
+  return true;
+}
+
+// One step of a warp over 32 pixels of a face: adds the pair's terms to the
+// lane's sums (face 9; vertex colours 9) and, for surface texels, to the
+// warp's 3T sums in shared memory, lane after lane in ascending order.
+// Every lane of the warp must call it; `active` says whether the lane has
+// a pixel.
+template <int DIST>
+__device__ __forceinline__ void add_pair(const float* r, int fid, bool active,
+                                         float xp, float yp, const PixelIn& px,
+                                         const BwdArgs& a, int lane,
+                                         float acc[9], float tacc[9],
+                                         float* wtex) {
+  PairGrad g;
+  const bool valid = active && pair_grad<DIST>(r, fid, xp, yp, px, a, &g);
+  if (valid) {
+#pragma unroll
+    for (int c = 0; c < 9; ++c) acc[c] += g.gv[c];
+  }
+  if (a.s.texture_type != 0) {
+    if (valid) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) tacc[3 * k + c] += g.tc[c] * g.wc[k];
+    }
+    return;
+  }
+  unsigned mask = __ballot_sync(0xffffffffu, valid);
+  while (mask) {
+    const int l = __ffs(mask) - 1;
+    if (lane == l) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) wtex[3 * g.idx + c] += g.tc[c];
+    }
+    __syncwarp();
+    mask &= mask - 1;
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Pixels whose centres may lie in the face's inflated bbox, clipped to
+// [c_lo, c_hi] x [r_lo, r_hi]; rounded outwards (pair_terms tests the
+// bbox exactly).  Returns false when the range is empty.
+__device__ __forceinline__ bool pixel_range(const float* r, float sq, float isf,
+                                            int c_lo, int c_hi, int r_lo,
+                                            int r_hi, int* c0, int* c1,
+                                            int* r0, int* r1) {
+  const float x0 = r[kFace + 0], x1 = r[kFace + 3], x2 = r[kFace + 6];
+  const float y0 = r[kFace + 1], y1 = r[kFace + 4], y2 = r[kFace + 7];
+  const float xmin = fminf(fminf(x0, x1), x2) - sq;
+  const float xmax = fmaxf(fmaxf(x0, x1), x2) + sq;
+  const float ymin = fminf(fminf(y0, y1), y2) - sq;
+  const float ymax = fmaxf(fmaxf(y0, y1), y2) + sq;
+  // xp = (2c + 1 - is) / is and yp = (is - 1 - 2r) / is; clamp before the
+  // int cast so that a huge coordinate cannot overflow it
+  const float lo_c = (float)c_lo, hi_c = (float)c_hi;
+  const float lo_r = (float)r_lo, hi_r = (float)r_hi;
+  *c0 = (int)fminf(fmaxf(floorf((xmin * isf + isf - 1.0f) * 0.5f), lo_c), hi_c + 1.0f);
+  *c1 = (int)fmaxf(fminf(ceilf((xmax * isf + isf - 1.0f) * 0.5f), hi_c), lo_c - 1.0f);
+  *r0 = (int)fminf(fmaxf(floorf((isf - 1.0f - ymax * isf) * 0.5f), lo_r), hi_r + 1.0f);
+  *r1 = (int)fmaxf(fminf(ceilf((isf - 1.0f - ymin * isf) * 0.5f), hi_r), lo_r - 1.0f);
+  return *c0 <= *c1 && *r0 <= *r1;
+}
+
+template <int DIST>
+__global__ void __launch_bounds__(kThreads)
+    softras_bwd_kernel(const BwdArgs a) {
+  extern __shared__ float smem[];
+  const int T3 = a.GC - 9;
+  float* srow = smem;                                          // [chunk, row]
+  int* sid = reinterpret_cast<int*>(smem + a.chunk * a.row);   // [chunk]
+  float* spx = smem + a.chunk * (a.row + 1);                   // [kPix, 256]
+  float* swtex = spx + kPix * kThreads;                        // [kWarps, T3]
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int tile_x = blockIdx.x, tile_y = blockIdx.y, b = blockIdx.z;
+  const int is = a.image_size;
+  const float isf = (float)is;
+  const int NT = a.tiles_x * a.tiles_y;
+  const int tile = tile_y * a.tiles_x + tile_x;
+  const int run = a.run_counts[b * NT + tile];
+  if (run == 0) return;
+  const int start = a.starts[b * NT + tile];
+  const float* rows_b = a.rows + (size_t)b * a.F * a.row;
+  const size_t HW = (size_t)is * is;
+
+  // the tile's pixel maps, pixel (ly, lx) at ly * 16 + lx
+  {
+    const int col = tile_x * kTile + tid % kTile;
+    const int rowp = tile_y * kTile + tid / kTile;
+    const bool live = col < is && rowp < is;
+    const size_t px = (size_t)rowp * is + col;
+    for (int c = 0; c < 4; ++c) {
+      spx[c * kThreads + tid] = live ? a.image[((size_t)b * 4 + c) * HW + px] : 0.0f;
+      spx[(6 + c) * kThreads + tid] = live ? a.grad[((size_t)b * 4 + c) * HW + px] : 0.0f;
+    }
+    for (int c = 0; c < 2; ++c)
+      spx[(4 + c) * kThreads + tid] = live ? a.aggrs[((size_t)b * 2 + c) * HW + px] : 0.0f;
+    spx[10 * kThreads + tid] = (live && a.thr != nullptr) ? a.thr[(size_t)b * HW + px] : 0.0f;
+  }
+  float* wtex = swtex + warp * T3;
+  if (a.s.texture_type == 0)
+    for (int i = lane; i < T3; i += 32) wtex[i] = 0.0f;
+
+  const int tc0 = tile_x * kTile, tr0 = tile_y * kTile;
+  const int tc1 = min(tc0 + kTile - 1, is - 1), tr1 = min(tr0 + kTile - 1, is - 1);
+
+  for (int base = 0; base < run; base += a.chunk) {
+    const int n = min(a.chunk, run - base);
+    __syncthreads();  // the previous chunk has been consumed
+    if (tid < n) sid[tid] = a.faces_sorted[(size_t)b * a.L + start + base + tid];
+    __syncthreads();
+    for (int i = tid; i < n * a.row; i += kThreads) {
+      const int j = i / a.row;
+      srow[i] = rows_b[(size_t)sid[j] * a.row + (i - j * a.row)];
+    }
+    __syncthreads();
+
+    for (int j = warp; j < n; j += kWarps) {
+      const float* r = srow + j * a.row;
+      const int fid = sid[j];
+      float acc[9], tacc[9];
+#pragma unroll
+      for (int c = 0; c < 9; ++c) acc[c] = tacc[c] = 0.0f;
+      int c0, c1, r0, r1;
+      if (pixel_range(r, a.s.sq, isf, tc0, tc1, tr0, tr1, &c0, &c1, &r0, &r1)) {
+        const int w = c1 - c0 + 1;
+        const int np = w * (r1 - r0 + 1);
+        for (int k0 = 0; k0 < np; k0 += 32) {
+          const int k = k0 + lane;
+          const bool active = k < np;
+          const int col = c0 + (active ? k % w : 0);
+          const int rowp = r0 + (active ? k / w : 0);
+          const int lp = (rowp - tr0) * kTile + (col - tc0);
+          PixelIn px;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            px.o[c] = spx[c * kThreads + lp];
+            px.g[c] = spx[(6 + c) * kThreads + lp];
+          }
+          px.ag0 = spx[4 * kThreads + lp];
+          px.ag1 = spx[5 * kThreads + lp];
+          px.thr = spx[10 * kThreads + lp];
+          const float xp = (2.0f * (float)col + 1.0f - isf) / isf;
+          const float yp = (isf - 1.0f - 2.0f * (float)rowp) / isf;
+          add_pair<DIST>(r, fid, active, xp, yp, px, a, lane, acc, tacc, wtex);
+        }
+      }
+      // the warp's sums into the pair's slot row
+      float* slot = a.gslots + ((size_t)b * a.L + start + base + j) * a.GC;
+      float mine = 0.0f, mine_t = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 9; ++c) {
+        const float v = warp_sum(acc[c]);
+        if (lane == c) mine = v;
+      }
+      if (lane < 9) slot[lane] = mine;
+      if (a.s.texture_type != 0) {
+#pragma unroll
+        for (int c = 0; c < 9; ++c) {
+          const float v = warp_sum(tacc[c]);
+          if (lane == c) mine_t = v;
+        }
+        if (lane < 9) slot[9 + lane] = mine_t;
+      } else {
+        __syncwarp();
+        for (int i = lane; i < T3; i += 32) {
+          slot[9 + i] = wtex[i];
+          wtex[i] = 0.0f;
+        }
+        __syncwarp();
+      }
+    }
+  }
+}
+
+template <int DIST>
+__global__ void __launch_bounds__(kThreads)
+    softras_bwd_big_kernel(const BwdArgs a) {
+  extern __shared__ float smem[];
+  const int T3 = a.GC - 9;
+  float* srow = smem;                       // [row]
+  float* swarp = smem + a.row;              // [kWarps, 18]
+  float* swtex = swarp + kWarps * 18;       // [kWarps, T3]
+
+  const int g = blockIdx.x, b = blockIdx.y;
+  if (g >= a.gcount[b]) return;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int fid = a.glist[(size_t)b * a.F + g];
+  const int is = a.image_size;
+  const float isf = (float)is;
+  const size_t HW = (size_t)is * is;
+  for (int i = tid; i < a.row; i += kThreads)
+    srow[i] = a.rows[((size_t)b * a.F + fid) * a.row + i];
+  const bool surface = a.s.texture_type == 0;
+  float* wtex = swtex + warp * T3;
+  if (surface)
+    for (int i = lane; i < T3; i += 32) wtex[i] = 0.0f;
+  __syncthreads();
+
+  float acc[9], tacc[9];
+#pragma unroll
+  for (int c = 0; c < 9; ++c) acc[c] = tacc[c] = 0.0f;
+  int c0, c1, r0, r1;
+  if (pixel_range(srow, a.s.sq, isf, 0, is - 1, 0, is - 1, &c0, &c1, &r0, &r1)) {
+    const int w = c1 - c0 + 1;
+    const int np = w * (r1 - r0 + 1);
+    for (int k0 = 0; k0 < np; k0 += kThreads) {
+      const int k = k0 + tid;
+      const bool active = k < np;
+      const int col = c0 + (active ? k % w : 0);
+      const int rowp = r0 + (active ? k / w : 0);
+      const size_t p = (size_t)rowp * is + col;
+      PixelIn px;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        px.o[c] = a.image[((size_t)b * 4 + c) * HW + p];
+        px.g[c] = a.grad[((size_t)b * 4 + c) * HW + p];
+      }
+      px.ag0 = a.aggrs[((size_t)b * 2) * HW + p];
+      px.ag1 = a.aggrs[((size_t)b * 2 + 1) * HW + p];
+      px.thr = a.thr != nullptr ? a.thr[(size_t)b * HW + p] : 0.0f;
+      const float xp = (2.0f * (float)col + 1.0f - isf) / isf;
+      const float yp = (isf - 1.0f - 2.0f * (float)rowp) / isf;
+      add_pair<DIST>(srow, fid, active, xp, yp, px, a, lane, acc, tacc, wtex);
+    }
+  }
+  // lanes by butterfly, then the warps in ascending order
+#pragma unroll
+  for (int c = 0; c < 9; ++c) {
+    const float v = warp_sum(acc[c]);
+    const float vt = warp_sum(tacc[c]);
+    if (lane == 0) {
+      swarp[warp * 18 + c] = v;
+      swarp[warp * 18 + 9 + c] = vt;
+    }
+  }
+  __syncthreads();
+  float* out = a.gbig + ((size_t)b * a.F + g) * a.GC;
+  for (int i = tid; i < a.GC; i += kThreads) {
+    float v = 0.0f;
+    if (i < 9 || !surface) {
+      for (int wp = 0; wp < kWarps; ++wp) v += swarp[wp * 18 + i];
+    } else {
+      for (int wp = 0; wp < kWarps; ++wp) v += swtex[wp * T3 + (i - 9)];
+    }
+    out[i] = v;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    softras_bwd_reduce_kernel(const ReduceArgs a) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long gw = (long long)blockIdx.x * kWarps + warp;  // b * F + f
+  if (gw >= (long long)a.B * a.F) return;
+  const int b = (int)(gw / a.F);
+  const int g = a.gpos[gw];
+  const int T3 = a.GC - 9;
+  for (int c = lane; c < a.GC; c += 32) {
+    float v = 0.0f;
+    if (g >= 0) {
+      v = a.gbig[((size_t)b * a.F + g) * a.GC + c];
+    } else {
+      // the face's emitted pairs in ascending tile order
+      for (int j = 0; j < a.mt; ++j) {
+        const int sl = a.gsrc[gw * a.mt + j];
+        if (sl >= 0) v += a.gslots[((size_t)b * a.L + sl) * a.GC + c];
+      }
+    }
+    if (c < 9) {
+      a.grad_face[gw * 9 + c] = v;
+    } else {
+      a.grad_tex[gw * T3 + (c - 9)] = v;
+    }
+  }
+}
+
+template <int DIST>
+cudaError_t launch(const BwdArgs& a, cudaStream_t stream) {
+  const int T3 = a.s.texture_type == 0 ? a.GC - 9 : 0;
+  const size_t smem = ((size_t)a.chunk * (a.row + 1) + kPix * kThreads +
+                       (size_t)kWarps * T3) * sizeof(float);
+  softras_bwd_kernel<DIST><<<dim3(a.tiles_x, a.tiles_y, a.B), kThreads, smem,
+                             stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem_big = ((size_t)a.row + kWarps * 18 + (size_t)kWarps * T3) *
+                          sizeof(float);
+  softras_bwd_big_kernel<DIST><<<dim3(a.F, a.B), kThreads, smem_big, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace softras
+
+extern "C" int softras_bwd(const softras::BwdArgs* args, void* stream) {
+  using namespace softras;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (args->dist_func) {
+    case kDistHard: err = launch<kDistHard>(*args, st); break;
+    case kDistBary: err = launch<kDistBary>(*args, st); break;
+    default: err = launch<kDistEuclid>(*args, st); break;
+  }
+  return (int)err;
+}
+
+extern "C" int softras_bwd_reduce(const softras::ReduceArgs* args, void* stream) {
+  using namespace softras;
+  const long long faces = (long long)args->B * args->F;
+  const unsigned blocks = (unsigned)((faces + kWarps - 1) / kWarps);
+  softras_bwd_reduce_kernel<<<blocks, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(*args);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int softras_bwd_args_size() { return (int)sizeof(softras::BwdArgs); }
+
+extern "C" int softras_bwd_reduce_args_size() {
+  return (int)sizeof(softras::ReduceArgs);
+}

@@ -19,6 +19,13 @@
 // softmax rescales where the plain version exponentiates once.  So a few
 // knife-edge pixels can still differ, which the checks allow.
 //
+// Depth bits.  The backward masks a pair with zp <= thr, and thr is a zp
+// that the threshold kernel computed.  clipped_depth() is the one place
+// that computes zp, and it is written with _rn intrinsics only (IEEE
+// division and addition, nothing that nvcc may contract or reorder), so
+// the forward, the threshold and the backward kernels get the same bits
+// for the same pair whatever else each of them inlines around it.
+//
 // Face row layout (floats), staged in shared memory by the kernel:
 //   [0, 9)    face  x0 y0 z0 x1 y1 z1 x2 y2 z2 (screen space)
 //   [9, 18)   inv   barycentric inverse, row k = (a, b, c) of w_k
@@ -60,14 +67,21 @@ struct Scalars {
   int tex_res;       // R, with T = R * R texels per face
 };
 
-// Quantities of one (pixel, face) pair that the forward reads, for a pair
-// inside the inflated bbox and the distance cut (alpha_valid).
+// Quantities of one (pixel, face) pair, for a pair inside the inflated
+// bbox and the distance cut (alpha_valid).  The forward reads the first
+// five; the backward also reads the rest, which pair_terms fills only
+// when its GRAD flag is set (filling them unasked cost the forward
+// kernel 4% of its time on the bench sphere).
 struct PairTerms {
   float wc[3];       // clipped, renormalised barycentrics
   float sf;          // coverage (sigmoid of the signed distance)
   float zp;          // perspective-correct depth
   bool tk_valid;     // near <= zp <= far
   bool inside;       // 0 <= w <= 1 (closed), the hard-rgb winner test
+  float w[3];        // unclipped barycentrics
+  float sign;        // euclidean: +1 inside the face, -1 outside
+  float dis_x, dis_y;  // euclidean: offset to the closest point of the face
+  float tau[3];      // euclidean: barycentrics of that closest point
 };
 
 __device__ __forceinline__ float dot3_rn(float a0, float a1, float a2,
@@ -91,11 +105,13 @@ __device__ __forceinline__ float sigmoid(float x) {
 }
 
 // Offsets t - w of the projection of the barycentric point w onto the
-// edge (v0, v0+1), geometry._edge_projection; returns dx, dy.
+// edge (v0, v0+1), geometry._edge_projection; returns dx, dy and, with
+// TAU, the projected point's barycentrics.
+template <bool TAU>
 __device__ __forceinline__ void edge_projection(const float* r,
                                                 const float w[3], int v0,
                                                 bool clamp, float* dx,
-                                                float* dy) {
+                                                float* dy, float tau[3]) {
   const int v1 = (v0 + 1) % 3;
   const int v2 = (v0 + 2) % 3;
   const float* sym = r + kSym;
@@ -116,6 +132,11 @@ __device__ __forceinline__ void edge_projection(const float* r,
   t[v0] = tv0 - w[v0];
   t[v1] = tv1 - w[v1];
   t[v2] = 0.0f - w[v2];
+  if (TAU) {
+    tau[v0] = tv0;  // the projected point itself, t + w of the plain version
+    tau[v1] = tv1;
+    tau[v2] = 0.0f;
+  }
   *dx = dot3_rn(t[0], t[1], t[2], r[kFace + 0], r[kFace + 3], r[kFace + 6]);
   *dy = dot3_rn(t[0], t[1], t[2], r[kFace + 1], r[kFace + 4], r[kFace + 7]);
 }
@@ -130,11 +151,15 @@ __device__ __forceinline__ bool corner_shift(const float* r, int base,
 }
 
 // geometry.euclidean_p2f_distance (reference soft_rasterize.py:57-147):
-// sets sign (+1 inside, -1 outside) and the squared distance.
+// sets sign (+1 inside, -1 outside), the offset (dx, dy) to the closest
+// point, the squared distance and, with TAU, that point's barycentrics.
+template <bool TAU>
 __device__ __forceinline__ void euclidean_distance(const float* r,
                                                    const float w[3],
                                                    float xp, float yp,
-                                                   float* sign, float* dis) {
+                                                   float* sign, float* dis,
+                                                   float* dxo, float* dyo,
+                                                   float tau[3]) {
   const bool inside = w[0] > 0.0f && w[0] < 1.0f && w[1] > 0.0f &&
                       w[1] < 1.0f && w[2] > 0.0f && w[2] < 1.0f;
   float dx, dy;
@@ -143,13 +168,18 @@ __device__ __forceinline__ void euclidean_distance(const float* r,
     float best = 0.0f;
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      float ex, ey;
-      edge_projection(r, w, k, false, &ex, &ey);
+      float ex, ey, et[3];
+      edge_projection<TAU>(r, w, k, false, &ex, &ey, et);
       const float d = __fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey));
       if (k == 0 || d < best) {
         best = d;
         dx = ex;
         dy = ey;
+        if (TAU) {
+          tau[0] = et[0];
+          tau[1] = et[1];
+          tau[2] = et[2];
+        }
       }
     }
     *sign = 1.0f;
@@ -171,10 +201,27 @@ __device__ __forceinline__ void euclidean_distance(const float* r,
     } else {
       v0 = 0;  // w2 <= 0, or some w >= 1 with all w > 0
     }
-    edge_projection(r, w, v0, true, &dx, &dy);
+    edge_projection<TAU>(r, w, v0, true, &dx, &dy, tau);
     *sign = -1.0f;
   }
+  *dxo = dx;
+  *dyo = dy;
   *dis = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+}
+
+// geometry.barycentric_clip and perspective_depth: the clipped,
+// renormalised barycentrics wc and zp = 1 / sum(wc_k / z_k).  Intrinsics
+// only, so that every kernel computes the same bits (see "Depth bits").
+__device__ __forceinline__ float clipped_depth(const float* r, const float w[3],
+                                               float wc[3]) {
+  const float c0 = clamp01(w[0]), c1 = clamp01(w[1]), c2 = clamp01(w[2]);
+  const float wsum = fmaxf(__fadd_rn(__fadd_rn(c0, c1), c2), 1e-5f);
+  wc[0] = __fdiv_rn(c0, wsum);
+  wc[1] = __fdiv_rn(c1, wsum);
+  wc[2] = __fdiv_rn(c2, wsum);
+  return __fdiv_rn(1.0f, __fadd_rn(__fadd_rn(__fdiv_rn(wc[0], r[kFace + 2]),
+                                             __fdiv_rn(wc[1], r[kFace + 5])),
+                                   __fdiv_rn(wc[2], r[kFace + 8])));
 }
 
 // _pairwise_terms of the plain version for one pair.  Returns alpha_valid
@@ -183,7 +230,7 @@ __device__ __forceinline__ void euclidean_distance(const float* r,
 // read alpha_valid first), so the rest of its math is skipped.  Most
 // pairs of a tile list lie outside the face's bbox, so the cheap bbox
 // test comes first.
-template <int DIST>
+template <int DIST, bool GRAD = false>
 __device__ __forceinline__ bool pair_terms(const float* r, float xp, float yp,
                                            const Scalars& s, PairTerms* t) {
   const float x0 = r[kFace + 0], x1 = r[kFace + 3], x2 = r[kFace + 6];
@@ -213,22 +260,25 @@ __device__ __forceinline__ bool pair_terms(const float* r, float xp, float yp,
     if (-dis >= s.threshold) return false;
     t->sf = sigmoid(dis / s.sigma);
   } else {
-    float sign, dis;
-    euclidean_distance(r, w, xp, yp, &sign, &dis);
+    float sign, dis, dx, dy, tau[3];
+    euclidean_distance<GRAD>(r, w, xp, yp, &sign, &dis, &dx, &dy, tau);
     if (sign < 0.0f && dis >= s.threshold) return false;
     t->sf = sigmoid(sign * dis / s.sigma);
+    if (GRAD) {
+      t->sign = sign;
+      t->dis_x = dx;
+      t->dis_y = dy;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) t->tau[k] = tau[k];
+    }
   }
   t->inside = inside;
+  if (GRAD) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) t->w[k] = w[k];
+  }
 
-  // barycentric clip and perspective-correct depth
-  float wc[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) wc[k] = clamp01(w[k]);
-  const float wsum = fmaxf(wc[0] + wc[1] + wc[2], 1e-5f);
-#pragma unroll
-  for (int k = 0; k < 3; ++k) t->wc[k] = wc[k] / wsum;
-  t->zp = 1.0f / (t->wc[0] / r[kFace + 2] + t->wc[1] / r[kFace + 5] +
-                  t->wc[2] / r[kFace + 8]);
+  t->zp = clipped_depth(r, w, t->wc);
   t->tk_valid = t->zp >= s.near && t->zp <= s.far;
   return true;
 }

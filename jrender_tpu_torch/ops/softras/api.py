@@ -6,14 +6,18 @@ Counterpart of ``jrender_tpu/ops/softras/api.py`` (``soft_rasterize``
 caller's device (the card unless ``device='cpu'``); the forward then goes
 by that device: CUDA to the hand-written kernel, CPU to the plain version.
 
-The JAX package's gradient is the reference's top-K truncated backward
-(``grad_mode='topk'``), not the derivative of the forward.  Until that
-backward is ported, ``soft_rasterize`` is an autograd Function whose
-backward raises, so no untruncated gradient can leak out of the forward.
+The gradient is the reference's top-K truncated backward, as in the JAX
+package (``_core_fwd`` / ``_core_bwd``, api.py:141-219), not the
+derivative of the forward: ``soft_rasterize`` is an autograd Function
+with an explicit backward, and autograd never differentiates the forward.
+With ``grad_mode='topk'`` (the default) a pixel sends gradient to its
+``max_faces_per_pixel_for_grad`` nearest candidates only; ``'full'``
+sends it to every candidate.
 """
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..._device import resolve_device
 from . import cuda_impl
@@ -21,19 +25,36 @@ from .params import SoftRasParams, make_params
 
 
 class SoftRasterize(torch.autograd.Function):
-    """images [B,4,H,W] from face_vertices [B,F,9] and textures."""
+    """images [B,4,H,W] from face_vertices [B,F,9] and textures;
+    ``need_grad`` says whether a backward may follow."""
 
     @staticmethod
-    def forward(ctx, face_vertices, textures, p: SoftRasParams):
-        images, _aggrs, _counts = cuda_impl.soft_rasterize_fwd(
-            face_vertices, textures, p)
+    def forward(ctx, face_vertices, textures, p: SoftRasParams, need_grad: bool):
+        inputs = None
+        if face_vertices.device.type == 'cuda':
+            # rows and tile lists are made once and kept for the backward
+            inputs = cuda_impl.prepare(face_vertices, textures, p, for_grad=need_grad)
+            images, aggrs, counts = cuda_impl.launch(inputs, p)
+        else:
+            images, aggrs, counts = cuda_impl.soft_rasterize_fwd(
+                face_vertices, textures, p)
+        if need_grad:
+            # only a step that asks for a gradient pays for the threshold
+            thr = cuda_impl.topk_threshold(face_vertices, p, inputs, counts)
+            ctx.p = p
+            ctx.inputs = inputs
+            ctx.save_for_backward(face_vertices, textures, images, aggrs, thr)
         return images
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, grad_images):
-        raise NotImplementedError(
-            'the SoftRas backward (top-K truncated, as in the JAX package) '
-            'is not ported yet; it comes in the next slice of the port')
+        face_vertices, textures, images, aggrs, thr = ctx.saved_tensors
+        grad_face, grad_tex = cuda_impl.soft_rasterize_bwd(
+            face_vertices, textures, images, aggrs, thr, grad_images, ctx.p,
+            ctx.inputs)
+        return (grad_face if ctx.needs_input_grad[0] else None,
+                grad_tex if ctx.needs_input_grad[1] else None, None, None)
 
 
 def _inputs(face_vertices, textures, texture_type, device):
@@ -70,15 +91,22 @@ def soft_rasterize(face_vertices, textures, image_size=256,
                     max_faces_per_pixel_for_grad=max_faces_per_pixel_for_grad,
                     grad_mode=grad_mode)
     face_vertices, textures = _inputs(face_vertices, textures, texture_type, device)
-    return SoftRasterize.apply(face_vertices, textures, p)
+    # under torch.no_grad() nothing is kept for a backward and the
+    # threshold kernel is not launched
+    need_grad = torch.is_grad_enabled() and (face_vertices.requires_grad
+                                             or textures.requires_grad)
+    return SoftRasterize.apply(face_vertices, textures, p, need_grad)
 
 
 def soft_rasterize_with_aux(face_vertices, textures, p: SoftRasParams,
                             device=None):
     """Forward without autograd: (images [B,4,H,W], aggrs [B,2,H,W],
     counts [B,H,W] int32).  The JAX package's third output is the top-K
-    face ids, which belong to the backward; here it is the per-pixel
-    candidate count (the reference's q_size)."""
+    face ids, which only its oracle's backward reads; the port's backward
+    reads a depth threshold instead (``cuda_impl.topk_threshold``), which
+    a plain forward does not pay for, so the third output here is the
+    per-pixel candidate count (the reference's q_size).  The face ids
+    themselves are ``torch_impl.topk_face_ids``."""
     face_vertices, textures = _inputs(face_vertices, textures, p.texture_type,
                                       device)
     with torch.no_grad():

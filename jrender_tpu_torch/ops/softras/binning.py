@@ -56,6 +56,10 @@ class CompactLists(NamedTuple):
     glist: torch.Tensor         # [B, F] i32 big-face ids, ascending, -1 padded
     gcount: torch.Tensor        # [B] i32 number of valid glist entries
     ranges: torch.Tensor        # [B, F, 4] i32 (ty_min, ty_max, tx_min, tx_max)
+    # for the backward's face reduction (``with_inverse``), else None:
+    gsrc: torch.Tensor | None = None  # [B, F, mt] i32 place of each emitted
+    #                                   pair in faces_sorted, -1 where none
+    gpos: torch.Tensor | None = None  # [B, F] i32 place in glist, -1 if not big
 
 
 def pixel_ranges(face, image_size, threshold):
@@ -127,22 +131,39 @@ def emit_pairs(face, image_size: int, tile_h: int, tile_w: int,
 
 def build_tile_lists_compact(face: torch.Tensor, image_size: int, tile_h: int,
                              tile_w: int, threshold: float,
-                             mt: int | None = None) -> CompactLists:
+                             mt: int | None = None,
+                             with_inverse: bool = False) -> CompactLists:
     """face: [B, F, 9] screen-space face vertices.  Emit <= mt pairs per
     face, sort by (tile, face), keep the sorted run and per-tile offsets;
-    faces spanning more than mt tiles go to the uncapped glist."""
+    faces spanning more than mt tiles go to the uncapped glist.
+
+    ``with_inverse`` also returns the inverse of the sort: ``gsrc``, where
+    each emitted pair (face, j) landed in ``faces_sorted`` (ascending j is
+    ascending tile), and ``gpos``, each big face's place in ``glist``.  The
+    backward writes one gradient row per sorted pair and per big face, and
+    its reduction gathers a face's rows through these (the analogue of
+    ``prep['gsrc']`` of the JAX package's pxt_impl.py)."""
     B, F, _ = face.shape
     mt = mt_for(F) if mt is None else mt
     ty_min, ty_max, tx_min, tx_max, _empty, TY, TX = _tile_ranges(
         face, image_size, tile_h, tile_w, threshold)
     n_tiles = TY * TX
-    pair_tile, _ok, big, stride = emit_pairs(face, image_size, tile_h, tile_w,
-                                             threshold, mt)
+    pair_tile, pair_ok, big, stride = emit_pairs(face, image_size, tile_h, tile_w,
+                                                 threshold, mt)
     dev = face.device
     fids = torch.arange(F, dtype=torch.int64, device=dev)
 
     key = (pair_tile.to(torch.int64) * stride + fids[None, :, None]).reshape(B, -1)
-    keys_sorted = torch.sort(key, dim=1).values
+    gsrc = gpos = None
+    if with_inverse:
+        keys_sorted, order = torch.sort(key, dim=1)
+        place = torch.empty_like(order)
+        place.scatter_(1, order, torch.arange(key.shape[1], device=dev)[None].expand(B, -1))
+        gsrc = torch.where(pair_ok.reshape(B, -1), place, -1).to(torch.int32) \
+            .reshape(B, F, mt)
+        gpos = torch.where(big, big.cumsum(dim=1) - 1, -1).to(torch.int32)
+    else:
+        keys_sorted = torch.sort(key, dim=1).values
     tiles_s = torch.div(keys_sorted, stride, rounding_mode='floor')
     faces_sorted = (keys_sorted - tiles_s * stride).to(torch.int32)
     bounds = torch.arange(n_tiles + 1, dtype=torch.int64, device=dev)
@@ -168,7 +189,7 @@ def build_tile_lists_compact(face: torch.Tensor, image_size: int, tile_h: int,
     return CompactLists(
         faces_sorted=faces_sorted, starts=starts, run_counts=run_counts,
         counts=counts, glist=glist, gcount=gcount,
-        ranges=ranges.to(torch.int32).contiguous())
+        ranges=ranges.to(torch.int32).contiguous(), gsrc=gsrc, gpos=gpos)
 
 
 def tile_list(cl: CompactLists, b: int, tile: int, tiles_x: int):

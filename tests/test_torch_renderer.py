@@ -2,8 +2,9 @@
 
 ``jrender_tpu_torch.Renderer(device='cpu').render_mesh`` against
 ``jrender_tpu.Renderer(backend='jax')`` on ``bench.py``'s UV sphere with
-seeded textures, and its parts one by one: Transform, Lighting, Mesh.
-The scene goes across with ``jrender_tpu_torch.convert``.
+seeded textures, forward and gradients, demo 2's training step, and the
+parts one by one: Transform, Lighting, Mesh.  The scene and the training
+state go across with ``jrender_tpu_torch.convert``.
 
 Image tolerances are those of test_torch_softras.py, knife edges
 included (``assert_rgb_close``): here the sphere's pole rows are slivers
@@ -30,8 +31,9 @@ from jrender_tpu_torch.ops.softras import make_params, torch_impl
 from jrender_tpu_torch.renderer.rasterizer import pool2x_mean
 from jrender_tpu_torch.structures import mesh as tmesh
 
-from test_torch_softras import (ATOL, RTOL, assert_close_except_edges, assert_rgb_close,
-                                texel_tie_variants)
+from test_torch_softras import (ATOL, RTOL, assert_close_except_edges, assert_grad_close,
+                                assert_rgb_close, fold_ties, texel_tie_variants,
+                                tie_symmetric)
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
@@ -146,6 +148,171 @@ def test_demo1_loop_resets_the_mesh():
         mt.reset_()
         frames.append(rt.render_mesh(mt, mode='rgb'))
     torch.testing.assert_close(frames[0], frames[1], rtol=0, atol=0)
+
+
+# --------------------------------------------------------------------------
+# gradients through render_mesh, and demo 2's training step
+# --------------------------------------------------------------------------
+#
+# Gradient tolerance: atol = 2e-3 * max|grad| and rtol = 2e-3, that of
+# tests/test_softras_pallas.py:126-128, for every entry (measured: max
+# 0.3% of the scale).  The textures are equal on the two
+# sides of the texel selector's diagonal tie and their gradients are
+# compared folded over each tie pair (see test_torch_softras.py).  K stays
+# at the Renderer's 16, which rarely binds on this sphere: on a connected
+# mesh the faces around a vertex have the same clipped depth at a pixel
+# beyond it, a tie at the K-th place that the oracle's face ids and the
+# kernels' threshold resolve differently (test_topk_ties_keep_every_tied_face).
+
+def small_sphere(seed, R):
+    v, f = uv_sphere(9, 10)                              # 160 faces
+    tex = np.random.RandomState(seed).uniform(size=(1, f.shape[0], R * R, 3))
+    return v, f, tie_symmetric(tex.astype(np.float32))
+
+
+@pytest.mark.parametrize('mode,R,kw', [
+    ('rgb', 1, dict(image_size=64)),
+    ('silhouettes', 1, dict(image_size=64)),
+    (None, 2, dict(image_size=64)),
+    (None, 1, dict(image_size=32, anti_aliasing=True)),
+    ('rgb', 2, dict(image_size=64, sigma_val=1e-4, gamma_val=1e-3, fill_back=False)),
+], ids=['rgb', 'silhouettes', 'both-R2', 'anti-aliasing', 'wide'])
+def test_render_mesh_gradients_match_jax(mode, R, kw):
+    """d(render_mesh)/d(vertices, textures) through lighting, transform,
+    the rasterizer's explicit backward, the anti-aliasing pool and the mode
+    slicing, against jax.grad of the JAX package with backend='jax'."""
+    import jax
+    import jax.numpy as jnp
+    v, f, tex = small_sphere(11, R)
+    rj, rt = both_renderers(40, **kw)
+    is_ = kw['image_size']
+    rng = np.random.RandomState(12)
+    ga = rng.randn(1, is_, is_).astype(np.float32)
+    gc = rng.randn(1, 3, is_, is_).astype(np.float32)
+
+    def weigh(out, xp):
+        if mode == 'rgb':
+            return xp.sum(out * gc)
+        if mode == 'silhouettes':
+            return xp.sum(out * ga)
+        return xp.sum(out[0] * ga) + xp.sum(out[1] * gc)
+
+    def loss_j(vv, tt):
+        return weigh(rj.render_mesh(jr.Mesh(vv, f, textures=tt, texture_res=R), mode=mode), jnp)
+
+    gvj, gtj = jax.grad(loss_j, argnums=(0, 1))(jnp.asarray(v), jnp.asarray(tex))
+    vt = torch.tensor(v, requires_grad=True)
+    tt = torch.tensor(tex, requires_grad=True)
+    mesh = jt.Mesh(vt, f, textures=tt, texture_res=R, device='cpu')
+    out = rt.render_mesh(mesh, mode=mode)
+    ga, gc = torch.tensor(ga), torch.tensor(gc)
+    weigh(out, torch).backward()
+    assert vt.grad.shape == v.shape
+    assert_grad_close(vt.grad.numpy(), np.asarray(gvj))
+    if mode == 'silhouettes':
+        # alpha does not depend on the textures
+        assert tt.grad is None or float(tt.grad.abs().max()) == 0
+        assert float(np.abs(np.asarray(gtj)).max()) == 0
+    else:
+        assert_grad_close(fold_ties(tt.grad.numpy()), fold_ties(np.asarray(gtj)))
+    # reset_ restores the leaves, so the next frame differentiates again
+    mesh.reset_()
+    assert mesh.vertices.shape == (1,) + v.shape and mesh.textures is tt
+
+
+def test_gradient_reaches_mesh_leaves_and_vertex_colours():
+    """A leaf that requires grad survives Mesh's and soft_rasterize's
+    conversions; vertex colours get their gradient through face_textures."""
+    v, f, _ = small_sphere(0, 1)
+    col = np.random.RandomState(3).uniform(size=(1, v.shape[0], 3)).astype(np.float32)
+    vt = torch.tensor(v[None], requires_grad=True)
+    ct = torch.tensor(col, requires_grad=True)
+    mesh = jt.Mesh(vt, f, textures=ct, texture_type='vertex', device='cpu')
+    assert mesh.vertices is vt and mesh.textures is ct
+    rt = jt.Renderer(image_size=32, device='cpu', sigma_val=1e-4)
+    rt.transform.set_eyes_from_angles(2.732, 20, 60)
+    alpha, rgb = rt.render_mesh(mesh, mode=None)
+    assert alpha.requires_grad and rgb.requires_grad
+    (alpha.sum() + rgb.sum()).backward()
+    for g in (vt.grad, ct.grad):
+        assert g is not None and torch.isfinite(g).all() and g.abs().max() > 0
+    with torch.no_grad():
+        mesh.reset_()
+        assert not rt.render_mesh(mesh, mode='rgb').requires_grad
+
+
+def test_demo2_three_steps_match_jax():
+    """Three steps of demo 2's optimisation (demos/demo2-deform.py:49-80)
+    in both packages from the same state: 96-face sphere, 4 views at 32 px,
+    silhouettes of an ellipsoid as targets, Adam(0.01, betas 0.5, 0.99).
+    Adam divides by the gradient's running magnitude, so after three steps
+    an entry has moved by about 0.03 whatever its gradient's size, and an
+    entry whose gradient is at rounding level can go either way: the
+    parameters are held to 2e-3 (a fifteenth of the distance moved) for all
+    but 1% of the entries, and the losses to 1e-4."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from jrender_tpu_torch import deform
+    v, f = uv_sphere(7, 8)
+    v0 = (v * 0.5)[None].astype(np.float32)
+    B = 4
+    cams = (np.full(B, 2.732, np.float32), np.array([0, 15, 30, 45], np.float32),
+            np.array([10, 100, 190, 280], np.float32))
+    kw = dict(image_size=32, sigma_val=1e-4, aggr_func_rgb='hard', camera_mode='look_at',
+              viewing_angle=15)
+    rj = jr.Renderer(backend='jax', **kw)
+    rj.transform.set_eyes_from_angles(*(jnp.asarray(c) for c in cams))
+    rt = jt.Renderer(device='cpu', **kw)
+    convert.copy_renderer_state(rj, rt)
+    faces_j = jnp.asarray(f)[None]
+    targets = np.asarray(rj.render_mesh(
+        jr.Mesh(jnp.repeat(jnp.asarray(v0 * np.float32([1.4, 0.7, 1.0])), B, 0),
+                jnp.repeat(faces_j, B, 0)), mode='silhouettes'))
+    assert 0.02 < targets.mean() < 0.9
+
+    lap_j = jr.LaplacianLoss(v0[0], f)
+    flat_j = jr.FlattenLoss(f)
+    params = {'displace': jnp.zeros(v0.shape), 'center': jnp.zeros((1, 1, 3))}
+    optimizer = optax.adam(0.01, b1=0.5, b2=0.99)
+    opt_state = optimizer.init(params)
+
+    def build_vertices(p):
+        base = jnp.log(jnp.abs(v0) / (1 - jnp.abs(v0)))
+        centroid = jnp.tanh(p['center'])
+        vv = jax.nn.sigmoid(base + p['displace']) * jnp.sign(v0)
+        vv = jax.nn.relu(vv) * (1 - centroid) - jax.nn.relu(-vv) * (centroid + 1)
+        return vv + centroid
+
+    def loss_fn(p):
+        vv = build_vertices(p)
+        sil = rj.render_mesh(jr.Mesh(jnp.repeat(vv, B, 0), jnp.repeat(faces_j, B, 0)),
+                             mode='silhouettes')
+        return jr.neg_iou_loss(sil, jnp.asarray(targets)) + 0.03 * jnp.mean(lap_j(vv)) \
+            + 0.0003 * jnp.mean(flat_j(vv))
+
+    model = deform.DeformModel(v0, f)
+    convert.load_deform_params(model, {k: np.asarray(x) for k, x in params.items()})
+    convert.copy_loss_state(lap_j, model.laplacian_loss)
+    convert.copy_loss_state(flat_j, model.flatten_loss)
+    opt_t = torch.optim.Adam(model.parameters(), lr=0.01, betas=(0.5, 0.99))
+    tt = torch.tensor(targets)
+    losses_j, losses_t = [], []
+    for _ in range(3):
+        loss, grads = jax.value_and_grad(loss_fn)(params)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        params = optax.apply_updates(params, updates)
+        losses_j.append(float(loss))
+        losses_t.append(float(deform.deform_step(model, opt_t, rt, tt)[0]))
+    np.testing.assert_allclose(losses_t, losses_j, atol=1e-4)
+    assert losses_t[-1] < losses_t[0]
+    got = convert.deform_params(model)
+    for name in ('displace', 'center'):
+        want = np.asarray(params[name])
+        assert np.abs(want).max() > 0.02                  # the parameters moved
+        bad = np.abs(got[name] - want) > 2e-3
+        assert bad.mean() <= 0.01, f'{name}: {bad.mean():.4f} beyond 2e-3, ' \
+            f'max {np.abs(got[name] - want).max():.3g}'
 
 
 # --------------------------------------------------------------------------

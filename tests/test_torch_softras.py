@@ -4,7 +4,7 @@ Same numpy inputs, made from a seed, go to ``jrender_tpu`` (the oracle,
 ``backend='jax'``) and to ``jrender_tpu_torch`` with ``device='cpu'``,
 where the kernel wrapper takes its plain PyTorch version.
 
-Tolerances are those of tests/test_softras_pallas.py: rgb atol 2e-5,
+Image tolerances are those of tests/test_softras_pallas.py: rgb atol 2e-5,
 alpha and softmax aggregates atol 2e-5 + rtol 1e-4, hard depth atol 1e-5.
 Two float32 implementations that round differently agree except at
 knife-edge pixels, so each image check holds all pixels but 1% within the
@@ -53,6 +53,7 @@ from jrender_tpu_torch.ops.softras import binning, cuda_impl, torch_impl
 from jrender_tpu_torch.ops.softras import geometry as tgeo
 from jrender_tpu_torch.ops.softras import make_params, soft_rasterize
 from jrender_tpu_torch.ops.softras.api import soft_rasterize_with_aux
+from jrender_tpu_torch.utils.checks import fold_ties, grad_beyond, tie_symmetric
 
 from conftest import make_random_mesh
 
@@ -457,12 +458,374 @@ def test_soft_rasterize_entry(rng):
     assert cnt2.dtype == torch.int32
 
 
-def test_backward_raises(rng):
-    fv, tex = soup(rng, F=8)
+# --------------------------------------------------------------------------
+# backward: top-K, the plain version against the JAX oracle, autograd
+# --------------------------------------------------------------------------
+#
+# Gradient tolerance: atol = 2e-3 * max|grad| and rtol = 2e-3, that of
+# tests/test_softras_pallas.py:126-128.  With more than one texel per face
+# the diagonal tie of the texel selector (module docstring) moves gradient
+# between texel i and texel T-1-i and, through the colour, changes the face
+# gradient.  So the textures of these tests are equal on the two sides of
+# the tie (``tie_symmetric``), which makes the face gradient independent of
+# it, and texture gradients are compared folded over each tie pair
+# (``fold_ties``); one test with generic textures compares the per-face
+# totals, as the JAX suite does.
+
+
+def assert_grad_close(actual, expected, frac=0.0):
+    share, err = grad_beyond(np.asarray(actual), np.asarray(expected))
+    assert share <= frac, \
+        f'{share:.4f} of entries beyond tolerance (allowed {frac}); ' \
+        f'max diff {err:.3g} of max|expected|'
+
+
+def grads_both(fv, tex, g, K_oracle=None, **kw):
+    """(grad_face, grad_tex) of the JAX oracle's backward and of the port's
+    plain backward on the same inputs and incoming gradient g, each on its
+    own forward.  ``K_oracle`` gives the oracle another K than the port."""
+    pt = make_params(**kw)
+    pj = jax_params(**{**kw, 'grad_mode': 'topk', **(
+        {} if K_oracle is None else {'max_faces_per_pixel_for_grad': K_oracle})})
+    fj, tj = jnp.asarray(fv), jnp.asarray(tex)
+    oj, aj, ids = jax_impl.soft_rasterize_fwd_jax(fj, tj, pj)
+    gfj, gtj = jax_impl.soft_rasterize_bwd_jax(fj, tj, oj, aj, ids, jnp.asarray(g), pj)
+    fvt, text = torch.tensor(fv), torch.tensor(tex)
+    ot, at, _ = torch_impl.soft_rasterize_fwd_plain(fvt, text, pt)
+    thr = cuda_impl.topk_threshold(fvt, pt)
+    gft, gtt = cuda_impl.soft_rasterize_bwd(fvt, text, ot, at, thr, torch.tensor(g), pt)
+    return np.asarray(gfj), np.asarray(gtj), gft.numpy(), gtt.numpy()
+
+
+def check_grads(gfj, gtj, gft, gtt, surface=True):
+    assert_grad_close(gft, gfj)
+    if surface:
+        assert_grad_close(fold_ties(gtt), fold_ties(gtj))
+    else:
+        assert_grad_close(gtt, gtj)
+
+
+@pytest.mark.parametrize('K', [1, 4, 16, 64])
+def test_topk_threshold_and_face_ids(K, rng):
+    """topk_face_ids is the oracle's third output; topk_threshold is the
+    depth of the last of those ids where the pixel has more than K
+    candidates, and far elsewhere."""
+    F, is_ = 48, 32
+    fv, tex = soup(rng, F=F, T=1)
+    kw = dict(image_size=is_, sigma_val=1e-3, max_faces_per_pixel_for_grad=K)
+    _, _, ids_j = jax_impl.soft_rasterize_fwd_jax(jnp.asarray(fv), jnp.asarray(tex),
+                                                  jax_params(**kw))
+    p = make_params(**kw)
+    fvt = torch.tensor(fv)
+    xp, yp = torch_impl.pixel_grid(is_)
+    ids = torch_impl.topk_face_ids(fvt, p, xp, yp, chunk_pairs=5000)
+    assert ids.shape == (1, is_ * is_, K)
+    ids_j = np.asarray(ids_j).reshape(1, K, -1).transpose(0, 2, 1)
+    # two roundings of one depth can order a near-tie differently
+    assert (ids.numpy() != ids_j).any(axis=-1).mean() <= 0.002
+    thr = torch_impl.topk_threshold(fvt, p, xp, yp, chunk_pairs=5000)[0]
+    _, _, counts = torch_impl.soft_rasterize_fwd_plain(fvt, torch.tensor(tex), p)
+    counts = counts.reshape(-1)
+    assert (thr[counts <= K] == p.far).all()
+    if K >= F:
+        assert not torch_impl.use_threshold(p, F)
+        return
+    over = counts > K
+    assert over.any() == (K < 16)
+    depth = torch_impl._candidate_depths(fvt[0], p, xp, yp)
+    kth = depth.gather(1, ids[0, :, K - 1:K].clamp_min(0))[:, 0]
+    torch.testing.assert_close(thr[over], kth[over], rtol=0, atol=0)
+    # no ties here: exactly K candidates lie within the threshold
+    assert ((depth <= thr[:, None]).sum(1)[over] == K).all()
+
+
+@pytest.mark.parametrize('dist_func', ['hard', 'barycentric', 'euclidean'])
+@pytest.mark.parametrize('rgb_func', ['hard', 'softmax'])
+@pytest.mark.parametrize('alpha_func', ['hard', 'sum', 'prod'])
+def test_backward_configs(dist_func, rgb_func, alpha_func, rng):
+    fv, tex = soup(rng, F=48, T=4)
+    g = rng.randn(1, 4, 32, 32).astype(np.float32)
+    check_grads(*grads_both(fv, tie_symmetric(tex), g, image_size=32, sigma_val=1e-3,
+                            gamma_val=1e-3, dist_func=dist_func, aggr_func_rgb=rgb_func,
+                            aggr_func_alpha=alpha_func))
+
+
+@pytest.mark.parametrize('T', [1, 4, 'vertex'])
+@pytest.mark.parametrize('K', [4, 16])
+def test_backward_textures_batched(T, K, rng):
+    """B = 2, one and four texels and vertex colours, with K = 4 binding
+    at most covered pixels and K = 16 at few."""
+    vertex = T == 'vertex'
+    fv, tex = soup(rng, F=48, B=2, T=3 if vertex else T)
+    tex = tex if vertex else tie_symmetric(tex)
+    g = rng.randn(2, 4, 32, 32).astype(np.float32)
+    kw = dict(image_size=32, sigma_val=1e-3, gamma_val=1e-3,
+              texture_type='vertex' if vertex else 'surface',
+              max_faces_per_pixel_for_grad=K)
+    if K == 4:
+        counts = torch_impl.soft_rasterize_fwd_plain(torch.tensor(fv), torch.tensor(tex),
+                                                     make_params(**kw))[2]
+        assert (counts > K).float().mean() > 0.1          # the truncation binds
+    check_grads(*grads_both(fv, tex, g, **kw), surface=not vertex)
+
+
+def test_backward_fill_back_off_has_no_side_check(rng):
+    """The backward's rgb chain has no front-side check: a back face that
+    the forward left out of the softmax still gets gradient.  gamma keeps
+    exp((zpn - M) / gamma) of a lone back face within float32."""
+    fv, tex = soup(rng, F=48, T=1)
+    g = rng.randn(1, 4, 32, 32).astype(np.float32)
+    gfj, gtj, gft, gtt = grads_both(fv, tex, g, image_size=32, sigma_val=1e-3,
+                                    gamma_val=0.1, fill_back=False)
+    check_grads(gfj, gtj, gft, gtt)
+    back = ~tgeo.check_face_frontside(torch.tensor(fv))[0].numpy()
+    assert back.any() and np.abs(gtt[0, back]).max() > 0
+
+
+def test_backward_full_matches_oracle_at_K_equals_F(rng):
+    """The oracle ignores grad_mode and always truncates to K; the port's
+    'full' sends gradient to every candidate: the oracle's K = F."""
+    F = 48
+    fv, tex = soup(rng, F=F, T=1)
+    g = rng.randn(1, 4, 32, 32).astype(np.float32)
+    kw = dict(image_size=32, sigma_val=1e-3, gamma_val=1e-3,
+              max_faces_per_pixel_for_grad=2, grad_mode='full')
+    gfj, gtj, gft, gtt = grads_both(fv, tex, g, K_oracle=F, **kw)
+    check_grads(gfj, gtj, gft, gtt)
+    # and it is not the truncated gradient
+    gft_topk = grads_both(fv, tex, g, **{**kw, 'grad_mode': 'topk'})[2]
+    assert np.abs(gft_topk - gft).max() > 0.05 * np.abs(gft).max()
+
+
+def test_backward_generic_textures_face_totals(rng):
+    """Generic textures with four texels: a tie flip moves gradient between
+    texels of a face, so the per-face totals are compared, as
+    tests/test_softras_pallas.py:129-144 does."""
+    fv, tex = soup(rng, F=48, T=4)
+    g = rng.randn(1, 4, 32, 32).astype(np.float32)
+    g[:, :3] = g[:, :1]       # one weight for r, g and b keeps totals flip-invariant
+    _, gtj, _, gtt = grads_both(fv, tex, g, image_size=32, sigma_val=1e-3,
+                                gamma_val=1e-3, aggr_func_rgb='hard')
+    assert_grad_close(gtt.sum(axis=2), gtj.sum(axis=2))
+
+
+def test_threshold_form_equals_face_id_form(rng):
+    """The masked form (zp <= thr, as the kernels compute it) equals the
+    oracle's gather by face ids where no candidate depths tie."""
+    fv, tex = soup(rng, F=48, T=4)
+    p = make_params(image_size=32, sigma_val=1e-3, gamma_val=1e-3,
+                    max_faces_per_pixel_for_grad=4)
+    fvt, text = torch.tensor(fv), torch.tensor(tex)
+    out, ag, _ = torch_impl.soft_rasterize_fwd_plain(fvt, text, p)
+    xp, yp = torch_impl.pixel_grid(32)
+    g = torch.tensor(rng.randn(1, 32 * 32, 4).astype(np.float32))
+
+    def flat(x):
+        return x.reshape(1, x.shape[1], -1).permute(0, 2, 1)
+
+    by_thr = torch_impl.backward_pixels(fvt, text, flat(out), flat(ag), g, p, xp, yp,
+                                        thr=torch_impl.topk_threshold(fvt, p, xp, yp))
+    by_ids = torch_impl.backward_pixels(fvt, text, flat(out), flat(ag), g, p, xp, yp,
+                                        face_ids=torch_impl.topk_face_ids(fvt, p, xp, yp),
+                                        chunk_pairs=7000)
+    untruncated = torch_impl.backward_pixels(fvt, text, flat(out), flat(ag), g, p, xp, yp)
+    for a, b, c in zip(by_thr, by_ids, untruncated):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+        assert (a - c).abs().max() > 0.01 * c.abs().max()
+
+
+def test_topk_ties_keep_every_tied_face():
+    """Where candidate depths tie at the K-th place the two forms differ,
+    as the JAX package's oracle and its TPU kernels do: the oracle's stable
+    sort keeps the lowest face index, ``zp <= thr`` keeps every tied face.
+    Three overlapping faces share the vertex (0, 0, 2), as front and back
+    faces do at a silhouette vertex; a pixel beyond the vertex, opposite
+    all three, clips to it on each face, so all three have zp = 2 exactly."""
+    fan = np.array([[[0, 0, 2, -0.6, 0.1, 2.5, -0.6, 0.5, 3.0],
+                     [0, 0, 2, -0.5, 0.0, 3.0, -0.3, 0.6, 2.2],
+                     [0, 0, 2, -0.6, 0.3, 2.2, -0.4, 0.6, 2.8]]], np.float32)
+    p = make_params(image_size=32, sigma_val=1e-2, max_faces_per_pixel_for_grad=1)
+    fvt = torch.tensor(fan)
+    xp, yp = torch.tensor([0.15625]), torch.tensor([-0.09375])
+    depth = torch_impl._candidate_depths(fvt[0], p, xp, yp)
+    assert depth.tolist() == [[2.0, 2.0, 2.0]]
+    assert torch_impl.topk_threshold(fvt, p, xp, yp).tolist() == [[2.0]]
+    assert torch_impl.topk_face_ids(fvt, p, xp, yp).tolist() == [[[0]]]
+    tex = torch.rand(1, 3, 1, 3, generator=torch.Generator().manual_seed(0))
+    col, ag, cnt = torch_impl.forward_pixels(fvt, tex, p, xp, yp)
+    assert cnt.tolist() == [[3]]
+    g = torch.ones(1, 1, 4)
+    by_thr = torch_impl.backward_pixels(fvt, tex, col, ag, g, p, xp, yp,
+                                        thr=torch_impl.topk_threshold(fvt, p, xp, yp))[0]
+    by_ids = torch_impl.backward_pixels(fvt, tex, col, ag, g, p, xp, yp,
+                                        face_ids=torch_impl.topk_face_ids(fvt, p, xp, yp))[0]
+    moved = lambda gf: (gf[0].abs().sum(dim=1) > 0).tolist()
+    assert moved(by_thr) == [True, True, True] and moved(by_ids) == [True, False, False]
+    torch.testing.assert_close(by_thr[0, 0], by_ids[0, 0])
+
+
+def test_backward_pixel_subset_and_float64(rng):
+    """The gradient is a sum over pixels: the backward of a subset of the
+    pixels equals the full backward of a gradient that is zero elsewhere;
+    float64 inputs give a float64 gradient that the float32 one matches."""
+    fv, tex = soup(rng, F=24, T=1)
+    p = make_params(image_size=32, sigma_val=1e-3, gamma_val=1e-3,
+                    max_faces_per_pixel_for_grad=4)
+    fvt, text = torch.tensor(fv), torch.tensor(tex)
+    out, ag, _ = torch_impl.soft_rasterize_fwd_plain(fvt, text, p)
+    thr = torch_impl.topk_threshold_plain(fvt, p)
+    idx = torch.tensor(rng.choice(32 * 32, 200, replace=False))
+    g = torch.zeros(1, 4, 32 * 32)
+    g[:, :, idx] = torch.tensor(rng.randn(1, 4, 200).astype(np.float32))
+    full = torch_impl.soft_rasterize_bwd_plain(fvt, text, out, ag, thr, g.reshape(1, 4, 32, 32), p)
+
+    def at(x):
+        return x.reshape(1, x.shape[1], -1)[:, :, idx].permute(0, 2, 1)
+
+    xp, yp = torch_impl.pixel_centers(idx // 32, idx % 32, 32)
+    sub = torch_impl.backward_pixels(fvt, text, at(out), at(ag), at(g), p, xp, yp,
+                                     thr=thr.reshape(1, -1)[:, idx], chunk_pairs=1000)
+    # the threshold is a depth of the same arithmetic: float64 depths take
+    # a float64 threshold, or the K-th candidate falls out at half the pixels
+    exact = torch_impl.backward_pixels(fvt.double(), text.double(), at(out).double(),
+                                       at(ag).double(), at(g).double(), p, xp, yp,
+                                       thr=torch_impl.topk_threshold(fvt.double(), p, xp, yp))
+    for a, b, c in zip(full, sub, exact):
+        assert c.dtype == torch.float64
+        assert_grad_close(b.numpy(), a.numpy())
+        assert_grad_close(b.numpy(), c.numpy())
+
+
+@pytest.mark.parametrize('kw', [dict(), dict(max_faces_per_pixel_for_grad=4),
+                                dict(grad_mode='full'),
+                                dict(texture_type='vertex', aggr_func_alpha='sum')],
+                         ids=['default', 'K4', 'full', 'vertex-sum'])
+def test_soft_rasterize_grad_matches_jax_grad(kw, rng):
+    """``soft_rasterize(...)`` under autograd against ``jax.grad`` of the
+    JAX package's ``soft_rasterize`` with backend='jax'."""
+    import jax
+    from jrender_tpu.ops.softras import soft_rasterize as jax_soft_rasterize
+    vertex = kw.get('texture_type') == 'vertex'
+    F = 40
+    fv, tex = soup(rng, F=F, B=2, T=3 if vertex else 1)
+    g = rng.randn(2, 4, 32, 32).astype(np.float32)
+    kw = dict(image_size=32, sigma_val=1e-3, gamma_val=1e-3, **kw)
+    # the oracle has no 'full': it is its K = F
+    kwj = {**kw, 'grad_mode': 'topk', 'max_faces_per_pixel_for_grad': F} \
+        if kw.get('grad_mode') == 'full' else kw
+
+    def loss_j(f, t):
+        return jnp.sum(jax_soft_rasterize(f, t, backend='jax', **kwj) * g)
+
+    gfj, gtj = jax.grad(loss_j, argnums=(0, 1))(jnp.asarray(fv), jnp.asarray(tex))
+    x = torch.tensor(fv.reshape(2, F, 3, 3), requires_grad=True)
+    t = torch.tensor(tex, requires_grad=True)
+    img = soft_rasterize(x, t, device='cpu', **kw)
+    (img * torch.tensor(g)).sum().backward()
+    assert x.grad.shape == (2, F, 3, 3) and t.grad.shape == tex.shape
+    assert_grad_close(x.grad.reshape(2, F, 9).numpy(), np.asarray(gfj))
+    assert_grad_close(t.grad.numpy(), np.asarray(gtj))
+
+
+def test_backward_honours_needs_input_grad(rng, monkeypatch):
+    """Only what requires a gradient gets one; a forward that no backward
+    can follow computes no threshold."""
+    fv, tex = soup(rng, F=24)
+    calls = []
+    plain = torch_impl.topk_threshold_plain
+    monkeypatch.setattr(torch_impl, 'topk_threshold_plain',
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+    kw = dict(image_size=16, sigma_val=1e-3, max_faces_per_pixel_for_grad=2, device='cpu')
     x = torch.tensor(fv, requires_grad=True)
-    img = soft_rasterize(x, tex, image_size=16, device='cpu')
-    with pytest.raises(NotImplementedError, match='next slice'):
-        img.sum().backward()
+    t = torch.tensor(tex, requires_grad=True)
+    soft_rasterize(fv, tex, **kw)                       # nothing requires grad
+    with torch.no_grad():
+        soft_rasterize(x, t, **kw)
+    soft_rasterize(x, t, grad_mode='full', **{k: v for k, v in kw.items()})
+    assert not calls
+    soft_rasterize(x.detach(), t, **kw).sum().backward()
+    assert len(calls) == 1
+    assert x.grad is None and t.grad is not None and t.grad.abs().max() > 0
+    soft_rasterize(x, t.detach(), **kw)[:, 3].sum().backward()   # a slice: not contiguous
+    assert len(calls) == 2 and x.grad is not None and torch.isfinite(x.grad).all()
+
+
+def test_binning_inverse_map(rng):
+    """gsrc sends each emitted (face, tile) pair to its place in the sorted
+    run and gpos each big face to its place in the big-face list."""
+    fv = torch.tensor(_with_big_faces(rng, 120))
+    thr = make_params(image_size=64).threshold
+    tl = binning.build_tile_lists_compact(fv, 64, 16, 16, thr, 4, with_inverse=True)
+    plain = binning.build_tile_lists_compact(fv, 64, 16, 16, thr, 4)
+    assert plain.gsrc is None and plain.gpos is None
+    for a, b in zip(tl[:7], plain[:7]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    gsrc, gpos = tl.gsrc[0], tl.gpos[0]
+    assert gsrc.shape == (120, 4) and gsrc.dtype == torch.int32
+    valid = gsrc >= 0
+    assert int(valid.sum()) == int(tl.run_counts.sum())
+    face_of = torch.arange(120)[:, None].expand(-1, 4)
+    assert (tl.faces_sorted[0][gsrc[valid].long()] == face_of[valid]).all()
+    assert gsrc[valid].unique().numel() == int(valid.sum())      # one place each
+    # ascending j is ascending place: a face's tiles in ascending order
+    later = torch.where(valid, gsrc, torch.iinfo(torch.int32).max)
+    assert (later[:, 1:] >= later[:, :-1]).all()
+    gc = int(tl.gcount[0])
+    assert gc > 0
+    big = gpos >= 0
+    assert int(big.sum()) == gc and not valid[big].any()
+    assert (tl.glist[0][gpos[big].long()] == torch.arange(120)[big]).all()
+
+
+def test_reduce_rows_plain_is_a_segment_sum(rng):
+    """The plain face reduction against index_add_ of the rows by face id;
+    rows of pairs that were not emitted hold anything and are not read."""
+    fv, tex = soup(rng, F=60, B=2, T=1)
+    p = make_params(image_size=64)
+    inputs = cuda_impl.prepare(torch.tensor(fv), torch.tensor(tex), p, for_grad=True)
+    # an emit cap of 3 tiles per face: what spans more is a big face
+    cl = binning.build_tile_lists_compact(torch.tensor(fv), 64, cuda_impl.TILE, cuda_impl.TILE,
+                                          p.threshold, 3, with_inverse=True)
+    inputs = inputs._replace(lists=cl)
+    B, F, L, GC = 2, 60, cl.faces_sorted.shape[1], 12
+    gslots = torch.tensor(rng.randn(B, L, GC).astype(np.float32))
+    gbig = torch.tensor(rng.randn(B, F, GC).astype(np.float32))
+    n_valid = cl.run_counts.sum(dim=1)
+    assert int(cl.gcount.min()) > 0
+    want = torch.zeros(B, F, GC)
+    for b in range(B):
+        n = int(n_valid[b])
+        want[b].index_add_(0, cl.faces_sorted[b, :n].long(), gslots[b, :n])
+        gslots[b, n:] = float('nan')
+        g = int(cl.gcount[b])
+        want[b, cl.glist[b, :g].long()] = gbig[b, :g]
+        gbig[b, g:] = float('nan')
+    gf, gt = cuda_impl.reduce_rows_plain(inputs, cuda_impl.GradRows(gslots, gbig), p)
+    assert gf.shape == (B, F, 9) and gt.shape == (B, F, 1, 3)
+    torch.testing.assert_close(torch.cat([gf, gt.reshape(B, F, 3)], -1), want,
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_backward_wrappers_refuse_cpu_tensors(rng):
+    fv, tex = soup(rng, F=8)
+    p = make_params(image_size=32)
+    inputs = cuda_impl.prepare(torch.tensor(fv), torch.tensor(tex), p, for_grad=True)
+    img, ag, counts = torch_impl.soft_rasterize_fwd_plain(torch.tensor(fv), torch.tensor(tex), p)
+    before = [w.launches for w in (cuda_impl.launch_thr, cuda_impl.launch_bwd,
+                                   cuda_impl.launch_reduce)]
+    with pytest.raises(ValueError, match='CUDA'):
+        cuda_impl.launch_thr(inputs, counts, p)
+    with pytest.raises(ValueError, match='CUDA'):
+        cuda_impl.launch_bwd(inputs, img, ag, None, torch.ones_like(img), p)
+    rows = cuda_impl.GradRows(torch.zeros(1, inputs.lists.faces_sorted.shape[1], 21),
+                              torch.zeros(1, 8, 21))
+    with pytest.raises(ValueError, match='CUDA'):
+        cuda_impl.launch_reduce(inputs, rows, p)
+    assert before == [w.launches for w in (cuda_impl.launch_thr, cuda_impl.launch_bwd,
+                                           cuda_impl.launch_reduce)]
+    assert cuda_impl.chunk_for_bwd(31 + 75, 75) >= 1
+    with pytest.raises(ValueError, match='shared memory'):
+        cuda_impl.chunk_for_bwd(31 + 3 * 4096, 3 * 4096)
 
 
 def test_no_device_without_card_raises(rng, monkeypatch):

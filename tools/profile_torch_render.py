@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where the time of the port's render path goes, on one CUDA card.
+"""Where the time of the port's render and training paths goes, on one
+CUDA card.
 
     python3 tools/profile_torch_render.py
 
@@ -8,11 +9,15 @@ and 39,474 faces, 5x5 texels per face) with
 ``jrender_tpu_torch.Renderer`` and prints, one JSON object per line:
 
   * ``stages``: each stage of one frame timed alone with CUDA events
-    (lighting, transform, binning, row prep, kernel), per mesh;
+    (lighting, transform, binning, row prep, kernel), per mesh, and the
+    stages of the backward (binning with the sort's inverse, threshold,
+    backward and reduction kernels, the forward + backward step of
+    ``soft_rasterize`` and of ``render_mesh``);
   * ``profile``: torch.profiler over 4 frames of the 39,474-face mesh:
     device time by kernel name, and its share of the (unprofiled)
-    ``render_mesh`` wall time;
-  * ``tail``: the kernel on the faces of the busiest tile alone, whose
+    ``render_mesh`` wall time; ``profile_step``: the same over 4 forward +
+    backward steps through ``render_mesh``;
+  * ``tail``: each kernel on the faces of the busiest tile alone, whose
     one block is the critical path of the full frame.
 
 Seeded; needs a card (exits 2 without one) and nvcc.
@@ -34,7 +39,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     from jrender_tpu_torch import Mesh, Renderer
-    from jrender_tpu_torch.ops.softras import binning, cuda_impl, make_params
+    from jrender_tpu_torch.ops.softras import (binning, cuda_impl, make_params,
+                                               soft_rasterize)
     from jrender_tpu_torch.utils.primitives import uv_sphere
 
     dev = torch.device('cuda')
@@ -83,7 +89,42 @@ def main() -> int:
             fv, 1024, cuda_impl.TILE, cuda_impl.TILE, p.threshold))
         rows, t_rows = timed(lambda: cuda_impl.face_rows(fv, tex, p))
         inputs = cuda_impl.FwdInputs(rows, lists, 5)
-        _, t_kernel = timed(lambda: cuda_impl.launch(inputs, p), reps=30)
+        (img, ag, cnt), t_kernel = timed(lambda: cuda_impl.launch(inputs, p), reps=30)
+
+        # the backward's stages, each alone
+        lists_g, t_bin_g = timed(lambda: binning.build_tile_lists_compact(
+            fv, 1024, cuda_impl.TILE, cuda_impl.TILE, p.threshold, with_inverse=True))
+        inputs_g = cuda_impl.FwdInputs(rows, lists_g, 5)
+        thr, t_thr = timed(lambda: cuda_impl.launch_thr(inputs_g, cnt, p), reps=30)
+        g_img = torch.ones_like(img)
+        grad_rows, t_bwd = timed(lambda: cuda_impl.launch_bwd(inputs_g, img, ag, thr, g_img, p),
+                                 reps=30)
+        _, t_red = timed(lambda: cuda_impl.launch_reduce(inputs_g, grad_rows, p), reps=30)
+        fv_leaf = fv.detach().clone().requires_grad_(True)
+        tex_leaf = tex.detach().clone().requires_grad_(True)
+
+        def raster_step():
+            fv_leaf.grad = tex_leaf.grad = None
+            soft_rasterize(fv_leaf, tex_leaf, image_size=1024).sum().backward()
+
+        _, t_step = timed(raster_step)
+        v_leaf = mesh._origin_vertices.detach().clone().requires_grad_(True)
+        t_leaf = mesh._origin_textures.detach().clone().requires_grad_(True)
+        mesh_g = Mesh(v_leaf, mesh._origin_faces, textures=t_leaf, texture_res=5)
+
+        def render_step():
+            v_leaf.grad = t_leaf.grad = None
+            mesh_g.reset_()
+            alpha, rgb = r.render_mesh(mesh_g, mode=None)
+            (alpha.sum() + rgb.sum()).backward()
+
+        render_step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            render_step()
+        torch.cuda.synchronize()
+        t_render_step = (time.perf_counter() - t0) * 100
 
         def frame():
             mesh.reset_()
@@ -98,7 +139,12 @@ def main() -> int:
         print(json.dumps({'stages': {
             'faces': fv.shape[1], 'lighting_ms': t_light, 'transform_ms': t_tf,
             'binning_ms': t_bin, 'rows_ms': t_rows, 'kernel_ms': t_kernel,
-            'render_mesh_ms': t_frame, 'covered_tiles': int(counts.numel()),
+            'render_mesh_ms': t_frame,
+            'binning_with_inverse_ms': t_bin_g, 'thr_kernel_ms': t_thr,
+            'bwd_kernel_ms': t_bwd, 'reduce_kernel_ms': t_red,
+            'soft_rasterize_step_ms': t_step, 'render_mesh_step_ms': t_render_step,
+            'pixels_over_K': int((cnt > p.max_faces_id).sum().item()),
+            'covered_tiles': int(counts.numel()),
             'tile_face_pairs': int(counts.sum().item()),
             'busiest_tile': int(counts.max().item()),
             'mean_covered_tile': counts.mean().item()}}), flush=True)
@@ -106,38 +152,52 @@ def main() -> int:
     # torch.profiler over frames of the large mesh: device time by kernel
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(2):
-        frame()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(4):
-            frame()
+    def profiled(tag, fn, wall_ms):
+        for _ in range(2):
+            fn()
         torch.cuda.synchronize()
-    kernels = sorted(((e.self_device_time_total / 1e3 / 4, e.count // 4, e.key[:70])
-                      for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                     reverse=True)
-    busy = sum(k[0] for k in kernels)
-    print(json.dumps({'profile': {
-        'frames': 4, 'device_ms_per_frame': busy,
-        'kernel_launches_per_frame': sum(k[1] for k in kernels),
-        'device_busy_share_of_render_mesh': busy / t_frame,
-        'top': [{'ms_per_frame': k[0], 'calls_per_frame': k[1], 'name': k[2]}
-                for k in kernels[:12]]}}), flush=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                fn()
+            torch.cuda.synchronize()
+        kernels = sorted(((e.self_device_time_total / 1e3 / 4, e.count // 4, e.key[:70])
+                          for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                         reverse=True)
+        busy = sum(k[0] for k in kernels)
+        print(json.dumps({tag: {
+            'frames': 4, 'device_ms_per_frame': busy,
+            'kernel_launches_per_frame': sum(k[1] for k in kernels),
+            'wall_ms_per_frame': wall_ms, 'device_busy_share': busy / wall_ms,
+            'top': [{'ms_per_frame': k[0], 'calls_per_frame': k[1], 'name': k[2]}
+                    for k in kernels[:12]]}}), flush=True)
+
+    profiled('profile', frame, t_frame)
+    profiled('profile_step', render_step, t_render_step)
 
     # the busiest tile's faces alone against the full frame, in turns on
     # the same card: the busiest tile's block is the full frame's tail
     busiest = int(lists.counts[0].argmax())
     ids = binning.tile_list(lists, 0, busiest, 1024 // cuda_impl.TILE).long()
-    sub = cuda_impl.prepare(fv[:, ids].contiguous(), tex[:, ids].contiguous(), p)
-    turns = {'full': [], 'tail': []}
+    sub = cuda_impl.prepare(fv[:, ids].contiguous(), tex[:, ids].contiguous(), p,
+                            for_grad=True)
+    img_s, ag_s, cnt_s = cuda_impl.launch(sub, p)
+    thr_s = cuda_impl.launch_thr(sub, cnt_s, p)
+    both = {'full': (inputs_g, img, ag, cnt, thr), 'tail': (sub, img_s, ag_s, cnt_s, thr_s)}
+    turns = {k: {'full': [], 'tail': []} for k in ('fwd', 'thr', 'bwd')}
     for which in ('full', 'tail', 'tail', 'full', 'full', 'tail'):
-        _, t = timed(lambda: cuda_impl.launch(inputs if which == 'full' else sub, p),
-                     reps=30)
-        turns[which].append(t)
+        i, im, a, c, th = both[which]
+        turns['fwd'][which].append(timed(lambda: cuda_impl.launch(i, p), reps=30)[1])
+        turns['thr'][which].append(timed(lambda: cuda_impl.launch_thr(i, c, p), reps=30)[1])
+        turns['bwd'][which].append(timed(
+            lambda: cuda_impl.launch_bwd(i, im, a, th, g_img, p), reps=30)[1])
     print(json.dumps({'tail': {
         'busiest_tile_faces': int(ids.numel()),
-        'kernel_ms_busiest_tile_alone': turns['tail'],
-        'kernel_ms_full_frame': turns['full']}}), flush=True)
+        'kernel_ms_busiest_tile_alone': turns['fwd']['tail'],
+        'kernel_ms_full_frame': turns['fwd']['full'],
+        'thr_ms_busiest_tile_alone': turns['thr']['tail'],
+        'thr_ms_full_frame': turns['thr']['full'],
+        'bwd_ms_busiest_tile_alone': turns['bwd']['tail'],
+        'bwd_ms_full_frame': turns['bwd']['full']}}), flush=True)
     import subprocess
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True, text=True,
