@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's SoftRas mesh path on one CUDA card and check it.
+"""Drive the port's SoftRas and N3MR mesh paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -35,7 +35,25 @@ of which raises on failure:
      renders itself; the loss must fall.  Before the steps, every kernel
      is held against its plain version on the rasterizer's inputs of the
      first step: whole images, all 120 views;
-  8. one JSON line of the kernels; the last line is the device JSON.
+  8. every N3MR kernel against its plain version on whole images of 64
+     to 128 px: soups and a sphere, texture sizes 1, 2, 4 and 8, batches of 1
+     and 2, ``fill_back``, a ragged size, a zero-area face, a NaN face and
+     a face that spans most of the screen; the edge gradient with rgb,
+     alpha and both; each backward run twice for bit equality;
+  9. the N3MR path at full width: ``Renderer(dr_type='n3mr',
+     image_size=1024).render_mesh`` renders 8 frames of the 39,474-face
+     sphere with 2x2x2 texels per face (rgb, then silhouettes and depth);
+     8 steps of ``rasterize(...).sum().backward()`` (what ``bench.py``'s
+     ``n3mr_row`` times), one launch of each wrapper per step; the maps of
+     4,096 random pixels, the whole texture gradient and the edge gradient
+     of 48 faces are held against the plain versions; two steps with
+     anti-aliasing (2048 px inside); every kernel is timed alone and
+     bounded from this run's counts;
+ 10. a trainer: 20 Adam steps of demo 4's texture fit (256 px, texture
+     size 4, orthographic camera at a random azimuth per step, ambient
+     light only) on a 1,300-face sphere towards images the port renders
+     from a seeded random texture; the loss must fall;
+ 11. one JSON line of the kernels; the last line is the device JSON.
 
 The meshes, textures, cameras and pixel samples come from fixed seeds.
 
@@ -59,11 +77,31 @@ max|grad|; ``plain_on`` says what the plain version's time covers: it
 runs on a sample of the frame's pixels, the whole frame being a matter of
 minutes.
 
+N3MR tolerances (``jrender_tpu_torch/utils/checks.py``).  The z-buffer
+kernel repeats the plain version's arithmetic operation by operation, so
+the winners agree except where two faces' depths differ in the last bits:
+at most 0.1% of the pixels may have another winner, and there the two
+depths must agree to 1e-6 relative; elsewhere depth agrees to 1e-6
+relative, weight and rgb to 1e-5, the winner's inverse and corner depths
+exactly.  The texture and edge gradients sum the same float32 terms in
+another order than the plain versions: atol 2e-5 * max|grad|, the JAX
+suite's own (tests/test_n3mr.py:196-198, 338-340).  ``max_abs_err`` of
+``n3mr_maps`` is that of depth, weight and rgb; of the two gradients a
+share of max|grad|.
+
 Bounds.  ``softras_bwd``'s bound is that of the function the backward and
 its reduction compute together: rows, lists and pixel maps read, one
 gradient row per face written.  The slot rows between the two kernels
 are the two-pass design's cost, not the function's; they appear only in
-``softras_bwd_reduce``'s bound, as that kernel's input.
+``softras_bwd_reduce``'s bound, as that kernel's input.  The N3MR
+bounds count, from this run's maps: the (pixel, face) pairs of the tile
+lists and those that pass the inside test (``n3mr_maps``), the pixels a
+face won (``n3mr_texbwd``: face_index of every pixel, the other maps of
+the won pixels only; the per-face rows are the bbox walk's input, not the
+function's) and the cells of the edge scans (``n3mr_edgebwd``,
+``torch_impl.edge_scan_census``: the difference on every scanned cell, the
+distances only where it is positive); each input is read once and each
+output written once.
 """
 from __future__ import annotations
 
@@ -103,6 +141,17 @@ THR_RTOL = 1e-6
 THR_FRAC = 0.001     # threshold: share of pixels allowed beyond
 GRAD_FRAC = 0.001    # backward: share of entries allowed beyond atol =
 #                      2e-3 * max|grad|, rtol = 2e-3 (checks.GRAD_TOL)
+# fp32 operations of the N3MR kernels, counted from csrc/n3mr_*.cu the same way:
+N_OPS_EDGE = 19      # a front face of a tile list against a pixel: the inside test
+N_OPS_DEPTH = 32     # inside: barycentrics, clip, normalisation, depth, compare
+N_OPS_SAMPLE = 12    # a drawn pixel: texture coordinates and tent weights ...
+N_OPS_TAP = 2        # ... and a multiply-add per live tap and channel (8 x 3 taps)
+N_OPS_TEXROW = 4     # texture gradient: per won pixel and output element
+N_OPS_CHANNEL = 2    # edge gradient, a scanned cell: per channel the difference
+#                      times the gradient ...
+N_OPS_CELL = 14      # ... and where their sum is positive: base and the two distances
+N_EDGE_FACES = 48    # faces whose edge gradient is held against the plane sweep
+N_TRAIN_STEPS = 20
 
 
 def log(*a):
@@ -753,11 +802,340 @@ def main() -> int:
     log(f'  launches {train_counts} for {TRAIN_STEPS} steps; loss {losses[0]:.6f} -> '
         f'{losses[-1]:.6f}; step {np.median(t_train[2:]):.3f} ms (median, host clock)  [{smi}]')
 
-    # ---- 8. results -----------------------------------------------------
+    # ---- 8. N3MR kernels vs plain, whole images ----------------------------
+    log('phase 8: N3MR kernels vs plain, whole images')
+    from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda, torch_impl as nplain, rasterize
+    from jrender_tpu_torch.ops.n3mr.api import fill_back_faces, fill_back_textures
+    from jrender_tpu_torch.utils.checks import (N3MR_SUM_TOL, n3mr_maps_beyond,
+                                                n3mr_special_faces, scaled_err)
+    n_wrappers = {'n3mr_maps': ncuda.launch_maps, 'n3mr_texbwd': ncuda.launch_texbwd,
+                  'n3mr_edgebwd': ncuda.launch_edgebwd}
+    n_err = dict.fromkeys(n_wrappers, 0.0)
+
+    def n_zero_counts():
+        for w in n_wrappers.values():
+            w.launches = 0
+
+    def n_read_counts():
+        return {name: w.launches for name, w in n_wrappers.items()}
+
+    def n3mr_texture(B, F, ts, seed):
+        gen.manual_seed(seed)
+        return torch.rand((B, F, ts, ts, ts, 3), generator=gen, device=dev)
+
+    def n3mr_plain_maps(face, tex, is_, eps, **kw):
+        maps = list(nplain.forward_maps(face, is_, 0.1, 100.0, **kw))
+        return maps + [nplain.trilinear_rgb_from_maps(tex, *maps[:3], maps[4], eps)]
+
+    def twice(tag, fn):
+        """fn() run twice; raises unless the two results have the same bits."""
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f'{tag}: two runs differ in their bits')
+        return a
+
+    def n3mr_compare(tag, face, tex, is_, eps=1e-3):
+        """The three kernels against their plain versions on whole images:
+        the z-buffer's maps and rgb, then both gradients on the kernel's
+        maps and seeded incoming gradients, each run twice."""
+        rows, *got = ncuda.forward_maps(face, tex, is_, 0.1, 100.0, eps)
+        torch.cuda.synchronize()
+        share, e_maps = n3mr_maps_beyond(got, n3mr_plain_maps(face, tex, is_, eps))
+        fi, wt, dp, finv, zc, rgb = got
+        alpha = (fi >= 0).float()
+        gen.manual_seed(SEED + 5)
+        gr = torch.randn(rgb.shape, generator=gen, device=dev)
+        ga = torch.randn(alpha.shape, generator=gen, device=dev)
+        g_tex = twice(f'{tag} texture gradient', lambda: ncuda.backward_textures(
+            rows, tex.shape, fi, wt, dp, zc, gr, eps))
+        e_tex = scaled_err(g_tex, nplain.backward_textures(tex.shape, fi, wt, dp, zc, gr, eps))
+        check(f'{tag} texture gradient', e_tex, N3MR_SUM_TOL)
+        e_edge = 0.0
+        for rr, ra in ((True, True), (True, False), (False, True)):
+            args = (face, fi, rgb, alpha, gr, ga, is_, eps, rr, ra)
+            g_face = twice(f'{tag} edge gradient', lambda: ncuda.backward_pixel_map(*args))
+            e = scaled_err(g_face, nplain.backward_pixel_map(*args))
+            check(f'{tag} edge gradient rgb={rr} alpha={ra}', e, N3MR_SUM_TOL)
+            if not (g_face.abs().max() > 0 and (g_face[..., 2::3] == 0).all()):
+                raise AssertionError(f'{tag}: edge gradient zero, or not zero in z')
+            e_edge = max(e_edge, e)
+        for name, e in (('n3mr_maps', e_maps), ('n3mr_texbwd', e_tex), ('n3mr_edgebwd', e_edge)):
+            n_err[name] = max(n_err[name], e)
+        log(f'  {tag}: {share:.6f} of pixels with another winner, maps max {e_maps:.2g}; '
+            f'texture grad {e_tex:.2g} of scale, edge grad {e_edge:.2g}; '
+            f'covered {alpha.mean().item():.3f}; bit-equal twice')
+
+    for ts in (1, 2, 4):
+        fv, _ = soup(300, 1, 1, SEED + 10 + ts)
+        n3mr_compare(f'soup 128 ts={ts}', fv, n3mr_texture(1, 300, ts, SEED + ts), 128)
+    fv_n2, _ = soup(300, 2, 1, SEED + 20)
+    n3mr_compare('soup 64 B=2', fv_n2, n3mr_texture(2, 300, 2, SEED + 21), 64)
+    n3mr_compare('soup 72 ragged edge, eps 1e-4', fv_n2, n3mr_texture(2, 300, 2, SEED + 21),
+                 72, eps=1e-4)
+    n3mr_compare('sphere 128 fill_back',
+                 fill_back_faces(fv_mid.reshape(1, -1, 3, 3)).reshape(1, -1, 9),
+                 fill_back_textures(n3mr_texture(1, fv_mid.shape[1], 2, SEED + 22)).contiguous(),
+                 128)
+    # a texture size that the texture gradient sums in several walks
+    n3mr_compare('soup 64 ts=8', fv_n2, n3mr_texture(2, 300, 8, SEED + 24), 64)
+    # a face over most of the screen (a big face of the binning), a
+    # zero-area face and a NaN face; the last two must win no pixel
+    fv_sp = n3mr_special_faces(fv_n2)
+    n3mr_compare('soup 128 big, zero-area and NaN faces', fv_sp,
+                 n3mr_texture(2, 300, 4, SEED + 23), 128)
+    # with an emit cap of 4 tiles most faces go through the big-face list:
+    # the same maps, bit for bit
+    rows_sp, *maps_sp = ncuda.forward_maps(fv_sp, None, 128, 0.1, 100.0, 1e-3)
+    lists_sp = binning.build_tile_lists_compact(
+        fv_sp * fv_sp.new_tensor([1.0, -1.0, 1.0] * 3), 128, ncuda.TILE, ncuda.TILE, 0.0, 4)
+    maps_big = ncuda.launch_maps(rows_sp, lists_sp, None, 128, 0.1, 100.0, 1e-3)
+    fi_sp = maps_sp[0]
+    if not (int(lists_sp.gcount.min()) >= 10
+            and all(torch.equal(a, b) for a, b in zip(maps_sp[:5], maps_big[:5]))):
+        raise AssertionError('the maps through the big-face list differ')
+    if not ((fi_sp == 0).any() and not ((fi_sp == 1) | (fi_sp == 2)).any()):
+        raise AssertionError('special faces: the big face is missing or a degenerate face won')
+    log(f'  big-face list of {int(lists_sp.gcount.min())} faces: the same maps; the '
+        f'zero-area and NaN faces win no pixel')
+
+    # ---- 9. the N3MR path at full width -------------------------------------
+    log('phase 9: N3MR at 1024 px, 39,474 faces, 2x2x2 texels per face')
+    F_n = f.shape[0]
+    tex_n = n3mr_texture(1, F_n, 2, SEED + 6)
+    mesh_n = Mesh(v, f, textures=tex_n, texture_res=2, dr_type='n3mr')
+    renderer_n = Renderer(dr_type='n3mr', image_size=1024)
+    modes = ['rgb'] * (FRAMES - 2) + ['silhouettes', 'depth']
+
+    def n3mr_frame(i, mode):
+        mesh_n.reset_()
+        renderer_n.transform.set_eyes_from_angles(2.732, 0, azimuths[i % FRAMES])
+        return renderer_n.render_mesh(mesh_n, mode=mode)
+
+    n_zero_counts()
+    with torch.no_grad():
+        n_frames = [n3mr_frame(i, mode) for i, mode in enumerate(modes)]
+    torch.cuda.synchronize()
+    n_render_counts = n_read_counts()
+    if n_render_counts != {'n3mr_maps': FRAMES, 'n3mr_texbwd': 0, 'n3mr_edgebwd': 0}:
+        raise AssertionError(f'N3MR launches of {FRAMES} plain frames: {n_render_counts}')
+    for mode, img in zip(modes, n_frames):
+        want_shape = (1, 3, 1024, 1024) if mode == 'rgb' else (1, 1024, 1024)
+        if tuple(img.shape) != want_shape or not torch.isfinite(img).all():
+            raise AssertionError(f'N3MR {mode} frame: shape {tuple(img.shape)} or non-finite')
+    cov_n = n_frames[-2].mean().item()
+    if not (cov_n > 0.05 and n_frames[0].amax(dim=1).gt(0).float().mean().item() > 0.05
+            and n_frames[-1].min().item() < 10.0):
+        raise AssertionError(f'N3MR frames: the sphere is not in view (coverage {cov_n})')
+    log(f'  launches on the render path: {n_render_counts} for {FRAMES} frames '
+        f'({modes.count("rgb")} rgb, silhouettes, depth); silhouette coverage {cov_n:.4f}')
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(2 * FRAMES):
+            n3mr_frame(i, 'rgb')
+    torch.cuda.synchronize()
+    n_render_ms = (time.perf_counter() - t0) * 1e3 / (2 * FRAMES)
+
+    # the step bench.py's n3mr_row times: the gradient of sum(rgb) with
+    # respect to the face vertices and the textures
+    fv_n = sphere_faces(130, 153)
+    fv_leaf_n = fv_n.reshape(1, -1, 3, 3).clone().requires_grad_(True)
+    tex_leaf_n = tex_n.clone().requires_grad_(True)
+
+    def n3mr_step(aa=False):
+        fv_leaf_n.grad = tex_leaf_n.grad = None
+        rasterize(fv_leaf_n, tex_leaf_n, image_size=1024, anti_aliasing=aa).sum().backward()
+
+    def n3mr_grads_ok(tag):
+        for name, g in (('faces', fv_leaf_n.grad), ('textures', tex_leaf_n.grad)):
+            if g is None or not (torch.isfinite(g).all() and g.abs().max() > 0):
+                raise AssertionError(f'{tag}: gradient of {name} missing, non-finite or zero')
+
+    n_zero_counts()
+    for i in range(STEPS):
+        n3mr_step()
+        if n_read_counts() != dict.fromkeys(n_wrappers, i + 1):
+            raise AssertionError(f'N3MR launches after step {i + 1}: {n_read_counts()}')
+    torch.cuda.synchronize()
+    n_step_counts = n_read_counts()
+    n3mr_grads_ok('rasterize step')
+    log(f'  rasterize: launches {n_step_counts} for {STEPS} steps; '
+        f'max |d faces| {fv_leaf_n.grad.abs().max().item():.4g}, '
+        f'max |d textures| {tex_leaf_n.grad.abs().max().item():.4g}')
+    n_step_ms = timed(n3mr_step, reps=STEPS)
+    t0 = time.perf_counter()
+    for _ in range(2):
+        n3mr_step(aa=True)
+    torch.cuda.synchronize()
+    n_aa_ms = (time.perf_counter() - t0) * 1e3 / 2
+    n3mr_grads_ok('anti-aliased step')
+
+    # the kernels on the step's inputs, against the plain versions: the maps
+    # of 4,096 pixels, the whole texture gradient, the edge gradient of a
+    # sample of the faces that won a pixel
+    EPS_N = 1e-4                                           # rasterize's default
+    rows_n = nplain.face_rows(fv_n, 1024)
+    lists_n = ncuda.tile_lists(fv_n, 1024)
+    maps_n = ncuda.launch_maps(rows_n, lists_n, tex_n, 1024, 0.1, 100.0, EPS_N)
+    fi_n, wt_n, dp_n, finv_n, zc_n, rgb_n = maps_n
+    idx_n = sample_pixels(1024)[0]
+
+    def plain_maps_sample():
+        return n3mr_plain_maps(fv_n, tex_n, 1024, EPS_N, face_chunk=1024, pixels=idx_n)
+
+    share_n, e_maps = n3mr_maps_beyond(
+        [m.reshape(1, 1024 * 1024, *m.shape[3:])[:, idx_n] for m in maps_n],
+        plain_maps_sample())
+    n_err['n3mr_maps'] = max(n_err['n3mr_maps'], e_maps)
+    gen.manual_seed(SEED + 7)
+    gr_n = torch.randn(rgb_n.shape, generator=gen, device=dev)
+
+    def plain_texbwd():
+        return nplain.backward_textures(tex_n.shape, fi_n, wt_n, dp_n, zc_n, gr_n, EPS_N)
+
+    g_tex_n = twice('1024 px texture gradient', lambda: ncuda.launch_texbwd(
+        rows_n, tex_n.shape, fi_n, wt_n, dp_n, zc_n, gr_n, EPS_N))
+    e_tex = scaled_err(g_tex_n, plain_texbwd())
+    check('1024 px texture gradient', e_tex, N3MR_SUM_TOL)
+    n_err['n3mr_texbwd'] = max(n_err['n3mr_texbwd'], e_tex)
+    alpha_n = (fi_n >= 0).float()
+    edge_in = ncuda.edge_inputs(fv_n, fi_n, rgb_n, alpha_n, gr_n, alpha_n, 1024, True, False)
+    g_face_n = twice('1024 px edge gradient', lambda: ncuda.launch_edgebwd(
+        *edge_in, EPS_N, True, False))
+    won = torch.unique(fi_n[fi_n >= 0])
+    gen.manual_seed(SEED + 8)
+    ids_n = won[torch.randperm(won.numel(), generator=gen, device=dev)[:N_EDGE_FACES]].long()
+
+    def plain_edge_sample():
+        return nplain.backward_pixel_map(fv_n, fi_n, rgb_n, alpha_n, gr_n, alpha_n, 1024,
+                                         EPS_N, True, False, faces=ids_n)
+
+    e_edge = scaled_err(g_face_n[:, ids_n], plain_edge_sample())
+    check('1024 px edge gradient of the sampled faces', e_edge, N3MR_SUM_TOL)
+    n_err['n3mr_edgebwd'] = max(n_err['n3mr_edgebwd'], e_edge)
+    log(f'  vs plain: maps of {SAMPLES} pixels {share_n:.6f} with another winner (max '
+        f'{e_maps:.2g}); texture grad, whole frame, {e_tex:.2g} of scale; edge grad of '
+        f'{ids_n.numel()} of {won.numel()} drawn faces {e_edge:.2g} of scale')
+
+    # timings: each kernel alone on the step's inputs, its plain version, and
+    # for the texture gradient the one PyTorch call that sums the same rows
+    maps_ms = timed(lambda: ncuda.launch_maps(rows_n, lists_n, tex_n, 1024, 0.1, 100.0, EPS_N))
+    texbwd_ms = timed(lambda: ncuda.launch_texbwd(rows_n, tex_n.shape, fi_n, wt_n, dp_n, zc_n,
+                                                  gr_n, EPS_N))
+    edgebwd_ms = timed(lambda: ncuda.launch_edgebwd(*edge_in, EPS_N, True, False))
+    edge_prep_ms = timed(lambda: ncuda.edge_inputs(fv_n, fi_n, rgb_n, alpha_n, gr_n, alpha_n,
+                                                   1024, True, False))
+    n_bin_ms = timed(lambda: ncuda.tile_lists(fv_n, 1024), reps=5)
+    maps_plain_ms = timed(plain_maps_sample, reps=2, warm=1)
+    texbwd_plain_ms = timed(plain_texbwd, reps=5, warm=1)
+    edge_plain_ms = timed(plain_edge_sample, reps=2, warm=1)
+    tex_rows = nplain.texture_grad_rows(fi_n, wt_n, dp_n, zc_n, gr_n, 2, EPS_N)
+    seg_n = torch.where(fi_n >= 0, fi_n, F_n).reshape(-1).long()
+    dump_n = torch.zeros((F_n + 1, tex_rows.shape[1]), device=dev)
+    texbwd_lib_ms = timed(lambda: dump_n.zero_().index_add_(0, seg_n, tex_rows), reps=5)
+
+    # bounds, from this run's counts
+    HW_n = 1024 * 1024
+    T3_n = tex_n[0, 0].numel()
+    front_n = rows_n[0, :, nplain.ROW_FRONT] > 0.5
+    tile_n = ncuda.TILE
+    ids_run = lists_n.faces_sorted[0, :int(lists_n.run_counts.sum().item())].long()
+    front_pairs = int(front_n[ids_run].sum().item()) * tile_n ** 2     # no big face here
+    n_big_n = int(lists_n.gcount.sum().item())
+    # (pixel, face) pairs that pass the inside test: each front face's pixel
+    # bbox enumerated and tested with the plain version's own predicate
+    neg_y = fv_n.reshape(-1, 9) * fv_n.new_tensor([1.0, -1.0, 1.0] * 3)
+    r0, r1, c0, c1, empty = binning.pixel_ranges(neg_y, 1024, 0.0)
+    r0, c0 = r0.clamp(0, 1023).long(), c0.clamp(0, 1023).long()
+    h_b = (r1.clamp(0, 1023).long() - r0 + 1).clamp_min(0)
+    w_b = (c1.clamp(0, 1023).long() - c0 + 1).clamp_min(0)
+    n_b = torch.where(empty | ~front_n, 0, h_b * w_b)
+    fid_b = torch.repeat_interleave(torch.arange(F_n, device=dev), n_b)
+    k_b = torch.arange(fid_b.numel(), device=dev) - (n_b.cumsum(0) - n_b)[fid_b]
+    px_b = (r0[fid_b] + k_b // w_b[fid_b]) * 1024 + c0[fid_b] + k_b % w_b[fid_b]
+    inside_pairs = int(nplain._pair_terms(rows_n[0, fid_b], *nplain._pixel_coords(
+        px_b, 1024, torch.float32))[0].sum().item())
+    drawn = int((fi_n >= 0).sum().item())
+    n_lists_bytes = 4 * (ids_run.numel() + lists_n.starts.numel() + lists_n.run_counts.numel()
+                         + n_big_n * 5 + lists_n.gcount.numel())
+    maps_bound = bound(
+        front_pairs * N_OPS_EDGE + inside_pairs * N_OPS_DEPTH
+        + drawn * (N_OPS_SAMPLE + 24 * N_OPS_TAP),
+        4 * (rows_n.numel() + tex_n.numel()) + n_lists_bytes + 4 * 20 * HW_n)
+    # face_index of every pixel; weight 3, depth 1, zcorn 3 and gradient 3
+    # of the drawn pixels; the gradient out
+    texbwd_bound = bound(
+        drawn * (N_OPS_SAMPLE + T3_n * N_OPS_TEXROW),
+        4 * HW_n + 4 * 10 * drawn + 4 * F_n * T3_n)
+    e_rows, out_cells, in_cells, longest, pos_cells = nplain.edge_scan_census(
+        fv_n, fi_n, 1024, [[(rgb_n[0, ..., k], gr_n[0, ..., k]) for k in range(3)]])
+    edgebwd_bound = bound(
+        (out_cells + in_cells) * 3 * N_OPS_CHANNEL + pos_cells * N_OPS_CELL + e_rows * 40,
+        4 * (F_n * 6 + 7 * HW_n + F_n * 9))
+    log(f'  counts: {int(front_n.sum().item())} front faces, {won.numel()} drawn; tile-list '
+        f'pairs with a front face {front_pairs:,}, inside {inside_pairs:,}, drawn pixels '
+        f'{drawn:,}; busiest tile {int(lists_n.counts.max().item())} faces; edge scans: '
+        f'{e_rows:,} rows, {out_cells:,} cells outwards, {in_cells:,} inwards, '
+        f'{pos_cells:,} with a positive difference, the longest item {longest:,} cells '
+        f'({longest / max(out_cells + in_cells, 1):.2e} of all, mean item '
+        f'{(out_cells + in_cells) / max(int(front_n.sum().item()) * 6, 1):,.0f})')
+    for name, b in (('n3mr_maps', maps_bound), ('n3mr_texbwd', texbwd_bound),
+                    ('n3mr_edgebwd', edgebwd_bound)):
+        log(f'  bound {name}: {b[0]:.6f} ms by {b[1]}: {b[2]}')
+    log(f'  kernels alone: z-buffer {maps_ms:.4f} ms, texture gradient {texbwd_ms:.4f} ms, '
+        f'edge gradient {edgebwd_ms:.4f} ms (its inputs, plain torch: {edge_prep_ms:.4f} ms); '
+        f'binning {n_bin_ms:.3f} ms  [{smi}]')
+    log(f'  plain versions: z-buffer on {SAMPLES} pixels {maps_plain_ms:.1f} ms, texture '
+        f'gradient (whole frame) {texbwd_plain_ms:.3f} ms, index_add_ of its rows '
+        f'{texbwd_lib_ms:.3f} ms, edge sweep on {ids_n.numel()} faces {edge_plain_ms:.1f} ms  [{smi}]')
+    log(f'  render_mesh forward {n_render_ms:.3f} ms/frame (78,948 faces with fill_back); '
+        f'rasterize fwd+bwd step {n_step_ms:.3f} ms; with anti-aliasing {n_aa_ms:.3f} ms  [{smi}]')
+
+    # ---- 10. a trainer: demo 4's texture fit ---------------------------------
+    log('phase 10: demo 4, textures of a 1,300-face sphere, 256 px, texture size 4')
+    fitter = Renderer(camera_mode='look_at', perspective=False, light_intensity_directionals=0.0,
+                      light_intensity_ambient=1.0, dr_type='n3mr')
+    verts_f = torch.tensor(v_s, device=dev)[None] * 0.6 / 0.5
+    faces_f = torch.tensor(f_s, device=dev)[None]
+    tex_goal = n3mr_texture(1, f_s.shape[0], 4, SEED + 9)
+    tex_fit = torch.ones((1, f_s.shape[0], 4, 4, 4, 3), device=dev, requires_grad=True)
+    opt_f = torch.optim.Adam([tex_fit], lr=0.03, betas=(0.5, 0.999))
+    rng_f = np.random.RandomState(SEED + 1)
+    n_zero_counts()
+    fit_losses, t_fit = [], []
+    for _ in range(N_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        fitter.transform.set_eyes_from_angles(2.732, 0, float(rng_f.uniform(0, 360)))
+        with torch.no_grad():
+            goal = fitter(verts_f, faces_f, tex_goal)
+        opt_f.zero_grad()
+        loss = ((fitter(verts_f, faces_f, torch.tanh(tex_fit)) - goal) ** 2).sum()
+        loss.backward()
+        opt_f.step()
+        torch.cuda.synchronize()
+        t_fit.append((time.perf_counter() - t0) * 1e3)
+        fit_losses.append(loss.item())
+    fit_counts = n_read_counts()
+    # a step renders the goal and the fit; only textures ask for a gradient,
+    # so the edge kernel is not launched
+    if fit_counts != {'n3mr_maps': 2 * N_TRAIN_STEPS, 'n3mr_texbwd': N_TRAIN_STEPS,
+                      'n3mr_edgebwd': 0}:
+        raise AssertionError(f'N3MR launches of {N_TRAIN_STEPS} fitting steps: {fit_counts}')
+    first, last = np.mean(fit_losses[:3]), np.mean(fit_losses[-3:])
+    if not (np.isfinite(fit_losses).all() and last < first
+            and torch.isfinite(tex_fit).all() and goal.shape == (1, 3, 256, 256)):
+        raise AssertionError(f'the texture fit did not fall: {fit_losses}')
+    log(f'  launches {fit_counts} for {N_TRAIN_STEPS} steps; loss {fit_losses[0]:.2f} -> '
+        f'{fit_losses[-1]:.2f} (mean of 3: {first:.2f} -> {last:.2f}); step '
+        f'{np.median(t_fit[2:]):.3f} ms (median, host clock)  [{smi}]')
+
+    # ---- 11. results ----------------------------------------------------
+    launches = {**step_counts, **n_step_counts}
+
     def entry(name, source, replaces, err, ms, plain_ms, plain_on, b, library_ms=None):
         return {'name': name, 'route': 'cuda',
                 'source': f'jrender_tpu_torch/csrc/{source}', 'replaces': replaces,
-                'launches': step_counts[name], 'max_abs_err': err, 'ms': ms,
+                'launches': launches[name], 'max_abs_err': err, 'ms': ms,
                 'plain_ms': plain_ms, 'plain_on': plain_on, 'bound_ms': b[0],
                 'bound_by': b[1], 'library_ms': library_ms}
 
@@ -771,6 +1149,15 @@ def main() -> int:
         entry('softras_bwd_reduce', 'softras_bwd.cu',
               'jrender_tpu/ops/softras/pxt_impl.py:1128', red_err, red_ms, red_plain_ms,
               'all rows', red_bound, red_lib_ms),
+        entry('n3mr_maps', 'n3mr_maps.cu', 'jrender_tpu/ops/n3mr/pallas_impl.py:34',
+              n_err['n3mr_maps'], maps_ms, maps_plain_ms, f'{SAMPLES} of {HW_n} pixels',
+              maps_bound),
+        entry('n3mr_texbwd', 'n3mr_texbwd.cu', 'jrender_tpu/ops/n3mr/pallas_impl.py:347',
+              n_err['n3mr_texbwd'], texbwd_ms, texbwd_plain_ms, 'the whole frame',
+              texbwd_bound, texbwd_lib_ms),
+        entry('n3mr_edgebwd', 'n3mr_edgebwd.cu', 'jrender_tpu/ops/n3mr/banded_bwd.py:347',
+              n_err['n3mr_edgebwd'], edgebwd_ms, edge_plain_ms,
+              f'{ids_n.numel()} of {F_n} faces', edgebwd_bound),
     ]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
                                              'count': count}}), flush=True)

@@ -27,18 +27,20 @@ def mesh_arrays(mesh) -> dict:
     out = {k: np.array(getattr(mesh, k)) for k in (
         'vertices', 'faces', 'textures', 'metallic_textures', 'roughness_textures')}
     out['texture_type'] = mesh.texture_type
+    out['dr_type'] = mesh.dr_type
     out['texture_res'] = mesh.texture_res
     return out
 
 
 def mesh_from_numpy(arrays: dict, device=None) -> Mesh:
     """Port ``Mesh`` from a dict of numpy arrays: vertices, faces,
-    textures, metallic_textures, roughness_textures, texture_type and
-    texture_res (``mesh_arrays`` of a JAX mesh)."""
+    textures, metallic_textures, roughness_textures, texture_type,
+    dr_type and texture_res (``mesh_arrays`` of a JAX mesh)."""
     return Mesh(arrays['vertices'], np.asarray(arrays['faces'], np.int64),
                 textures=arrays.get('textures'),
                 texture_res=int(arrays.get('texture_res', 1)),
                 texture_type=arrays.get('texture_type', 'surface'),
+                dr_type=arrays.get('dr_type', 'softras'),
                 metallic_textures=arrays.get('metallic_textures'),
                 roughness_textures=arrays.get('roughness_textures'),
                 device=device)

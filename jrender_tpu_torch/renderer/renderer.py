@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from .._device import resolve_device
 from ..lighting import Lighting
+from ..ops.n3mr import N3mrRasterizer
 from ..structures import Mesh
 from ..transform import Transform
 from .rasterizer import SoftRasterizer
@@ -47,8 +48,10 @@ class Renderer:
                                              texture_type, bin_size, max_elems_per_bin,
                                              max_faces_per_pixel_for_grad, self.device)
         elif dr_type == 'n3mr':
-            raise NotImplementedError("dr_type='n3mr' is not ported yet; it comes "
-                                      'with the N3MR slice of the port')
+            # near and far are not passed on: the rasterizer keeps its own
+            self.rasterizer = N3mrRasterizer(image_size, anti_aliasing,
+                                             background_color, fill_back,
+                                             device=self.device)
         else:
             raise ValueError("dr_type should be one of None, 'softras' or 'n3mr'")
 

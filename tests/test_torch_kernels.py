@@ -41,6 +41,8 @@ the comparison (``jrender_tpu_torch/utils/checks.py`` has the helpers):
   would drop that candidate at some pixels.  Each side therefore takes
   the threshold computed its own way; the two maps are held together by
   the threshold test.
+
+The N3MR kernels' tests and tolerances are at the end of the file.
 """
 import numpy as np
 import pytest
@@ -260,3 +262,159 @@ def test_softras_bwd_wrappers_check_their_inputs():
         cuda_impl.launch_reduce(cuda_impl.prepare(x, t, p), rows, p)
     with pytest.raises(ValueError):
         cuda_impl.launch_reduce(inputs, rows._replace(gbig=rows.gbig[:, :5]), p)
+
+
+# ---- N3MR: the z-buffer, the texture gradient, the edge gradient ------------
+#
+# The z-buffer kernel repeats the plain version's arithmetic with
+# round-to-nearest intrinsics, operation by operation, so the winners agree
+# except where two faces' depths differ in the last bits (at most 0.1% of the
+# pixels, and there the two depths agree to 1e-6 relative:
+# ``checks.n3mr_maps_beyond``).  The gradients sum the same float32 terms in
+# another order than the plain version: atol 2e-5 * max|grad|, the JAX suite's
+# own for its two versions (tests/test_n3mr.py:196-198, 338-340).
+
+def n3mr_soup(seed, F, B=1, shrink=1.0):
+    rng = np.random.RandomState(seed)
+    xy = rng.uniform(-0.95, 0.95, size=(B, F, 3, 2))
+    ctr = xy.mean(2, keepdims=True)
+    xy = ctr + (xy - ctr) * shrink
+    z = rng.uniform(1.2, 4.0, size=(B, F, 3, 1))
+    return torch.tensor(np.concatenate([xy, z], -1).astype(np.float32).reshape(B, F, 9),
+                        device='cuda')
+
+
+def n3mr_textures(seed, B, F, ts):
+    return torch.tensor(np.random.RandomState(seed).rand(B, F, ts, ts, ts, 3)
+                        .astype(np.float32), device='cuda')
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('is_,ts,special', [(64, 2, False), (72, 4, True), (128, 1, True),
+                                            (64, None, False)],
+                         ids=['64-ts2', '72-ragged-ts4-special', '128-ts1-special', 'no-rgb'])
+def test_n3mr_maps_kernel_matches_plain(is_, ts, special):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda, torch_impl as nplain
+    from jrender_tpu_torch.utils.checks import n3mr_maps_beyond, n3mr_special_faces
+    face = n3mr_soup(0, 200, B=2, shrink=0.5)
+    if special:
+        face = n3mr_special_faces(face)
+    tex = None if ts is None else n3mr_textures(1, 2, 200, ts)
+    rows, *got = ncuda.forward_maps(face, tex, is_, 0.1, 100.0, 1e-3)
+    torch.cuda.synchronize()
+    want = list(nplain.forward_maps(face, is_, 0.1, 100.0))
+    want.append(None if tex is None else
+                nplain.trilinear_rgb_from_maps(tex, *want[:3], want[4], 1e-3))
+    assert (got[5] is None) == (tex is None)
+    n3mr_maps_beyond(got, want)
+    assert (got[0] >= 0).float().mean() > 0.2
+    if special:
+        assert (got[0] == 0).any() and not ((got[0] == 1) | (got[0] == 2)).any()
+        # an emit cap of 4 tiles sends most faces through the big-face list:
+        # the same maps, bit for bit
+        neg_y = face * face.new_tensor([1.0, -1.0, 1.0] * 3)
+        lists = binning.build_tile_lists_compact(neg_y, is_, ncuda.TILE, ncuda.TILE, 0.0, 4)
+        assert int(lists.gcount.min()) >= 10
+        big = ncuda.launch_maps(rows, lists, tex, is_, 0.1, 100.0, 1e-3)
+        assert all(torch.equal(a, b) for a, b in zip(got, big))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('ts', [1, 2, 4, 6, 7, 9])
+def test_n3mr_texbwd_kernel_matches_plain(ts):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda, torch_impl as nplain
+    from jrender_tpu_torch.utils.checks import N3MR_SUM_TOL, n3mr_special_faces, scaled_err
+    face = n3mr_special_faces(n3mr_soup(2, 150, B=2, shrink=0.6))
+    tex = n3mr_textures(3, 2, 150, ts)
+    rows, fi, wt, dp, finv, zc, rgb = ncuda.forward_maps(face, tex, 72, 0.1, 100.0, 1e-3)
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    g = torch.randn(rgb.shape, generator=gen, device='cuda')
+    got = ncuda.backward_textures(rows, tex.shape, fi, wt, dp, zc, g, 1e-3)
+    again = ncuda.backward_textures(rows, tex.shape, fi, wt, dp, zc, g, 1e-3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)            # no atomics: the same bits
+    want = nplain.backward_textures(tex.shape, fi, wt, dp, zc, g, 1e-3)
+    assert scaled_err(got, want) <= N3MR_SUM_TOL
+    assert got[:, 0].abs().max() > 0          # the screen-filling face
+    assert (got[:, 1:3] == 0).all()           # the degenerate faces
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('rr,ra', [(True, True), (True, False), (False, True)])
+@pytest.mark.parametrize('is_', [64, 72])
+def test_n3mr_edgebwd_kernel_matches_plain(rr, ra, is_):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda, torch_impl as nplain
+    from jrender_tpu_torch.utils.checks import N3MR_SUM_TOL, n3mr_special_faces, scaled_err
+    face = n3mr_special_faces(n3mr_soup(4, 120, B=2, shrink=0.8))
+    tex = n3mr_textures(5, 2, 120, 2)
+    rows, fi, wt, dp, finv, zc, rgb = ncuda.forward_maps(face, tex, is_, 0.1, 100.0, 1e-3)
+    alpha = (fi >= 0).float()
+    gen = torch.Generator(device='cuda').manual_seed(6)
+    gr = torch.randn(rgb.shape, generator=gen, device='cuda')
+    ga = torch.randn(alpha.shape, generator=gen, device='cuda')
+    args = (face, fi, rgb, alpha, gr, ga, is_, 1e-3, rr, ra)
+    got = ncuda.backward_pixel_map(*args)
+    again = ncuda.backward_pixel_map(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = nplain.backward_pixel_map(*args)
+    assert scaled_err(got, want) <= N3MR_SUM_TOL
+    assert (got[..., 2::3] == 0).all() and got.abs().max() > 0
+
+
+@pytest.mark.gpu
+def test_n3mr_rasterize_backward_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda, rasterize
+    wrappers = (ncuda.launch_maps, ncuda.launch_texbwd, ncuda.launch_edgebwd)
+    x = n3mr_soup(7, 100).reshape(1, 100, 3, 3).requires_grad_(True)
+    t = n3mr_textures(8, 1, 100, 2).requires_grad_(True)
+    before = [w.launches for w in wrappers]
+    with torch.no_grad():
+        rasterize(x, t, 64)
+    after = [w.launches for w in wrappers]
+    assert [a - b for a, b in zip(after, before)] == [1, 0, 0]      # a plain forward
+    rasterize(x, t, 64).sum().backward()
+    torch.cuda.synchronize()
+    last = [w.launches for w in wrappers]
+    assert [a - b for a, b in zip(last, after)] == [1, 1, 1]
+    assert torch.isfinite(x.grad).all() and x.grad.abs().max() > 0
+    assert torch.isfinite(t.grad).all() and t.grad.abs().max() > 0
+
+
+@pytest.mark.gpu
+def test_n3mr_wrappers_check_their_inputs():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda
+    face = n3mr_soup(9, 20)
+    tex = n3mr_textures(9, 1, 20, 2)
+    rows, fi, wt, dp, finv, zc, rgb = ncuda.forward_maps(face, tex, 32, 0.1, 100.0, 1e-3)
+    lists = ncuda.tile_lists(face, 32)
+    with pytest.raises(TypeError):
+        ncuda.launch_maps(rows.double(), lists, tex, 32, 0.1, 100.0, 1e-3)
+    with pytest.raises(ValueError):
+        ncuda.launch_maps(rows[:, :, :10], lists, tex, 32, 0.1, 100.0, 1e-3)
+    with pytest.raises(ValueError):
+        ncuda.launch_maps(rows, lists, tex[:, :10], 32, 0.1, 100.0, 1e-3)
+    with pytest.raises(ValueError):
+        ncuda.launch_texbwd(rows, tex.shape, fi, wt[..., :2], dp, zc, rgb, 1e-3)
+    with pytest.raises(TypeError):
+        ncuda.launch_texbwd(rows, tex.shape, fi.long(), wt, dp, zc, rgb, 1e-3)
+    alpha = (fi >= 0).float()
+    pp, fi2, planes = ncuda.edge_inputs(face, fi, rgb, alpha, rgb, alpha, 32, True, True)
+    with pytest.raises(ValueError):
+        ncuda.launch_edgebwd(pp, fi2, planes, 1e-3, False, False)
+    with pytest.raises(ValueError):
+        ncuda.launch_edgebwd(pp, fi2, planes.cpu(), 1e-3, True, True)
+    with pytest.raises(ValueError):
+        ncuda.launch_edgebwd(pp, fi2, planes, 1e-3, True, False)     # 8 planes, 6 expected
+    with pytest.raises(ValueError):
+        ncuda.launch_edgebwd(pp, fi2.transpose(2, 3), planes, 1e-3, True, True)

@@ -513,5 +513,9 @@ def test_entry_points_raise_without_card(monkeypatch):
 
 
 def test_n3mr_not_ported_yet():
-    with pytest.raises(NotImplementedError, match='N3MR'):
-        jt.Renderer(dr_type='n3mr', device='cpu')
+    # the N3MR slice has landed: the branch builds its rasterizer (its parity
+    # tests are in test_torch_n3mr.py); an unknown rasterizer still raises
+    r = jt.Renderer(dr_type='n3mr', device='cpu')
+    assert isinstance(r.rasterizer, jt.N3mrRasterizer)
+    with pytest.raises(ValueError, match='dr_type'):
+        jt.Renderer(dr_type='nmr', device='cpu')

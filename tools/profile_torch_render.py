@@ -18,7 +18,14 @@ and 39,474 faces, 5x5 texels per face) with
     ``render_mesh`` wall time; ``profile_step``: the same over 4 forward +
     backward steps through ``render_mesh``;
   * ``tail``: each kernel on the faces of the busiest tile alone, whose
-    one block is the critical path of the full frame.
+    one block is the critical path of the full frame;
+  * ``n3mr_stages``: the stages of the N3MR step on the 39,474-face mesh
+    (2x2x2 texels per face), each timed alone: binning, per-face rows, the
+    z-buffer kernel with and without the texture fetch, the edge kernel's
+    inputs (plain torch) and the edge kernel (both axes in one launch),
+    the texture-gradient kernel, the depth gradient (plain torch), and the
+    forward + backward step of ``rasterize``; ``n3mr_profile_step``:
+    torch.profiler over 4 such steps (launches, device busy share).
 
 Seeded; needs a card (exits 2 without one) and nvcc.
 """
@@ -198,6 +205,58 @@ def main() -> int:
         'thr_ms_full_frame': turns['thr']['full'],
         'bwd_ms_busiest_tile_alone': turns['bwd']['tail'],
         'bwd_ms_full_frame': turns['bwd']['full']}}), flush=True)
+    # the N3MR step on the same mesh: bench.py's n3mr_row
+    from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda, torch_impl as nplain, rasterize
+    from jrender_tpu_torch.structures import face_vertices
+    from jrender_tpu_torch.transform import look_at, perspective
+    v, f = uv_sphere(130, 153)
+    vt = perspective(look_at(torch.tensor(v, device=dev)[None], (0.0, 0.0, -2.732)), angle=30)
+    face = face_vertices(vt, torch.tensor(f, device=dev)[None]).reshape(1, -1, 9).contiguous()
+    gen.manual_seed(1)
+    tex3 = torch.rand((1, face.shape[1], 2, 2, 2, 3), generator=gen, device=dev)
+    eps = 1e-4
+    n_lists, t_nbin = timed(lambda: ncuda.tile_lists(face, 1024))
+    n_rows, t_nrows = timed(lambda: nplain.face_rows(face, 1024))
+    maps, t_maps = timed(lambda: ncuda.launch_maps(n_rows, n_lists, tex3, 1024, 0.1, 100.0, eps),
+                         reps=30)
+    _, t_maps_notex = timed(lambda: ncuda.launch_maps(n_rows, n_lists, None, 1024, 0.1, 100.0,
+                                                      eps), reps=30)
+    fi, wt, dp, finv, zc, rgb = maps
+    alpha = (fi >= 0).float()
+    g_rgb = torch.ones_like(rgb)
+    edge_in, t_edge_in = timed(lambda: ncuda.edge_inputs(face, fi, rgb, alpha, g_rgb, alpha,
+                                                         1024, True, False))
+    _, t_edge = timed(lambda: ncuda.launch_edgebwd(*edge_in, eps, True, False), reps=30)
+    _, t_tex = timed(lambda: ncuda.launch_texbwd(n_rows, tex3.shape, fi, wt, dp, zc, g_rgb, eps),
+                     reps=30)
+    _, t_depth = timed(lambda: nplain.backward_depth(face, fi, finv, wt, dp, zc, alpha))
+    face_leaf = face.reshape(1, -1, 3, 3).clone().requires_grad_(True)
+    tex_leaf3 = tex3.clone().requires_grad_(True)
+
+    def n3mr_step():
+        face_leaf.grad = tex_leaf3.grad = None
+        rasterize(face_leaf, tex_leaf3, image_size=1024, anti_aliasing=False).sum().backward()
+
+    _, t_nstep = timed(n3mr_step)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        n3mr_step()
+    torch.cuda.synchronize()
+    t_nstep_wall = (time.perf_counter() - t0) * 100
+    e_rows, out_cells, in_cells, longest, positive = nplain.edge_scan_census(
+        face, fi, 1024, [[(rgb[0, ..., k], g_rgb[0, ..., k]) for k in range(3)]])
+    print(json.dumps({'n3mr_stages': {
+        'faces': face.shape[1], 'binning_ms': t_nbin, 'rows_ms': t_nrows,
+        'maps_kernel_ms': t_maps, 'maps_kernel_without_textures_ms': t_maps_notex,
+        'edge_inputs_ms': t_edge_in, 'edge_kernel_ms': t_edge, 'texbwd_kernel_ms': t_tex,
+        'depth_gradient_ms': t_depth, 'rasterize_step_ms': t_nstep,
+        'rasterize_step_wall_ms': t_nstep_wall,
+        'busiest_tile': int(n_lists.counts.max().item()),
+        'drawn_pixels': int((fi >= 0).sum().item()), 'edge_rows': e_rows,
+        'edge_cells_out': out_cells, 'edge_cells_in': in_cells,
+        'edge_cells_positive': positive, 'edge_longest_item_cells': longest}}), flush=True)
+    profiled('n3mr_profile_step', n3mr_step, t_nstep_wall)
+
     import subprocess
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True, text=True,
