@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's SoftRas and N3MR mesh paths on one CUDA card and check them.
+"""Drive the port's SoftRas (binned and dir routes) and N3MR mesh paths on one
+CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -53,7 +54,29 @@ of which raises on failure:
      size 4, orthographic camera at a random azimuth per step, ambient
      light only) on a 1,300-face sphere towards images the port renders
      from a seeded random texture; the loss must fall;
- 11. one JSON line of the kernels; the last line is the device JSON.
+ 11. the dir route, which ``JR_DIR_MAX`` opens to small meshes (phases
+     3-10 run with it unset and assert that the dir kernels never ran):
+     a. both dir kernels against their plain versions and against the
+        binned route on whole images of 32 to 256 px: distance x rgb x
+        alpha, the renderer's defaults, texture sizes 1, 4 and 25, vertex
+        colours with ``fill_back`` off, B = 2 with K = 1, 4 and 16, K = 40
+        (the forward's bisection), ``grad_mode='full'`` at a size of tile
+        8, faces over most of the screen, and a soup of exact depth ties
+        whose Morton order is not the id order; count and threshold maps
+        must equal the binned route's on 99.99% of pixels; each backward
+        twice, bit-equal;
+     b. bench.py's ``small`` row on the dir route: ``render_mesh`` at 1024
+        px of the 288-face ``uv_sphere(13, 12)``, T = 25, K = 16, demo 1's
+        camera: 8 frames, 8 steps of ``soft_rasterize(...).sum().backward()``
+        and 8 through ``render_mesh``, one launch of each dir wrapper per
+        step and none of the binned ones; 4,096 pixels and their gradient
+        against the plain versions; each kernel timed alone and bounded
+        from this run's pair counts; the steps and frames on both routes in
+        turns; then all of it again on the 3,330-face ``uv_sphere(38, 45)``;
+     c. demo 2's trainer (phase 7's configuration) on the dir route: the
+        first step's gradient against phase 7's binned one, 20 steps, the
+        loss must fall, the step time beside phase 7's;
+ 12. one JSON line of the kernels; the last line is the device JSON.
 
 The meshes, textures, cameras and pixel samples come from fixed seeds.
 
@@ -89,9 +112,19 @@ suite's own (tests/test_n3mr.py:196-198, 338-340).  ``max_abs_err`` of
 ``n3mr_maps`` is that of depth, weight and rgb; of the two gradients a
 share of max|grad|.
 
+Dir tolerances are phase 3's; against the binned route the count and
+threshold maps must agree to the bit on all but 0.01% of pixels, images
+and gradients at phase 3's tolerances.  The dir kernels' bounds count the
+function's work from the run's pairs (in a bbox, inside, candidates,
+within the threshold), not the per-tile bbox tests of the whole face
+table, which are the design's own cost; bytes: the table, bboxes and ids
+read once, 8 floats per pixel written (forward), or the 11 floats of each
+pixel with a candidate read and a gradient row per face written
+(backward): a pixel with no candidate adds nothing to any gradient.
+
 Bounds.  ``softras_bwd``'s bound is that of the function the backward and
-its reduction compute together: rows, lists and pixel maps read, one
-gradient row per face written.  The slot rows between the two kernels
+its reduction compute together: rows, lists and the maps of the pixels
+with a candidate read, one gradient row per face written.  The slot rows between the two kernels
 are the two-pass design's cost, not the function's; they appear only in
 ``softras_bwd_reduce``'s bound, as that kernel's input.  The N3MR
 bounds count, from this run's maps: the (pixel, face) pairs of the tile
@@ -106,6 +139,7 @@ output written once.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -133,6 +167,7 @@ OPS_SHADE = 60   # within the distance cut: sigmoid, clip, depth, alpha,
 #                  count, softmax and texel
 OPS_DEPTH = 25   # within the distance cut, threshold kernel: sigmoid, clip,
 #                  depth, the list's compare
+OPS_LIST = 2     # a candidate, dir forward with the threshold: the list's compare
 OPS_GRAD = 120   # within the threshold, backward: texel, softmax weight,
 #                  colour chain, 9 vertex terms, 3 texel terms, their sums
 TOL = 1e-4           # forward kernel vs plain
@@ -179,8 +214,9 @@ def pair_census(face, p, lists, counts):
     those inside the face (closed barycentric test); the candidates within
     the distance cut (the forward kernel's own count map, which phase 3
     holds against the plain version); and the candidates within the top-K
-    threshold, min(count, K) per pixel, which do backward work.  The
-    ``over_`` counts are those of the tiles where some pixel has more than
+    threshold, min(count, K) per pixel, which do backward work; and the
+    pixels with a candidate (``drawn``), the only ones whose maps a backward
+    needs.  The ``over_`` counts are those of the tiles where some pixel has more than
     K candidates: the tiles the threshold kernel walks."""
     import torch
     from jrender_tpu_torch.ops.softras import binning, cuda_impl, torch_impl
@@ -209,6 +245,7 @@ def pair_census(face, p, lists, counts):
             'inside': int(inside.sum().item()),
             'candidates': int(counts.sum().item()),
             'within_thr': int(within.sum().item()),
+            'drawn': int((counts > 0).sum().item()),
             'over_tiles': int(over.sum().item()),
             'over_tile_list': int(lists.counts[0][over.reshape(-1)].sum().item()) * tile ** 2,
             'over_in_bbox': int(pair_over.sum().item()),
@@ -224,11 +261,12 @@ def main() -> int:
     repo = Path(__file__).resolve().parent
     sys.path.insert(0, str(repo))
     from jrender_tpu_torch import Mesh, Renderer, _build, deform
-    from jrender_tpu_torch.ops.softras import (binning, cuda_impl, make_params,
+    from jrender_tpu_torch.ops.softras import (binning, cuda_impl, dir_impl, make_params,
                                                soft_rasterize, torch_impl)
     from jrender_tpu_torch.transform import look_at, perspective
     from jrender_tpu_torch.structures import face_vertices
-    from jrender_tpu_torch.utils.checks import fold_ties, grad_beyond, tie_symmetric
+    from jrender_tpu_torch.utils.checks import (fold_ties, grad_beyond, tie_soup,
+                                                tie_symmetric)
     from jrender_tpu_torch.utils.primitives import uv_sphere
 
     dev = torch.device('cuda')
@@ -237,12 +275,24 @@ def main() -> int:
                 'softras_bwd': cuda_impl.launch_bwd,
                 'softras_bwd_reduce': cuda_impl.launch_reduce}
 
+    dir_wrappers = {'softras_dir_fwd': dir_impl.launch_dir_fwd,
+                    'softras_dir_bwd': dir_impl.launch_dir_bwd}
+    # phases 3-10 take the binned route: JR_DIR_MAX is unset until phase 11
+    os.environ.pop('JR_DIR_MAX', None)
+
     def zero_counts():
-        for w in wrappers.values():
+        for w in (*wrappers.values(), *dir_wrappers.values()):
             w.launches = 0
 
     def read_counts():
         return {name: w.launches for name, w in wrappers.items()}
+
+    def read_dir():
+        return {name: w.launches for name, w in dir_wrappers.items()}
+
+    def no_dir(tag):
+        if any(read_dir().values()):
+            raise AssertionError(f'{tag}: the dir kernels ran on the binned route: {read_dir()}')
 
     # ---- 1. device ------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -500,6 +550,7 @@ def main() -> int:
     if render_counts != {'softras_fwd': FRAMES, 'softras_thr': 0, 'softras_bwd': 0,
                          'softras_bwd_reduce': 0}:
         raise AssertionError(f'launches of {FRAMES} plain frames: {render_counts}')
+    no_dir('phase 4')
     log(f'  launches on the render path: {render_counts} for {FRAMES} frames')
     for az, (alpha, rgb) in zip(azimuths, frames):
         if not (torch.isfinite(alpha).all() and torch.isfinite(rgb).all()):
@@ -588,6 +639,7 @@ def main() -> int:
     for name, g in (('face_vertices', fv_leaf.grad), ('textures', tex_leaf.grad)):
         if not (torch.isfinite(g).all() and g.abs().max() > 0):
             raise AssertionError(f'gradient of {name}: non-finite or zero')
+    no_dir('phase 5')
     log(f'  soft_rasterize: launches {step_counts} for {STEPS} steps; '
         f'max |d face_vertices| {fv_leaf.grad.abs().max().item():.4g}, '
         f'max |d textures| {tex_leaf.grad.abs().max().item():.4g}')
@@ -607,6 +659,7 @@ def main() -> int:
     for name, g in (('mesh.vertices', v_leaf.grad), ('mesh.textures', t_leaf.grad)):
         if g is None or not (torch.isfinite(g).all() and g.abs().max() > 0):
             raise AssertionError(f'gradient of {name}: missing, non-finite or zero')
+    no_dir('phase 5')
     log(f'  render_mesh: launches {mesh_counts} for {STEPS} steps; '
         f'max |d vertices| {v_leaf.grad.abs().max().item():.4g}, '
         f'max |d textures| {t_leaf.grad.abs().max().item():.4g}')
@@ -703,14 +756,15 @@ def main() -> int:
         + census['over_inside'] * OPS_INSIDE + census['over_candidates'] * OPS_DEPTH,
         4 * B * F * cuda_impl.ROW_BASE + lists_bytes + 4 * B * 2 * HW)
     # backward: the function that the backward and its reduction compute
-    # together: rows, lists and 11 maps in, one gradient row per face out;
-    # a warp walks only its face's bbox, so no pair pays the tile-list
-    # test.  The slot rows between the two kernels are not counted here
+    # together: rows, lists and the 11 maps of the pixels with a candidate
+    # in, one gradient row per face out; a warp walks only its face's bbox,
+    # so no pair pays the tile-list test.  The slot rows between the two
+    # kernels are not counted here
     bwd_bound = bound(
         census['in_bbox'] * OPS_DIST + census['inside'] * OPS_INSIDE
         + census['candidates'] * OPS_DEPTH + census['within_thr'] * OPS_GRAD
         + (pairs + n_big) * GC,
-        4 * inputs.rows.numel() + lists_bytes + 4 * B * 11 * HW + 4 * B * F * GC)
+        4 * inputs.rows.numel() + lists_bytes + 4 * 11 * census['drawn'] + 4 * B * F * GC)
     # reduction, as a kernel of its own: the written slot rows and the two
     # index maps in, the gradients out
     red_bound = bound(
@@ -782,6 +836,15 @@ def main() -> int:
     thr_err = max(thr_err, compare_thr(tag, fv_t, tex_t, p_t))
     run_bwd(tag, fv_t, tex_t, p_t)
 
+    def first_grad(m):
+        """The gradient of the loss at the model's parameters (no step)."""
+        m.zero_grad(set_to_none=True)
+        m.loss(trainer, targets)[0].backward()
+        g = torch.cat([m.displace.grad.reshape(-1), m.center.grad.reshape(-1)])
+        m.zero_grad(set_to_none=True)
+        return g
+
+    grad_binned = first_grad(model)                      # held against phase 11c
     optimizer = torch.optim.Adam(model.parameters(), lr=0.01, betas=(0.5, 0.99))
     zero_counts()
     losses = []
@@ -795,6 +858,7 @@ def main() -> int:
     train_counts = read_counts()
     if train_counts != {name: TRAIN_STEPS for name in wrappers}:
         raise AssertionError(f'launches of {TRAIN_STEPS} training steps: {train_counts}')
+    no_dir('phase 7')
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f'the training loss did not fall: {losses}')
     if not (torch.isfinite(model.displace).all() and torch.isfinite(sil).all()):
@@ -1129,8 +1193,377 @@ def main() -> int:
         f'{fit_losses[-1]:.2f} (mean of 3: {first:.2f} -> {last:.2f}); step '
         f'{np.median(t_fit[2:]):.3f} ms (median, host clock)  [{smi}]')
 
-    # ---- 11. results ----------------------------------------------------
-    launches = {**step_counts, **n_step_counts}
+    # ---- 11. the dir route (JR_DIR_MAX) ----------------------------------
+    log('phase 11a: dir kernels vs plain and vs the binned route, whole images')
+    d_err = {'fwd': 0.0, 'bwd': 0.0}
+    same_min = {'count': 1.0, 'thr': 1.0}
+
+    def compare_dir(tag, fv, tex, p):
+        """Both dir kernels against their plain versions and against the
+        binned route on the same inputs, whole image; the backward twice."""
+        surface = p.texture_type == 'surface'
+        if surface:
+            tex = tie_symmetric(tex)
+        with_thr = torch_impl.use_threshold(p, fv.shape[1])
+        table = dir_impl.prep_dir(fv, tex, p)
+        img, ag, cnt, thr = dir_impl.launch_dir_fwd(table, p, with_thr)
+        torch.cuda.synchronize()
+        want, ag_w, cnt_w, thr_w = dir_impl.fwd_plain(table, p, with_thr, chunk_pairs=1 << 24)
+        f_rgb, e_rgb = beyond(img[:, :3], want[:, :3], TOL, pixel_dim=1)
+        f_a, e_a = beyond(img[:, 3], want[:, 3], TOL)
+        check(f'{tag} rgb', f_rgb)
+        check(f'{tag} alpha', f_a)
+        check(f'{tag} count', beyond(cnt.float(), cnt_w.float(), 0)[0])
+        if p.aggr_func_rgb == 'hard':
+            check(f'{tag} face index', beyond(ag[:, 1], ag_w[:, 1], 0)[0])
+        if not torch.isfinite(img).all():
+            raise AssertionError(f'{tag}: non-finite output')
+        msg = f'  {tag}: rgb {f_rgb:.4f} beyond (max {e_rgb:.3g}), alpha {f_a:.4f}'
+        e_thr = 0.0
+        if with_thr:
+            bad = (thr - thr_w).abs() > THR_RTOL * thr_w.abs()
+            check(f'{tag} threshold', bad.float().mean().item(), THR_FRAC)
+            if not (thr[cnt <= p.max_faces_id] == p.far).all():
+                raise AssertionError(f'{tag}: a pixel with at most K candidates has a threshold')
+            e_thr = (thr - thr_w).abs().max().item()
+            msg += f', thr {bad.float().mean().item():.6f} beyond'
+        # the binned route on the same inputs: counts and thresholds to the bit
+        inputs = cuda_impl.prepare(fv, tex, p, for_grad=True)
+        b_img, b_ag, b_cnt = cuda_impl.launch(inputs, p)
+        b_thr = cuda_impl.topk_threshold(fv, p, inputs, b_cnt)
+        same_cnt = (b_cnt == cnt).float().mean().item()
+        same_min['count'] = min(same_min['count'], same_cnt)
+        check(f'{tag} count vs binned', 1.0 - same_cnt, 1e-4)
+        msg += f'; vs binned: count {same_cnt:.6f} equal'
+        if with_thr:
+            same_thr = (b_thr == thr).float().mean().item()
+            same_min['thr'] = min(same_min['thr'], same_thr)
+            check(f'{tag} threshold vs binned', 1.0 - same_thr, 1e-4)
+            msg += f', thr {same_thr:.6f} equal'
+        f_b, e_b = beyond(img, b_img, TOL, pixel_dim=1)
+        check(f'{tag} image vs binned', f_b)
+        # the backward, twice, against its plain version (with the plain
+        # threshold) and the binned backward (with the binned threshold)
+        gen.manual_seed(SEED + 3)
+        g = torch.randn(img.shape, generator=gen, device=dev)
+        gf, gt = dir_impl.launch_dir_bwd(table, img, ag, thr, g, p)
+        gf2, gt2 = dir_impl.launch_dir_bwd(table, img, ag, thr, g, p)
+        torch.cuda.synchronize()
+        if not (torch.equal(gf, gf2) and torch.equal(gt, gt2)):
+            raise AssertionError(f'{tag}: two runs of the dir backward differ in their bits')
+        wf, wt = dir_impl.bwd_plain(table, img, ag, thr_w, g, p, chunk_pairs=1 << 22)
+        kf, kt = cuda_impl.soft_rasterize_bwd(fv, tex, b_img, b_ag, b_thr, g, p, inputs)
+        kt = kt.reshape(gt.shape)
+        if surface:
+            gt, wt, kt = fold_ties(gt), fold_ties(wt), fold_ties(kt)
+        (f_f, e_f), (f_t, e_t) = grad_beyond(gf, wf), grad_beyond(gt, wt)
+        (k_f, _), (k_t, _) = grad_beyond(gf, kf), grad_beyond(gt, kt)
+        check(f'{tag} face gradient', f_f, GRAD_FRAC)
+        check(f'{tag} texture gradient', f_t, GRAD_FRAC)
+        check(f'{tag} face gradient vs binned', k_f, GRAD_FRAC)
+        check(f'{tag} texture gradient vs binned', k_t, GRAD_FRAC)
+        moves = p.aggr_func_rgb == 'softmax' or (p.dist_func != 'hard'
+                                                  and p.aggr_func_alpha != 'hard')
+        if moves and not gf.abs().max() > 0:
+            raise AssertionError(f'{tag}: zero face gradient')
+        d_err['fwd'] = max(d_err['fwd'], e_rgb, e_a, e_thr)
+        d_err['bwd'] = max(d_err['bwd'], e_f, e_t)
+        log(msg + f'; face grad {f_f:.6f} beyond (max {e_f:.2g} of scale), texture grad '
+            f'{f_t:.6f} (max {e_t:.2g}); vs binned {k_f:.6f} / {k_t:.6f}; bit-equal twice')
+        return gf
+
+    for dist, rgb, alpha in configs:
+        p = make_params(image_size=128, dist_func=dist, aggr_func_rgb=rgb,
+                        aggr_func_alpha=alpha, sigma_val=1e-4, gamma_val=1e-3)
+        compare_dir(f'sphere 128 {dist}/{rgb}/{alpha}', fv_mid, tex_mid, p)
+    compare_dir('sphere 256 renderer defaults', fv_mid, tex_mid, make_params(image_size=256))
+    for T in (1, 4, 25):
+        fv, tex = soup(400, 1, T, SEED + T)
+        compare_dir(f'soup 128 T={T}', fv, tex,
+                    make_params(image_size=128, sigma_val=1e-4, gamma_val=1e-3))
+    fv, tex = soup(400, 1, 3, SEED)
+    compare_dir('soup 64 vertex, background, fill_back off', fv, tex.reshape(1, 400, 3, 3),
+                make_params(image_size=64, texture_type='vertex', fill_back=False,
+                            background_color=(0.2, 0.4, 0.6), sigma_val=1e-4, gamma_val=0.1))
+    for K in (1, 4, 16):
+        compare_dir(f'soup 128 B=2 K={K}', fv_b2, tex_b2,
+                    make_params(image_size=128, sigma_val=1e-4, gamma_val=1e-3,
+                                max_faces_per_pixel_for_grad=K))
+    # K = 40 is past the per-thread list: the forward's bisection
+    compare_dir('dense soup 128 K=40, bisection', fv_dense, tex_dense,
+                make_params(image_size=128, sigma_val=1e-4, gamma_val=1e-3,
+                            max_faces_per_pixel_for_grad=40))
+    compare_dir("soup 120 (tile 8) grad_mode='full'", fv_b2, tex_b2,
+                make_params(image_size=120, sigma_val=1e-4, gamma_val=1e-3, grad_mode='full'))
+    # two faces over most of the screen: many bands of the backward each
+    fv_big = fv_b2.clone()
+    fv_big[:, 0, 0::3] = torch.tensor([-0.9, 0.9, 0.0], device=dev)
+    fv_big[:, 0, 1::3] = torch.tensor([-0.9, -0.8, 0.9], device=dev)
+    fv_big[:, 1, 0::3] = torch.tensor([-0.8, 0.7, -0.9], device=dev)
+    fv_big[:, 1, 1::3] = torch.tensor([0.8, 0.9, -0.7], device=dev)
+    gf_big = compare_dir('soup 256 screen-filling faces', fv_big, tex_b2,
+                         make_params(image_size=256, sigma_val=1e-4, gamma_val=1e-3))
+    if not gf_big[:, :2].abs().amax() > 0:
+        raise AssertionError('the screen-filling faces have no gradient')
+    # exact depth ties (checks.tie_soup): faces on z = 4 whose ties the
+    # lowest original id must win, wherever the Morton order puts it
+    tie = torch.tensor(tie_soup(), device=dev)
+    p_tie = make_params(image_size=32, dist_func='hard', aggr_func_rgb='hard',
+                        aggr_func_alpha='hard')
+    tie_table = dir_impl.prep_dir(tie, textures(4, 1, SEED + 11), p_tie)
+    if tie_table.ids[0].tolist() == sorted(tie_table.ids[0].tolist()):
+        raise AssertionError(f'tie soup: Morton order {tie_table.ids[0].tolist()} is the id order')
+    compare_dir('tie soup 32, hard', tie, textures(4, 1, SEED + 11), p_tie)
+    _, ag_tie, _, _ = dir_impl.launch_dir_fwd(tie_table, p_tie, False)
+    won = set(ag_tie[0, 1][ag_tie[0, 1] >= 0].long().tolist())
+    if won != {0, 1, 3}:
+        raise AssertionError(f'tie soup: faces {won} won')
+    log(f'  counts and thresholds equal to the binned route on at least '
+        f'{same_min["count"]:.6f} / {same_min["thr"]:.6f} of pixels in every case')
+
+    log('phase 11b: the dir route at full width, render_mesh and steps at 1024 px')
+
+    def dir_full_width(tag, rings, segs):
+        """bench.py's row on a UV sphere at 1024 px on the dir route: 8
+        frames, 8 steps of soft_rasterize and of render_mesh, one launch of
+        each dir wrapper per step and none of the binned ones; 4,096 pixels
+        and their gradient against the plain versions; each kernel timed
+        alone and bounded; the steps on both routes in turns."""
+        v_m, f_m = uv_sphere(rings, segs)
+        F = f_m.shape[0]
+        gen.manual_seed(SEED)
+        tex_m = torch.rand((1, F, 25, 3), generator=gen, device=dev)
+        mesh_m = Mesh(v_m, f_m, textures=tex_m, texture_res=5, texture_type='surface')
+        out = {'faces': F}
+        with dir_impl.with_dir_max(4096):
+            zero_counts()
+            with torch.no_grad():
+                for az in azimuths:
+                    mesh_m.reset_()
+                    renderer.transform.set_eyes_from_angles(2.732, 30, az)
+                    alpha, rgb = renderer.render_mesh(mesh_m, mode=None)
+                    if not (torch.isfinite(alpha).all() and alpha.gt(0.5).float().mean() > 0.05):
+                        raise AssertionError(f'{tag} azimuth {az}: non-finite or empty frame')
+            torch.cuda.synchronize()
+            if read_dir() != {'softras_dir_fwd': FRAMES, 'softras_dir_bwd': 0} \
+                    or any(read_counts().values()):
+                raise AssertionError(f'{tag}: launches of {FRAMES} frames: {read_dir()}, '
+                                     f'{read_counts()}')
+            mesh_m.reset_()
+            renderer.transform.set_eyes_from_angles(2.732, 30, azimuths[1])
+            with torch.no_grad():
+                lit_m = renderer.transform(renderer.lighting(mesh_m, renderer.transform.eyes))
+            fv_m = lit_m.face_vertices.reshape(1, -1, 9).contiguous()
+            tex_l = lit_m.face_textures.contiguous()
+            fv_l = fv_m.clone().requires_grad_(True)
+            tx_l = tex_l.clone().requires_grad_(True)
+
+            def raster_step(i=0):
+                fv_l.grad = tx_l.grad = None
+                soft_rasterize(fv_l, tx_l, image_size=1024, sigma_val=1e-5,
+                               gamma_val=1e-4).sum().backward()
+
+            v_l = torch.tensor(v_m, device=dev).requires_grad_(True)
+            t_l = tex_m.clone().requires_grad_(True)
+            mesh_l = Mesh(v_l, f_m, textures=t_l, texture_res=5, texture_type='surface')
+
+            def mesh_step(i=1):
+                v_l.grad = t_l.grad = None
+                mesh_l.reset_()
+                renderer.transform.set_eyes_from_angles(2.732, 30, azimuths[i % FRAMES])
+                alpha, rgb = renderer.render_mesh(mesh_l, mode=None)
+                (alpha.sum() + rgb.sum()).backward()
+
+            for name, step, grads in (('soft_rasterize', raster_step, (fv_l, tx_l)),
+                                      ('render_mesh', mesh_step, (v_l, t_l))):
+                zero_counts()
+                for i in range(STEPS):
+                    step(i)
+                    want = {'softras_dir_fwd': i + 1, 'softras_dir_bwd': i + 1}
+                    if read_dir() != want or any(read_counts().values()):
+                        raise AssertionError(f'{tag} {name}: launches after step {i + 1}: '
+                                             f'{read_dir()}, {read_counts()}')
+                torch.cuda.synchronize()
+                out[f'{name}_launches'] = read_dir()
+                for leaf in grads:
+                    if leaf.grad is None or not (torch.isfinite(leaf.grad).all()
+                                                 and leaf.grad.abs().max() > 0):
+                        raise AssertionError(f'{tag} {name}: a gradient is missing, '
+                                             f'non-finite or zero')
+
+            # 4,096 pixels of the step's frame and their gradient
+            p_m = make_params(image_size=1024)
+            tex_s = tie_symmetric(tex_l)
+            table = dir_impl.prep_dir(fv_m, tex_s, p_m)
+            img, ag, cnt, thr = dir_impl.launch_dir_fwd(table, p_m, True)
+            face_t, tex_t = dir_impl.table_faces(table, p_m)
+            idx = torch.unique(sample_pixels(1024)[0])
+            xk, yk = torch_impl.pixel_centers(idx // 1024, idx % 1024, 1024)
+
+            def at(x):
+                return x.reshape(1, x.shape[1], -1)[:, :, idx].permute(0, 2, 1).contiguous()
+
+            def plain_fwd():
+                return torch_impl.forward_pixels(face_t, tex_t, p_m, xk, yk, chunk_pairs=1 << 24,
+                                                 ids=table.ids)
+
+            col, _, cnt_w = plain_fwd()
+            f_rgb, e_rgb = beyond(at(img)[..., :3], col[..., :3], TOL, pixel_dim=-1)
+            f_a, e_a = beyond(at(img)[..., 3], col[..., 3], TOL)
+            check(f'{tag} sampled rgb', f_rgb)
+            check(f'{tag} sampled alpha', f_a)
+            check(f'{tag} sampled count', beyond(at(cnt[:, None].float())[..., 0],
+                                                 cnt_w.float(), 0)[0])
+            thr_px = torch_impl.topk_threshold(face_t, p_m, xk, yk, chunk_pairs=1 << 24)
+            f_thr = ((thr_px - at(thr[:, None])[..., 0]).abs()
+                     > THR_RTOL * thr_px.abs()).float().mean().item()
+            check(f'{tag} sampled threshold', f_thr, THR_FRAC)
+            gen.manual_seed(SEED + 2)
+            g_px = torch.randn((1, idx.numel(), 4), generator=gen, device=dev)
+            g_img = torch.zeros((1, 4, 1024 * 1024), device=dev)
+            g_img[:, :, idx] = g_px.permute(0, 2, 1)
+            g_img = g_img.reshape(1, 4, 1024, 1024)
+            gf_k, gt_k = dir_impl.launch_dir_bwd(table, img, ag, thr, g_img, p_m)
+            back = table.inv.long()
+
+            def plain_bwd():
+                gf, gt = torch_impl.backward_pixels(face_t, tex_t, at(img), at(ag), g_px, p_m,
+                                                    xk, yk, thr=thr_px, chunk_pairs=1 << 22,
+                                                    ids=table.ids)
+                return (gf.gather(1, back[..., None].expand_as(gf)),
+                        gt.gather(1, back[..., None, None].expand_as(gt)))
+
+            gf_w, gt_w = plain_bwd()
+            (f_f, e_f), (f_t, e_t) = grad_beyond(gf_k, gf_w), grad_beyond(
+                fold_ties(gt_k), fold_ties(gt_w))
+            check(f'{tag} sampled face gradient', f_f, GRAD_FRAC)
+            check(f'{tag} sampled texture gradient', f_t, GRAD_FRAC)
+            out['fwd_err'] = max(e_rgb, e_a, (thr_px - at(thr[:, None])[..., 0]).abs().max().item())
+            out['bwd_err'] = max(e_f, e_t)
+            log(f'  {tag}: launches {out["soft_rasterize_launches"]} and '
+                f'{out["render_mesh_launches"]} for {STEPS} steps, {FRAMES} for {FRAMES} frames, '
+                f'none binned; {idx.numel()} pixels: rgb {f_rgb:.4f} beyond (max {e_rgb:.3g}), '
+                f'alpha {f_a:.4f}, threshold {f_thr:.6f}; their gradient: face {f_f:.6f} beyond '
+                f'(max {e_f:.2g} of scale), texture {f_t:.6f} (max {e_t:.2g})')
+
+            # each kernel alone, its plain version on the sample, the prep
+            g_ones = torch.ones_like(img)
+            out['fwd_ms'] = timed(lambda: dir_impl.launch_dir_fwd(table, p_m, True), reps=30)
+            out['fwd_nothr_ms'] = timed(lambda: dir_impl.launch_dir_fwd(table, p_m, False),
+                                        reps=30)
+            out['bwd_ms'] = timed(lambda: dir_impl.launch_dir_bwd(table, img, ag, thr, g_ones,
+                                                                  p_m), reps=30)
+            out['prep_ms'] = timed(lambda: dir_impl.prep_dir(fv_m, tex_s, p_m))
+            out['fwd_plain_ms'] = timed(plain_fwd, reps=2, warm=1)
+            out['bwd_plain_ms'] = timed(plain_bwd, reps=2, warm=1)
+            out['plain_on'] = f'{idx.numel()} of {1024 * 1024} pixels'
+
+        # the steps on both routes in turns: binned, dir, dir, binned
+        times = {'binned': [], 'dir': []}
+        for route in ('binned', 'dir', 'dir', 'binned'):
+            with dir_impl.with_dir_max(4096 if route == 'dir' else 0):
+                t_r = timed(raster_step, reps=STEPS)
+                t0 = time.perf_counter()
+                for i in range(STEPS):
+                    mesh_step(i)
+                torch.cuda.synchronize()
+                t_m = (time.perf_counter() - t0) * 1e3 / STEPS
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    for i in range(FRAMES):
+                        mesh_m.reset_()
+                        renderer.transform.set_eyes_from_angles(2.732, 30, azimuths[i])
+                        renderer.render_mesh(mesh_m, mode='rgb')
+                torch.cuda.synchronize()
+                times[route].append((t_r, t_m, (time.perf_counter() - t0) * 1e3 / FRAMES))
+        out['times'] = times
+
+        # the bounds, from this frame's pair counts: the function's work (the
+        # pairs in a bbox, inside, candidates, within the threshold), not the
+        # design's per-tile bbox tests of the whole table; the backward reads
+        # the 11 maps of the pixels with a candidate only
+        in_b = cuda_impl.prepare(fv_m, tex_s, p_m)
+        census = pair_census(fv_m, p_m, in_b.lists, cnt)
+        HW = 1024 * 1024
+        GC = 9 + tex_s[0, 0].numel()
+        table_bytes = 4 * (table.rows.numel() + table.bbox.numel() + table.ids.numel())
+        out['fwd_bound'] = bound(
+            census['in_bbox'] * OPS_DIST + census['inside'] * OPS_INSIDE
+            + census['candidates'] * (OPS_SHADE + OPS_LIST),
+            table_bytes + 4 * 8 * HW)
+        out['bwd_bound'] = bound(
+            census['in_bbox'] * OPS_DIST + census['inside'] * OPS_INSIDE
+            + census['candidates'] * OPS_DEPTH + census['within_thr'] * OPS_GRAD,
+            table_bytes + 4 * 11 * census['drawn'] + 4 * F * GC)
+        out['census'] = census
+        med = {r: [float(np.median([t[k] for t in ts])) for k in range(3)]
+               for r, ts in times.items()}
+        log(f'  {tag}: pairs {census}')
+        for name in ('fwd', 'bwd'):
+            b = out[f'{name}_bound']
+            log(f'  {tag} bound softras_dir_{name}: {b[0]:.6f} ms by {b[1]}: {b[2]}')
+        log(f'  {tag} kernels alone: forward {out["fwd_ms"]:.4f} ms (without the threshold '
+            f'{out["fwd_nothr_ms"]:.4f}), backward {out["bwd_ms"]:.4f} ms; prep '
+            f'{out["prep_ms"]:.4f} ms; plain on {out["plain_on"]}: forward '
+            f'{out["fwd_plain_ms"]:.1f} ms, backward {out["bwd_plain_ms"]:.1f} ms  [{smi}]')
+        log(f'  {tag} in turns (binned, dir, dir, binned), ms: soft_rasterize step / '
+            f'render_mesh step / render_mesh frame: {times}; medians binned {med["binned"]}, '
+            f'dir {med["dir"]}  [{smi}]')
+        return out
+
+    small = dir_full_width('288 faces', 13, 12)
+    dir_counts = small['soft_rasterize_launches']
+    middle = dir_full_width('3,330 faces', 38, 45)
+
+    log('phase 11c: demo 2 on the dir route, 120 views at 64 px, 1,300 faces')
+    with dir_impl.with_dir_max(4096):
+        model_d = deform.DeformModel(v_s, f_s).to(dev)
+        zero_counts()
+        grad_dir = first_grad(model_d)
+        f_g, e_g = grad_beyond(grad_dir, grad_binned)
+        check('demo 2 first gradient vs the binned route', f_g, GRAD_FRAC)
+        optimizer_d = torch.optim.Adam(model_d.parameters(), lr=0.01, betas=(0.5, 0.99))
+        zero_counts()
+        losses_d, t_dir = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            loss, sil = deform.deform_step(model_d, optimizer_d, trainer, targets)
+            torch.cuda.synchronize()
+            t_dir.append((time.perf_counter() - t0) * 1e3)
+            losses_d.append(loss.item())
+        train_dir = read_dir()
+        if train_dir != dict.fromkeys(dir_wrappers, TRAIN_STEPS) or any(read_counts().values()):
+            raise AssertionError(f'dir launches of {TRAIN_STEPS} training steps: {read_dir()}, '
+                                 f'{read_counts()}')
+        if not (np.isfinite(losses_d).all() and losses_d[-1] < losses_d[0]):
+            raise AssertionError(f'the training loss on the dir route did not fall: {losses_d}')
+    # the two routes' stages on the rasterizer's inputs of the first step
+    tex_ts = tie_symmetric(tex_t)
+    tab_t = dir_impl.prep_dir(fv_t, tex_ts, p_t)
+    img_t, ag_t, _, thr_t = dir_impl.launch_dir_fwd(tab_t, p_t, True)
+    in_t = cuda_impl.prepare(fv_t, tex_ts, p_t, for_grad=True)
+    bimg_t, bag_t, bcnt_t = cuda_impl.launch(in_t, p_t)
+    bthr_t = cuda_impl.launch_thr(in_t, bcnt_t, p_t)
+    g_t = torch.ones_like(img_t)
+    stages_t = {
+        'dir prep': timed(lambda: dir_impl.prep_dir(fv_t, tex_ts, p_t)),
+        'dir forward': timed(lambda: dir_impl.launch_dir_fwd(tab_t, p_t, True)),
+        'dir backward': timed(lambda: dir_impl.launch_dir_bwd(tab_t, img_t, ag_t, thr_t, g_t,
+                                                              p_t)),
+        'binned prep': timed(lambda: cuda_impl.prepare(fv_t, tex_ts, p_t, for_grad=True)),
+        'binned forward + threshold': timed(lambda: (cuda_impl.launch(in_t, p_t),
+                                                     cuda_impl.launch_thr(in_t, bcnt_t, p_t))),
+        'binned backward + reduction': timed(lambda: cuda_impl.soft_rasterize_bwd(
+            fv_t, tex_ts, bimg_t, bag_t, bthr_t, g_t, p_t, in_t))}
+    log('  stages on the first step\'s inputs, ms (CUDA events): '
+        + ', '.join(f'{k} {v:.4f}' for k, v in stages_t.items()) + f'  [{smi}]')
+    log(f'  first gradient vs the binned route: {f_g:.6f} of entries beyond (max {e_g:.2g} of '
+        f'scale); launches {train_dir} for {TRAIN_STEPS} steps; loss {losses_d[0]:.6f} -> '
+        f'{losses_d[-1]:.6f}; step {np.median(t_dir[2:]):.3f} ms on the dir route, '
+        f'{np.median(t_train[2:]):.3f} ms binned (phase 7; medians, host clock)  [{smi}]')
+
+    # ---- 12. results ----------------------------------------------------
+    launches = {**step_counts, **n_step_counts, **dir_counts}
 
     def entry(name, source, replaces, err, ms, plain_ms, plain_on, b, library_ms=None):
         return {'name': name, 'route': 'cuda',
@@ -1158,6 +1591,12 @@ def main() -> int:
         entry('n3mr_edgebwd', 'n3mr_edgebwd.cu', 'jrender_tpu/ops/n3mr/banded_bwd.py:347',
               n_err['n3mr_edgebwd'], edgebwd_ms, edge_plain_ms,
               f'{ids_n.numel()} of {F_n} faces', edgebwd_bound),
+        entry('softras_dir_fwd', 'softras_dir_fwd.cu', 'jrender_tpu/ops/softras/dir_impl.py:202',
+              max(d_err['fwd'], small['fwd_err']), small['fwd_ms'],
+              small['fwd_plain_ms'], small['plain_on'], small['fwd_bound']),
+        entry('softras_dir_bwd', 'softras_dir_bwd.cu', 'jrender_tpu/ops/softras/dir_impl.py:480',
+              max(d_err['bwd'], small['bwd_err']), small['bwd_ms'], small['bwd_plain_ms'],
+              small['plain_on'], small['bwd_bound']),
     ]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
                                              'count': count}}), flush=True)

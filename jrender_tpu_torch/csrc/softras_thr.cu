@@ -40,13 +40,13 @@
 #include <cuda_runtime.h>
 
 #include "softras_pair.cuh"
+#include "softras_topk.cuh"
 
 namespace softras {
 
 constexpr int kTile = 16;
 constexpr int kThreads = kTile * kTile;
 constexpr int kGeom = kTex;   // floats of a row that hold geometry
-constexpr int kListMax = 32;  // depths a thread's list holds
 
 struct ThrArgs {
   const float* rows;         // [B, F, row]
@@ -62,16 +62,6 @@ struct ThrArgs {
   int dist_func, K;
   Scalars s;
 };
-
-// order-preserving map of a float onto unsigned integers
-__device__ __forceinline__ unsigned depth_key(float z) {
-  const unsigned u = __float_as_uint(z);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float key_depth(unsigned k) {
-  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
-}
 
 // Walks the tile's face list once; visit(zp) sees every candidate depth of
 // this thread's pixel.  Every thread of the block must call it.
@@ -122,33 +112,6 @@ __device__ __forceinline__ void walk_candidates(const ThrArgs& a, float* srow,
     }
   }
 }
-
-// the K smallest depths seen so far, unsorted, and the place of their max
-struct SmallestK {
-  float d[kListMax];
-  int K, n, imax;
-  __device__ __forceinline__ void operator()(float z) {
-    if (n < K) {
-      d[n] = z;
-      if (n == 0 || z > d[imax]) imax = n;
-      ++n;
-    } else if (z < d[imax]) {
-      d[imax] = z;
-      int m = 0;
-      for (int i = 1; i < K; ++i)
-        if (d[i] > d[m]) m = i;
-      imax = m;
-    }
-  }
-};
-
-struct CountBelow {
-  unsigned trial;
-  int count;
-  __device__ __forceinline__ void operator()(float z) {
-    count += depth_key(z) <= trial ? 1 : 0;
-  }
-};
 
 template <int DIST>
 __global__ void __launch_bounds__(kThreads)

@@ -1,0 +1,56 @@
+// The top-K depth threshold's pieces as CUDA device code, shared by the
+// binned threshold kernel (softras_thr.cu) and the dir forward
+// (softras_dir_fwd.cu), which finds the threshold in its own walk.
+//
+// The threshold of a pixel is the K-th smallest depth among its candidate
+// pairs, counted with multiplicity.  A thread meets its candidates one
+// after the other and keeps the K smallest seen so far (SmallestK), for K
+// up to kListMax; a larger K is bisected on the depth's bits, one walk
+// per step counting the candidates at or below a trial (CountBelow), as
+// the TPU kernels bisect (pxt_impl.py:584-674, dir_impl.py:343-399).
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace softras {
+
+constexpr int kListMax = 32;  // depths a thread's list holds
+
+// order-preserving map of a float onto unsigned integers
+__device__ __forceinline__ unsigned depth_key(float z) {
+  const unsigned u = __float_as_uint(z);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_depth(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// the K smallest depths seen so far, unsorted, and the place of their max
+struct SmallestK {
+  float d[kListMax];
+  int K, n, imax;
+  __device__ __forceinline__ void operator()(float z) {
+    if (n < K) {
+      d[n] = z;
+      if (n == 0 || z > d[imax]) imax = n;
+      ++n;
+    } else if (z < d[imax]) {
+      d[imax] = z;
+      int m = 0;
+      for (int i = 1; i < K; ++i)
+        if (d[i] > d[m]) m = i;
+      imax = m;
+    }
+  }
+};
+
+struct CountBelow {
+  unsigned trial;
+  int count;
+  __device__ __forceinline__ void operator()(float z) {
+    count += depth_key(z) <= trial ? 1 : 0;
+  }
+};
+
+}  // namespace softras

@@ -13,6 +13,13 @@ with an explicit backward, and autograd never differentiates the forward.
 With ``grad_mode='topk'`` (the default) a pixel sends gradient to its
 ``max_faces_per_pixel_for_grad`` nearest candidates only; ``'full'``
 sends it to every candidate.
+
+Two routes, chosen as the JAX package chooses between its ``dir`` and
+binned layouts (``dir_impl.route``): a mesh of at most ``JR_DIR_MAX``
+faces (default 0: never) on a size divisible by 8 goes to the dir
+kernels, which walk the whole face table per screen tile and find the
+threshold in the forward's own walk; everything else to the binned
+kernels (``cuda_impl``).  The backward takes the route its forward took.
 """
 from __future__ import annotations
 
@@ -20,7 +27,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..._device import resolve_device
-from . import cuda_impl
+from . import cuda_impl, dir_impl, torch_impl
 from .params import SoftRasParams, make_params
 
 
@@ -30,6 +37,17 @@ class SoftRasterize(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, face_vertices, textures, p: SoftRasParams, need_grad: bool):
+        ctx.dir = None
+        if dir_impl.route(p, face_vertices.shape[1]) == 'dir':
+            # the Morton table is made once and kept for the backward
+            table = dir_impl.prep_dir(face_vertices, textures, p)
+            with_thr = need_grad and torch_impl.use_threshold(p, face_vertices.shape[1])
+            images, aggrs, _, thr = dir_impl.forward(table, p, with_thr)
+            if need_grad:
+                ctx.p = p
+                ctx.dir = table
+                ctx.save_for_backward(face_vertices, textures, images, aggrs, thr)
+            return images
         inputs = None
         if face_vertices.device.type == 'cuda':
             # rows and tile lists are made once and kept for the backward
@@ -50,9 +68,14 @@ class SoftRasterize(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, grad_images):
         face_vertices, textures, images, aggrs, thr = ctx.saved_tensors
-        grad_face, grad_tex = cuda_impl.soft_rasterize_bwd(
-            face_vertices, textures, images, aggrs, thr, grad_images, ctx.p,
-            ctx.inputs)
+        if ctx.dir is not None:
+            grad_face, grad_tex = dir_impl.backward(ctx.dir, images, aggrs, thr,
+                                                    grad_images, ctx.p)
+            grad_tex = grad_tex.reshape(textures.shape)
+        else:
+            grad_face, grad_tex = cuda_impl.soft_rasterize_bwd(
+                face_vertices, textures, images, aggrs, thr, grad_images, ctx.p,
+                ctx.inputs)
         return (grad_face if ctx.needs_input_grad[0] else None,
                 grad_tex if ctx.needs_input_grad[1] else None, None, None)
 
@@ -81,7 +104,9 @@ def soft_rasterize(face_vertices, textures, image_size=256,
     ``face_vertices``: [B, F, 3, 3] (or [B, F, 9]); ``textures``:
     [B, F, T, 3] (surface) or [B, F, 3, 3] (vertex colours per corner).
     ``bin_size`` / ``max_elems_per_bin`` are accepted for API parity; the
-    kernel bins the screen into 16-px tiles itself.
+    kernel bins the screen into 16-px tiles itself.  A mesh of at most
+    ``JR_DIR_MAX`` faces (environment, default 0) skips the binning (see
+    the module docstring).
     """
     p = make_params(image_size=image_size, background_color=background_color,
                     near=near, far=far, fill_back=fill_back, eps=eps,
@@ -110,4 +135,7 @@ def soft_rasterize_with_aux(face_vertices, textures, p: SoftRasParams,
     face_vertices, textures = _inputs(face_vertices, textures, p.texture_type,
                                       device)
     with torch.no_grad():
+        if dir_impl.route(p, face_vertices.shape[1]) == 'dir':
+            return dir_impl.forward(dir_impl.prep_dir(face_vertices, textures, p), p,
+                                    False)[:3]
         return cuda_impl.soft_rasterize_fwd(face_vertices, textures, p)

@@ -106,9 +106,10 @@ def face_rows(face: torch.Tensor, textures: torch.Tensor,
                       textures.reshape(B, F, -1)], dim=-1).contiguous()
 
 
-def chunk_for(row: int) -> int:
-    """Faces per shared-memory chunk for a row of ``row`` floats."""
-    return max(1, min(MAX_CHUNK, SMEM_BYTES // (4 * row + 4)))
+def chunk_for(row: int, reserved_bytes: int = 0) -> int:
+    """Faces per shared-memory chunk for a row of ``row`` floats and one
+    int per face, in a block that also holds ``reserved_bytes`` of its own."""
+    return max(1, min(MAX_CHUNK, (SMEM_BYTES - reserved_bytes) // (4 * row + 4)))
 
 
 def chunk_for_bwd(row: int, tex_sums: int) -> int:

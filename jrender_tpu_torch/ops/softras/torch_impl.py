@@ -104,10 +104,13 @@ def _sample_colors(tex, w_clip, face, zp, p: SoftRasParams):
     return torch.einsum('pfk,fkc->pfc', wz, tex) * zp[..., None]
 
 
-def forward_single(face, tex, p: SoftRasParams, xp, yp):
+def forward_single(face, tex, p: SoftRasParams, xp, yp, ids=None):
     """Forward rasterization of one batch element over pixels (xp, yp) [P].
 
-    face [F,9], tex [F,T,3] (surface) or [F,3,3] (vertex).
+    face [F,9], tex [F,T,3] (surface) or [F,3,3] (vertex).  ``ids`` [F],
+    where given, are the faces' own ids (the dir layout's faces come in
+    Morton order): the hard z-buffer breaks depth ties by the lowest id and
+    reports it, as it does by the lowest position without them.
     Returns (soft_colors [P,4], aggrs [P,2], counts [P] int32).
     """
     F = face.shape[0]
@@ -146,13 +149,19 @@ def forward_single(face, tex, p: SoftRasParams, xp, yp):
     elif p.rgb_func_id == 0:  # hard z-buffer (:390-397, 436-442)
         hard_valid = tk_valid & G.check_pixel_inside(terms['w']) & side_ok[None, :]
         zp_key = torch.where(hard_valid, zp, BIG_DEPTH)
-        fmin = zp_key.argmin(dim=1)                               # first min wins
+        if ids is None:
+            fmin = zp_key.argmin(dim=1)                           # first min wins
+        else:
+            # the lowest id among the nearest, wherever it stands
+            tied = zp_key == zp_key.amin(dim=1, keepdim=True)
+            idk = torch.where(tied, ids.long()[None, :], F + ids.numel())
+            fmin = (idk == idk.amin(dim=1, keepdim=True)).to(torch.int8).argmax(dim=1)
         depth_min = zp_key.gather(1, fmin[:, None])[:, 0]
         has_hit = depth_min < BIG_DEPTH
         colors = _sample_colors(tex, w_clip, face[None], zp, p)
         hit_col = colors.gather(1, fmin[:, None, None].expand(-1, 1, 3))[:, 0]
         rgb = torch.where(has_hit[:, None], hit_col, bg[None, :])
-        face_index_min = torch.where(has_hit, fmin, -1)
+        face_index_min = torch.where(has_hit, fmin if ids is None else ids.long()[fmin], -1)
         aggrs = torch.stack([torch.where(has_hit, depth_min, BIG_DEPTH),
                              face_index_min.to(face.dtype)], dim=1)
     else:
@@ -164,17 +173,22 @@ def forward_single(face, tex, p: SoftRasParams, xp, yp):
     return soft_colors, aggrs, counts
 
 
+def _at(x, b):
+    return None if x is None else x[b]
+
+
 def forward_pixels(face_vertices, textures, p: SoftRasParams, xp, yp,
-                   chunk_pairs: int = CHUNK_PAIRS):
+                   chunk_pairs: int = CHUNK_PAIRS, ids=None):
     """Chunked ``forward_single`` over a batch: face_vertices [B,F,9],
-    textures [B,F,T,3] or [B,F,3,3], pixel centres [P].
+    textures [B,F,T,3] or [B,F,3,3], pixel centres [P]; ``ids`` [B,F] as
+    ``forward_single`` takes them.
     Returns (colors [B,P,4], aggrs [B,P,2], counts [B,P])."""
     B, F = face_vertices.shape[:2]
     step = max(1, chunk_pairs // max(F, 1))
     outs = ([], [], [])
     for b in range(B):
         parts = [forward_single(face_vertices[b], textures[b], p,
-                                xp[s:s + step], yp[s:s + step])
+                                xp[s:s + step], yp[s:s + step], _at(ids, b))
                  for s in range(0, xp.shape[0], step)]
         for o, part in zip(outs, zip(*parts)):
             o.append(torch.cat(part, dim=0))
@@ -264,7 +278,7 @@ def topk_face_ids(face_vertices, p: SoftRasParams, xp, yp,
 # --------------------------------------------------------------------------
 
 def backward_single(face, tex, colors, aggrs, grad_out, p: SoftRasParams, xp, yp,
-                    thr=None, face_ids=None):
+                    thr=None, face_ids=None, ids=None):
     """Backward of one batch element over pixels (xp, yp) [P], dense over
     all faces (``backward_single`` of the JAX oracle, jax_impl.py:189-331,
     in the masked form of the TPU kernel, pxt_impl.py:900-1038).
@@ -273,6 +287,8 @@ def backward_single(face, tex, colors, aggrs, grad_out, p: SoftRasParams, xp, yp
     A candidate pair sends gradient when ``zp <= thr`` (thr [P], as the
     kernels mask), or when its face is among ``face_ids`` [P,K] (as the
     oracle gathers), or always when both are None.
+    ``ids`` [F], where given, are the faces' own ids, which the hard-rgb
+    winner in ``aggrs`` names.
     Returns (grad_face [F,9], grad_tex like tex).
     """
     F = face.shape[0]
@@ -340,7 +356,8 @@ def backward_single(face, tex, colors, aggrs, grad_out, p: SoftRasParams, xp, yp
     elif p.rgb_func_id == 0:
         # hard rgb: the texture gradient goes to the winning face only
         win = aggrs[:, 1].to(torch.int64)[:, None]
-        is_win = torch.arange(F, device=face.device)[None, :] == win
+        own = torch.arange(F, device=face.device) if ids is None else ids.long()
+        is_win = own[None, :] == win
         grad_tex = texture_grad(is_win.to(dt))
 
     # ---- sigmoid chain to the vertex xy (soft_rasterize.py:1336-1347) ----
@@ -371,10 +388,11 @@ def backward_single(face, tex, colors, aggrs, grad_out, p: SoftRasParams, xp, yp
 
 def backward_pixels(face_vertices, textures, colors, aggrs, grad_out,
                     p: SoftRasParams, xp, yp, thr=None, face_ids=None,
-                    chunk_pairs: int = CHUNK_PAIRS // 4):
+                    chunk_pairs: int = CHUNK_PAIRS // 4, ids=None):
     """Chunked ``backward_single`` over a batch: the gradient of the pixels
     (xp, yp) [P] alone.  colors/grad_out [B,P,4], aggrs [B,P,2], thr [B,P]
-    or face_ids [B,P,K] or neither.  Returns (grad_face_vertices [B,F,9],
+    or face_ids [B,P,K] or neither; ``ids`` [B,F] as ``backward_single``
+    takes them.  Returns (grad_face_vertices [B,F,9],
     grad_textures like textures)."""
     B, F = face_vertices.shape[:2]
     step = max(1, chunk_pairs // max(F, 1))
@@ -387,7 +405,7 @@ def backward_pixels(face_vertices, textures, colors, aggrs, grad_out,
                 face_vertices[b], textures[b], colors[b, s:e], aggrs[b, s:e],
                 grad_out[b, s:e], p, xp[s:e], yp[s:e],
                 None if thr is None else thr[b, s:e],
-                None if face_ids is None else face_ids[b, s:e])
+                None if face_ids is None else face_ids[b, s:e], _at(ids, b))
             gf[b] += f
             gt[b] += t
     return gf, gt

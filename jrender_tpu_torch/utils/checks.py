@@ -72,6 +72,19 @@ def grad_beyond(got, want, faces=None):
     return bad.double().mean().item(), d.max().item() / scale
 
 
+def tie_soup():
+    """Four faces [1,4,9] (numpy) whose hard z-buffer ties are exact in any
+    float32 arithmetic: right triangles with power-of-two legs on a dyadic
+    grid, so barycentrics and depths carry no rounding.  Faces 0 to 2 lie on
+    z = 4 inside face 1 (y <= x), face 3 on z = 2.  The dir route's Morton
+    order walks face 2, then 1, then 0: a tie must go to the lowest id all
+    the same (0 over 1 over 2), and face 3 wins by depth."""
+    return np.array([[[0.25, 0.0, 4, 0.75, 0.0, 4, 0.75, 0.5, 4],
+                      [-1.0, -1.0, 4, 1.0, -1.0, 4, 1.0, 1.0, 4],
+                      [-0.75, -0.875, 4, -0.25, -0.875, 4, -0.25, -0.375, 4],
+                      [0.25, -0.75, 2, 0.75, -0.75, 2, 0.75, -0.25, 2]]], np.float32)
+
+
 N3MR_FLIP_FRAC = 1e-3     # z-buffer: share of pixels whose winner may differ
 N3MR_DEPTH_RTOL = 1e-6    # ... and how close the two winners' depths must be
 N3MR_SUM_TOL = 2e-5       # N3MR gradients, of max|want| (tests/test_n3mr.py:196-198)

@@ -42,7 +42,8 @@ the comparison (``jrender_tpu_torch/utils/checks.py`` has the helpers):
   the threshold computed its own way; the two maps are held together by
   the threshold test.
 
-The N3MR kernels' tests and tolerances are at the end of the file.
+The N3MR kernels' tests and tolerances follow the SoftRas ones; the dir
+route's (``ops/softras/dir_impl.py``) come last.
 """
 import numpy as np
 import pytest
@@ -418,3 +419,132 @@ def test_n3mr_wrappers_check_their_inputs():
         ncuda.launch_edgebwd(pp, fi2, planes, 1e-3, True, False)     # 8 planes, 6 expected
     with pytest.raises(ValueError):
         ncuda.launch_edgebwd(pp, fi2.transpose(2, 3), planes, 1e-3, True, True)
+
+
+# ---- the dir route: K10 forward (with the threshold) and K11 backward --------
+#
+# The dir kernels read the face table in Morton order (dir_impl.prep_dir) and
+# are held against their plain versions at the binned kernels' tolerances,
+# and against the binned route on the same inputs: the candidate counts and
+# the threshold come from the same pair math, so those maps agree to the bit.
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kw', [
+    dict(),
+    dict(dist_func='barycentric', aggr_func_alpha='sum', max_faces_per_pixel_for_grad=4),
+    dict(dist_func='hard', aggr_func_rgb='hard', aggr_func_alpha='hard',
+         max_faces_per_pixel_for_grad=2),
+    dict(texture_type='vertex', fill_back=False, gamma_val=0.1),
+    dict(grad_mode='full'),
+    dict(max_faces_per_pixel_for_grad=40),
+], ids=['default', 'bary-sum-K4', 'hard-K2', 'vertex', 'full', 'K40'])
+@pytest.mark.parametrize('size', [64, 72])
+def test_softras_dir_kernels_match_plain_and_binned(kw, size):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.softras import dir_impl
+    vertex = kw.get('texture_type') == 'vertex'
+    dense = kw.get('max_faces_per_pixel_for_grad') == 40
+    x, t = soup(6, F=600 if dense else 300, B=2, T=3 if vertex else 4,
+                radius=(0.3, 0.6) if dense else (0.03, 0.3))
+    x = with_big_faces(x)
+    F = x.shape[1]
+    t = t.reshape(2, F, 3, 3) if vertex else tie_symmetric(t)
+    p = make_params(image_size=size, **{'sigma_val': 1e-3, 'gamma_val': 1e-3, **kw})
+    with_thr = torch_impl.use_threshold(p, F)
+    table = dir_impl.prep_dir(x, t, p)
+    img, ag, cnt, thr = dir_impl.launch_dir_fwd(table, p, with_thr)
+    torch.cuda.synchronize()
+    want, ag_w, cnt_w, thr_w = dir_impl.fwd_plain(table, p, with_thr)
+    mostly_close(img[:, :3], want[:, :3], 1e-4)
+    mostly_close(img[:, 3], want[:, 3], 1e-4)
+    mostly_close(cnt.float(), cnt_w.float(), 0)
+    if p.aggr_func_rgb == 'hard':
+        mostly_close(ag[:, 1], ag_w[:, 1], 0)            # winning original face id
+    # the binned route on the same inputs: counts and thresholds to the bit
+    inputs = cuda_impl.prepare(x, t, p, for_grad=True)
+    b_img, b_ag, b_cnt = cuda_impl.launch(inputs, p)
+    b_thr = cuda_impl.topk_threshold(x, p, inputs, b_cnt)
+    assert torch.equal(cnt, b_cnt)
+    assert (thr is None) == (b_thr is None) == (not with_thr)
+    if with_thr:
+        assert (cnt > p.max_faces_id).any()
+        assert torch.equal(thr, b_thr)
+        bad = (thr - thr_w).abs() > 1e-6 * thr_w.abs()
+        assert bad.float().mean().item() <= THR_FRAC
+    mostly_close(img, b_img, 1e-4)
+    # the backward: twice to the bit, against the plain version (with its
+    # own threshold) and the binned backward
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    g = torch.randn(img.shape, generator=gen, device='cuda')
+    gf, gt = dir_impl.launch_dir_bwd(table, img, ag, thr, g, p)
+    gf2, gt2 = dir_impl.launch_dir_bwd(table, img, ag, thr, g, p)
+    torch.cuda.synchronize()
+    assert torch.equal(gf, gf2) and torch.equal(gt, gt2)
+    wf, wt = dir_impl.bwd_plain(table, img, ag, thr_w, g, p)
+    kf, kt = cuda_impl.soft_rasterize_bwd(x, t, b_img, b_ag, b_thr, g, p, inputs)
+    if not vertex:
+        gt, wt, kt = fold_ties(gt), fold_ties(wt), fold_ties(kt)
+    for got, want_, binned in ((gf, wf, kf), (gt, wt, kt)):
+        grad_close(got, want_)
+        grad_close(got, binned)
+    assert gf[:, :2].abs().amax() > 0 or p.dist_func == 'hard'   # the screen-filling faces
+
+
+@pytest.mark.gpu
+def test_soft_rasterize_dir_route_on_the_card(monkeypatch):
+    """With JR_DIR_MAX >= F a frame launches the dir forward once and a step
+    each dir kernel once, and nothing of the binned route; without it the
+    dir kernels never run."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.softras import dir_impl, soft_rasterize
+    wrappers = (cuda_impl.launch, cuda_impl.launch_thr, cuda_impl.launch_bwd,
+                cuda_impl.launch_reduce, dir_impl.launch_dir_fwd, dir_impl.launch_dir_bwd)
+    x, t = soup(7, F=200, T=4)
+    x.requires_grad_(True)
+    t.requires_grad_(True)
+
+    def counts():
+        return [w.launches for w in wrappers]
+
+    monkeypatch.setenv('JR_DIR_MAX', '200')
+    before = counts()
+    with torch.no_grad():
+        soft_rasterize(x, t, image_size=64, sigma_val=1e-3)
+    after = counts()
+    assert [a - b for a, b in zip(after, before)] == [0, 0, 0, 0, 1, 0]
+    soft_rasterize(x, t, image_size=64, sigma_val=1e-3).sum().backward()
+    torch.cuda.synchronize()
+    last = counts()
+    assert [a - b for a, b in zip(last, after)] == [0, 0, 0, 0, 1, 1]
+    assert torch.isfinite(x.grad).all() and x.grad.abs().max() > 0
+    assert torch.isfinite(t.grad).all() and t.grad.abs().max() > 0
+    monkeypatch.delenv('JR_DIR_MAX')
+    soft_rasterize(x, t, image_size=64, sigma_val=1e-3).sum().backward()
+    assert [a - b for a, b in zip(counts(), last)] == [1, 1, 1, 1, 0, 0]
+
+
+@pytest.mark.gpu
+def test_softras_dir_wrappers_check_their_inputs():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.softras import dir_impl
+    x, t = soup(1, F=20)
+    p = make_params(image_size=32)
+    table = dir_impl.prep_dir(x, t, p)
+    img, ag, cnt, thr = dir_impl.launch_dir_fwd(table, p, True)
+    g = torch.ones_like(img)
+    with pytest.raises(TypeError):
+        dir_impl.launch_dir_fwd(table._replace(rows=table.rows.double()), p, False)
+    with pytest.raises(ValueError):
+        dir_impl.launch_dir_fwd(table._replace(bbox=table.bbox[:, :5]), p, False)
+    with pytest.raises(TypeError):
+        dir_impl.launch_dir_fwd(table._replace(ids=table.ids.long()), p, False)
+    with pytest.raises(ValueError, match='divisible'):
+        dir_impl.launch_dir_fwd(table, make_params(image_size=36), False)
+    with pytest.raises(ValueError):
+        dir_impl.launch_dir_bwd(table, img, ag, thr, g[:, :3], p)
+    with pytest.raises(ValueError):
+        dir_impl.launch_dir_bwd(table, img.cpu(), ag, thr, g, p)

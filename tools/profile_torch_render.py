@@ -25,7 +25,18 @@ and 39,474 faces, 5x5 texels per face) with
     inputs (plain torch) and the edge kernel (both axes in one launch),
     the texture-gradient kernel, the depth gradient (plain torch), and the
     forward + backward step of ``rasterize``; ``n3mr_profile_step``:
-    torch.profiler over 4 such steps (launches, device busy share).
+    torch.profiler over 4 such steps (launches, device busy share);
+  * ``dir_stages``: the dir route (``JR_DIR_MAX``) on the 288-face mesh:
+    its prep (plain torch), the forward kernel with and without the top-K
+    threshold, the backward kernel, and the ``soft_rasterize`` step, the
+    ``render_mesh`` step and frame on both routes in turns (binned, dir,
+    dir, binned); ``dir_small_profile``/``_step``/``_raster_step`` and
+    ``binned_small_profile``/``_step``/``_raster_step``: torch.profiler
+    over 4 frames, 4 ``render_mesh`` steps and 4 ``soft_rasterize`` steps of
+    that mesh on each route (launches, device busy share);
+  * ``dir_crossover``: the ``soft_rasterize`` and ``render_mesh`` steps of
+    spheres of 9,940, 19,800 and 39,474 faces on both routes in turns, to
+    find the face count where the dir route stops paying.
 
 Seeded; needs a card (exits 2 without one) and nvcc.
 """
@@ -256,6 +267,92 @@ def main() -> int:
         'edge_cells_out': out_cells, 'edge_cells_in': in_cells,
         'edge_cells_positive': positive, 'edge_longest_item_cells': longest}}), flush=True)
     profiled('n3mr_profile_step', n3mr_step, t_nstep_wall)
+
+    # the dir route on the 288-face mesh (bench.py's small row), with the
+    # binned route's frame and step beside it, in turns on the same card
+    from jrender_tpu_torch.ops.softras import dir_impl
+
+    def wall(fn, reps=10):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    def route_steps(rings, segs):
+        """The lit mesh's face table and its soft_rasterize step,
+        render_mesh step and frame, for either route."""
+        mesh, r = scene(rings, segs)
+        with torch.no_grad():
+            lit = r.transform(r.lighting(mesh, r.transform.eyes))
+        fv = lit.face_vertices.reshape(1, -1, 9).contiguous()
+        tex = lit.face_textures.contiguous()
+        fv_leaf = fv.detach().clone().requires_grad_(True)
+        tex_leaf = tex.detach().clone().requires_grad_(True)
+        v_leaf = mesh._origin_vertices.detach().clone().requires_grad_(True)
+        t_leaf = mesh._origin_textures.detach().clone().requires_grad_(True)
+        mesh_g = Mesh(v_leaf, mesh._origin_faces, textures=t_leaf, texture_res=5)
+
+        def raster_step():
+            fv_leaf.grad = tex_leaf.grad = None
+            soft_rasterize(fv_leaf, tex_leaf, image_size=1024).sum().backward()
+
+        def render_step():
+            v_leaf.grad = t_leaf.grad = None
+            mesh_g.reset_()
+            alpha, rgb = r.render_mesh(mesh_g, mode=None)
+            (alpha.sum() + rgb.sum()).backward()
+
+        def frame():
+            mesh.reset_()
+            return r.render_mesh(mesh, mode='rgb')
+
+        return fv, tex, raster_step, render_step, frame
+
+    def in_turns(F, raster_step, render_step, frame=None):
+        """Each step on both routes in turns: binned, dir, dir, binned."""
+        routes = {'binned': {}, 'dir': {}}
+        for route in ('binned', 'dir', 'dir', 'binned'):
+            with dir_impl.with_dir_max(F if route == 'dir' else 0):
+                got = routes[route]
+                got.setdefault('soft_rasterize_step_ms', []).append(timed(raster_step)[1])
+                got.setdefault('render_mesh_step_ms', []).append(wall(render_step))
+                if frame is not None:
+                    got.setdefault('render_mesh_ms', []).append(wall(frame))
+        return routes
+
+    fv, tex, raster_step, render_step, frame = route_steps(13, 12)
+    F = fv.shape[1]
+    table, t_prep = timed(lambda: dir_impl.prep_dir(fv, tex, p))
+    (img, ag, cnt, thr), t_dfwd_thr = timed(lambda: dir_impl.launch_dir_fwd(table, p, True),
+                                            reps=30)
+    _, t_dfwd = timed(lambda: dir_impl.launch_dir_fwd(table, p, False), reps=30)
+    _, t_dbwd = timed(lambda: dir_impl.launch_dir_bwd(table, img, ag, thr, torch.ones_like(img),
+                                                      p), reps=30)
+    routes = in_turns(F, raster_step, render_step, frame)
+    print(json.dumps({'dir_stages': {
+        'faces': F, 'prep_ms': t_prep, 'fwd_kernel_ms': t_dfwd,
+        'fwd_thr_kernel_ms': t_dfwd_thr, 'bwd_kernel_ms': t_dbwd,
+        'pixels_over_K': int((cnt > p.max_faces_id).sum().item()),
+        'routes_in_turns': routes}}), flush=True)
+    for route in ('dir', 'binned'):
+        with dir_impl.with_dir_max(F if route == 'dir' else 0):
+            profiled(f'{route}_small_profile', frame, min(routes[route]['render_mesh_ms']))
+            profiled(f'{route}_small_profile_step', render_step,
+                     min(routes[route]['render_mesh_step_ms']))
+            profiled(f'{route}_small_profile_raster_step', raster_step,
+                     min(routes[route]['soft_rasterize_step_ms']))
+
+    # where the routes cross: the steps of larger spheres on both routes
+    for rings, segs in ((71, 71), (100, 100), (130, 153)):
+        fv, _, raster_step, render_step, _ = route_steps(rings, segs)
+        print(json.dumps({'dir_crossover': {
+            'faces': fv.shape[1],
+            'routes_in_turns': in_turns(fv.shape[1], raster_step, render_step)}}), flush=True)
+        del raster_step, render_step
+        torch.cuda.empty_cache()
 
     import subprocess
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
