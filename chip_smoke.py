@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's SoftRas (binned and dir routes) and N3MR mesh paths on one
-CUDA card and check them.
+"""Drive the port's SoftRas (binned, dir and pxg routes) and N3MR mesh paths on
+one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -76,7 +76,26 @@ of which raises on failure:
      c. demo 2's trainer (phase 7's configuration) on the dir route: the
         first step's gradient against phase 7's binned one, 20 steps, the
         loss must fall, the step time beside phase 7's;
- 12. one JSON line of the kernels; the last line is the device JSON.
+ 12. the pxg route, which ``JR_LAYOUT=pxg`` opens (phases 3-11 run with it
+     unset and assert that no pxg kernel ran):
+     a. the pxg kernels (partials, combine, threshold, backward, face sum)
+        against their plain versions and against the binned route on whole
+        images of 24 to 256 px, phase 11a's sweep, and once with work items
+        of 8 faces, which split every tile of more; counts equal to the
+        binned route's on every pixel, thresholds on 99.99%; each backward
+        twice, bit-equal;
+     b. bench.py's headline row on the pxg route: 8 ``render_mesh`` frames,
+        8 steps of ``soft_rasterize(...).sum().backward()`` and 8 through
+        ``render_mesh`` at 1024 px on the 39,474-face sphere, one launch of
+        each pxg wrapper per step and none of the binned or dir ones (a step
+        at K = 4 if no pixel has more than 16 candidates); the work items,
+        the busiest tile's split and the overfull tiles; 4,096 pixels and
+        their gradient against the plain versions; each kernel timed alone
+        and bounded from this run's counts; the steps and frames on both
+        routes in turns;
+     c. demo 2's trainer on the pxg route: the first step's gradient against
+        phase 7's binned one, 20 steps, the loss must fall;
+ 13. one JSON line of the kernels; the last line is the device JSON.
 
 The meshes, textures, cameras and pixel samples come from fixed seeds.
 
@@ -121,6 +140,14 @@ table, which are the design's own cost; bytes: the table, bboxes and ids
 read once, 8 floats per pixel written (forward), or the 11 floats of each
 pixel with a candidate read and a gradient row per face written
 (backward): a pixel with no candidate adds nothing to any gradient.
+
+Pxg tolerances are phase 3's; against the binned route the count maps must
+be equal on every pixel and the threshold maps to the bit on all but 0.01%.
+The combine and the face sum are held to their plain versions on the
+kernels' own inputs (the partial rows, the entry rows).  The pxg bounds
+count the binned kernels' pair work and the bytes of each kernel's own
+inputs and outputs (partial rows, depth lists, entry rows); the plain
+partials run on the first 64 work items.
 
 Bounds.  ``softras_bwd``'s bound is that of the function the backward and
 its reduction compute together: rows, lists and the maps of the pixels
@@ -170,6 +197,8 @@ OPS_DEPTH = 25   # within the distance cut, threshold kernel: sigmoid, clip,
 OPS_LIST = 2     # a candidate, dir forward with the threshold: the list's compare
 OPS_GRAD = 120   # within the threshold, backward: texel, softmax weight,
 #                  colour chain, 9 vertex terms, 3 texel terms, their sums
+OPS_COMBINE = 14  # pxg combine, per (work item, pixel): alpha, count, the
+#                  softmax maximum, the scale's exponential and four sums
 TOL = 1e-4           # forward kernel vs plain
 EDGE_FRAC = 0.01     # forward: share of knife-edge pixels allowed beyond
 THR_RTOL = 1e-6
@@ -262,7 +291,7 @@ def main() -> int:
     sys.path.insert(0, str(repo))
     from jrender_tpu_torch import Mesh, Renderer, _build, deform
     from jrender_tpu_torch.ops.softras import (binning, cuda_impl, dir_impl, make_params,
-                                               soft_rasterize, torch_impl)
+                                               pxg_impl, route, soft_rasterize, torch_impl)
     from jrender_tpu_torch.transform import look_at, perspective
     from jrender_tpu_torch.structures import face_vertices
     from jrender_tpu_torch.utils.checks import (fold_ties, grad_beyond, tie_soup,
@@ -277,11 +306,18 @@ def main() -> int:
 
     dir_wrappers = {'softras_dir_fwd': dir_impl.launch_dir_fwd,
                     'softras_dir_bwd': dir_impl.launch_dir_bwd}
-    # phases 3-10 take the binned route: JR_DIR_MAX is unset until phase 11
+    pxg_wrappers = {'softras_pxg_fwd': pxg_impl.launch_pxg_fwd,
+                    'softras_pxg_combine': pxg_impl.launch_pxg_combine,
+                    'softras_pxg_thr': pxg_impl.launch_pxg_thr,
+                    'softras_pxg_bwd': pxg_impl.launch_pxg_bwd,
+                    'softras_pxg_sum': pxg_impl.launch_pxg_sum}
+    # phases 3-10 take the binned route: JR_DIR_MAX is unset until phase 11,
+    # JR_LAYOUT until phase 12
     os.environ.pop('JR_DIR_MAX', None)
+    os.environ.pop('JR_LAYOUT', None)
 
     def zero_counts():
-        for w in (*wrappers.values(), *dir_wrappers.values()):
+        for w in (*wrappers.values(), *dir_wrappers.values(), *pxg_wrappers.values()):
             w.launches = 0
 
     def read_counts():
@@ -293,6 +329,13 @@ def main() -> int:
     def no_dir(tag):
         if any(read_dir().values()):
             raise AssertionError(f'{tag}: the dir kernels ran on the binned route: {read_dir()}')
+
+    def read_pxg():
+        return {name: w.launches for name, w in pxg_wrappers.items()}
+
+    def no_pxg(tag):
+        if any(read_pxg().values()):
+            raise AssertionError(f'{tag}: the pxg kernels ran with JR_LAYOUT unset: {read_pxg()}')
 
     # ---- 1. device ------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -551,6 +594,7 @@ def main() -> int:
                          'softras_bwd_reduce': 0}:
         raise AssertionError(f'launches of {FRAMES} plain frames: {render_counts}')
     no_dir('phase 4')
+    no_pxg('phase 4')
     log(f'  launches on the render path: {render_counts} for {FRAMES} frames')
     for az, (alpha, rgb) in zip(azimuths, frames):
         if not (torch.isfinite(alpha).all() and torch.isfinite(rgb).all()):
@@ -640,6 +684,7 @@ def main() -> int:
         if not (torch.isfinite(g).all() and g.abs().max() > 0):
             raise AssertionError(f'gradient of {name}: non-finite or zero')
     no_dir('phase 5')
+    no_pxg('phase 5')
     log(f'  soft_rasterize: launches {step_counts} for {STEPS} steps; '
         f'max |d face_vertices| {fv_leaf.grad.abs().max().item():.4g}, '
         f'max |d textures| {tex_leaf.grad.abs().max().item():.4g}')
@@ -660,6 +705,7 @@ def main() -> int:
         if g is None or not (torch.isfinite(g).all() and g.abs().max() > 0):
             raise AssertionError(f'gradient of {name}: missing, non-finite or zero')
     no_dir('phase 5')
+    no_pxg('phase 5')
     log(f'  render_mesh: launches {mesh_counts} for {STEPS} steps; '
         f'max |d vertices| {v_leaf.grad.abs().max().item():.4g}, '
         f'max |d textures| {t_leaf.grad.abs().max().item():.4g}')
@@ -859,6 +905,7 @@ def main() -> int:
     if train_counts != {name: TRAIN_STEPS for name in wrappers}:
         raise AssertionError(f'launches of {TRAIN_STEPS} training steps: {train_counts}')
     no_dir('phase 7')
+    no_pxg('phase 7')
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f'the training loss did not fall: {losses}')
     if not (torch.isfinite(model.displace).all() and torch.isfinite(sil).all()):
@@ -1193,6 +1240,8 @@ def main() -> int:
         f'{fit_losses[-1]:.2f} (mean of 3: {first:.2f} -> {last:.2f}); step '
         f'{np.median(t_fit[2:]):.3f} ms (median, host clock)  [{smi}]')
 
+    no_pxg('phases 8-10')
+
     # ---- 11. the dir route (JR_DIR_MAX) ----------------------------------
     log('phase 11a: dir kernels vs plain and vs the binned route, whole images')
     d_err = {'fwd': 0.0, 'bwd': 0.0}
@@ -1349,6 +1398,7 @@ def main() -> int:
                     or any(read_counts().values()):
                 raise AssertionError(f'{tag}: launches of {FRAMES} frames: {read_dir()}, '
                                      f'{read_counts()}')
+            no_pxg(f'phase 11b {tag}')
             mesh_m.reset_()
             renderer.transform.set_eyes_from_angles(2.732, 30, azimuths[1])
             with torch.no_grad():
@@ -1383,6 +1433,7 @@ def main() -> int:
                     if read_dir() != want or any(read_counts().values()):
                         raise AssertionError(f'{tag} {name}: launches after step {i + 1}: '
                                              f'{read_dir()}, {read_counts()}')
+                    no_pxg(f'phase 11b {tag} {name}')
                 torch.cuda.synchronize()
                 out[f'{name}_launches'] = read_dir()
                 for leaf in grads:
@@ -1537,6 +1588,7 @@ def main() -> int:
                                  f'{read_counts()}')
         if not (np.isfinite(losses_d).all() and losses_d[-1] < losses_d[0]):
             raise AssertionError(f'the training loss on the dir route did not fall: {losses_d}')
+        no_pxg('phase 11c')
     # the two routes' stages on the rasterizer's inputs of the first step
     tex_ts = tie_symmetric(tex_t)
     tab_t = dir_impl.prep_dir(fv_t, tex_ts, p_t)
@@ -1562,8 +1614,389 @@ def main() -> int:
         f'{losses_d[-1]:.6f}; step {np.median(t_dir[2:]):.3f} ms on the dir route, '
         f'{np.median(t_train[2:]):.3f} ms binned (phase 7; medians, host clock)  [{smi}]')
 
-    # ---- 12. results ----------------------------------------------------
-    launches = {**step_counts, **n_step_counts, **dir_counts}
+    # ---- 12. the pxg route (JR_LAYOUT=pxg) ---------------------------------
+    log('phase 12a: pxg kernels vs plain and vs the binned route, whole images')
+    g_err = dict.fromkeys(['fwd', 'combine', 'thr', 'bwd', 'sum'], 0.0)
+    g_same = {'thr': 1.0}
+
+    def compare_pxg(tag, fv, tex, p, group=pxg_impl.GROUP):
+        """The pxg kernels against their plain versions and against the
+        binned route on the same inputs, whole image; the backward twice."""
+        surface = p.texture_type == 'surface'
+        if surface:
+            tex = tie_symmetric(tex)
+        with_thr = torch_impl.use_threshold(p, fv.shape[1])
+        pin = pxg_impl.prep_pxg(fv, tex, p, for_grad=True, group=group)
+        parts, depths = pxg_impl.launch_pxg_fwd(pin, p, with_thr)
+        img, ag, cnt = pxg_impl.launch_pxg_combine(pin, parts, p)
+        torch.cuda.synchronize()
+        w_parts, w_depths = pxg_impl.fwd_partials_plain(pin, p, with_thr, chunk_pairs=1 << 24)
+        want, ag_w, cnt_w = pxg_impl.combine_plain(pin, w_parts, p)
+        f_rgb, e_rgb = beyond(img[:, :3], want[:, :3], TOL, pixel_dim=1)
+        f_a, e_a = beyond(img[:, 3], want[:, 3], TOL)
+        check(f'{tag} rgb', f_rgb)
+        check(f'{tag} alpha', f_a)
+        check(f'{tag} count', beyond(cnt.float(), cnt_w.float(), 0)[0])
+        if p.aggr_func_rgb == 'hard':
+            check(f'{tag} face index', beyond(ag[:, 1], ag_w[:, 1], 0)[0])
+        if not torch.isfinite(img).all():
+            raise AssertionError(f'{tag}: non-finite output')
+        # the combine alone, on the kernel's partials
+        c_img, _, c_cnt = pxg_impl.combine_plain(pin, parts, p)
+        f_c, e_c = beyond(img, c_img, 1e-5, pixel_dim=1)
+        check(f'{tag} combine', f_c, 0.0)
+        if not torch.equal(cnt, c_cnt):
+            raise AssertionError(f'{tag}: the combine\'s counts differ from its plain version')
+        msg = (f'  {tag}: {pin.items.shape[0]} items; rgb {f_rgb:.4f} beyond (max {e_rgb:.3g}), '
+               f'alpha {f_a:.4f}, combine max {e_c:.2g}')
+        # the binned route on the same inputs: counts on every pixel, the
+        # threshold on 99.99% of them, to the bit
+        inputs = cuda_impl.prepare(fv, tex, p, for_grad=True)
+        b_img, b_ag, b_cnt = cuda_impl.launch(inputs, p)
+        b_thr = cuda_impl.topk_threshold(fv, p, inputs, b_cnt)
+        if not torch.equal(cnt, b_cnt):
+            raise AssertionError(f'{tag}: counts differ from the binned route\'s')
+        e_thr = 0.0
+        thr = thr_w = None
+        if with_thr:
+            thr = pxg_impl.launch_pxg_thr(pin, depths, cnt, p)
+            thr_w = pxg_impl.thr_plain(pin, w_depths, cnt, p)
+            bad = (thr - thr_w).abs() > THR_RTOL * thr_w.abs()
+            check(f'{tag} threshold', bad.float().mean().item(), THR_FRAC)
+            if not (thr[cnt <= p.max_faces_id] == p.far).all():
+                raise AssertionError(f'{tag}: a pixel with at most K candidates has a threshold')
+            e_thr = (thr - thr_w).abs().max().item()
+            same_thr = (b_thr == thr).float().mean().item()
+            g_same['thr'] = min(g_same['thr'], same_thr)
+            check(f'{tag} threshold vs binned', 1.0 - same_thr, 1e-4)
+            msg += (f', thr {bad.float().mean().item():.6f} beyond, {same_thr:.6f} equal to '
+                    f'binned ({int(pxg_impl.overfull_tiles(pin, cnt, p).numel())} overfull tiles)')
+        f_b, _ = beyond(img, b_img, TOL, pixel_dim=1)
+        check(f'{tag} image vs binned', f_b)
+        msg += f'; vs binned: counts equal, image {f_b:.4f} beyond'
+        # the backward, twice; the sum against its plain version on the same
+        # rows; the whole gradient against the plain one (with the plain
+        # threshold) and the binned one (with the binned threshold)
+        gen.manual_seed(SEED + 3)
+        g = torch.randn(img.shape, generator=gen, device=dev)
+        grows = pxg_impl.launch_pxg_bwd(pin, img, ag, thr, g, p)
+        gf, gt = pxg_impl.launch_pxg_sum(pin, grows, p)
+        gf2, gt2 = pxg_impl.backward(pin, img, ag, thr, g, p)
+        torch.cuda.synchronize()
+        if not (torch.equal(gf, gf2) and torch.equal(gt, gt2)):
+            raise AssertionError(f'{tag}: two runs of the pxg backward differ in their bits')
+        sf_, st_ = pxg_impl.sum_plain(pin, grows, p)
+        (f_sf, e_sf), (f_st, e_st) = grad_beyond(gf, sf_), grad_beyond(gt, st_)
+        check(f'{tag} face sum', max(f_sf, f_st), 0.0)
+        wf, wt = torch_impl.soft_rasterize_bwd_plain(fv, tex, img, ag, thr_w, g, p,
+                                                     chunk_pairs=1 << 22)
+        kf, kt = cuda_impl.soft_rasterize_bwd(fv, tex, b_img, b_ag, b_thr, g, p, inputs)
+        wt, kt = wt.reshape(gt.shape), kt.reshape(gt.shape)
+        if surface:
+            gt, wt, kt = fold_ties(gt), fold_ties(wt), fold_ties(kt)
+        (f_f, e_f), (f_t, e_t) = grad_beyond(gf, wf), grad_beyond(gt, wt)
+        (k_f, _), (k_t, _) = grad_beyond(gf, kf), grad_beyond(gt, kt)
+        check(f'{tag} face gradient', f_f, GRAD_FRAC)
+        check(f'{tag} texture gradient', f_t, GRAD_FRAC)
+        check(f'{tag} face gradient vs binned', k_f, GRAD_FRAC)
+        check(f'{tag} texture gradient vs binned', k_t, GRAD_FRAC)
+        moves = p.aggr_func_rgb == 'softmax' or (p.dist_func != 'hard'
+                                                  and p.aggr_func_alpha != 'hard')
+        if moves and not gf.abs().max() > 0:
+            raise AssertionError(f'{tag}: zero face gradient')
+        for k, e in (('fwd', max(e_rgb, e_a)), ('combine', e_c), ('thr', e_thr),
+                     ('bwd', max(e_f, e_t)), ('sum', max(e_sf, e_st))):
+            g_err[k] = max(g_err[k], e)
+        log(msg + f'; face grad {f_f:.6f} beyond (max {e_f:.2g} of scale), texture grad '
+            f'{f_t:.6f} (max {e_t:.2g}); vs binned {k_f:.6f} / {k_t:.6f}; sum max '
+            f'{max(e_sf, e_st):.2g}; bit-equal twice')
+        return pin, cnt, gf
+
+    with route.with_layout('pxg'):
+        for dist, rgb, alpha in configs:
+            p = make_params(image_size=128, dist_func=dist, aggr_func_rgb=rgb,
+                            aggr_func_alpha=alpha, sigma_val=1e-4, gamma_val=1e-3)
+            compare_pxg(f'sphere 128 {dist}/{rgb}/{alpha}', fv_mid, tex_mid, p)
+        pin_d, cnt_d, _ = compare_pxg('sphere 256 renderer defaults', fv_mid, tex_mid,
+                                      make_params(image_size=256))
+        # items of 8 faces: every tile with more than 8 faces splits
+        pin_s, _, _ = compare_pxg('sphere 128 renderer defaults, items of 8 faces', fv_mid,
+                                  tex_mid, make_params(image_size=128), group=8)
+        n_split = int((pin_s.item_off[1:] - pin_s.item_off[:-1]).gt(1).sum().item())
+        if not n_split > 0:
+            raise AssertionError('items of 8 faces split no tile')
+        for T in (1, 4, 25):
+            fv, tex = soup(400, 1, T, SEED + T)
+            compare_pxg(f'soup 128 T={T}', fv, tex,
+                        make_params(image_size=128, sigma_val=1e-4, gamma_val=1e-3))
+        fv, tex = soup(400, 1, 3, SEED)
+        compare_pxg('soup 64 vertex, background, fill_back off', fv, tex.reshape(1, 400, 3, 3),
+                    make_params(image_size=64, texture_type='vertex', fill_back=False,
+                                background_color=(0.2, 0.4, 0.6), sigma_val=1e-4,
+                                gamma_val=0.1))
+        for K in (1, 4, 16):
+            compare_pxg(f'soup 128 B=2 K={K}', fv_b2, tex_b2,
+                        make_params(image_size=128, sigma_val=1e-4, gamma_val=1e-3,
+                                    max_faces_per_pixel_for_grad=K))
+        # K = 40 is past the per-item lists: the threshold kernel's bisection
+        compare_pxg('dense soup 128 K=40, bisection', fv_dense, tex_dense,
+                    make_params(image_size=128, sigma_val=1e-4, gamma_val=1e-3,
+                                max_faces_per_pixel_for_grad=40))
+        compare_pxg("soup 24 (tile 8, ragged) grad_mode='full'", fv_b2, tex_b2,
+                    make_params(image_size=24, sigma_val=1e-4, gamma_val=1e-3,
+                                grad_mode='full'))
+        _, _, gf_big = compare_pxg('soup 256 screen-filling faces', fv_big, tex_b2,
+                                   make_params(image_size=256, sigma_val=1e-4, gamma_val=1e-3))
+        if not gf_big[:, :2].abs().amax() > 0:
+            raise AssertionError('the screen-filling faces have no gradient')
+        compare_pxg('tie soup 32, hard', tie, textures(4, 1, SEED + 11), p_tie)
+    log(f'  items of 8 faces split {n_split} tiles; thresholds equal to the binned route on '
+        f'at least {g_same["thr"]:.6f} of pixels in every case, counts on all')
+
+    log('phase 12b: the pxg route at full width, render_mesh and steps at 1024 px, '
+        '39,474 faces')
+    with route.with_layout('pxg'):
+        zero_counts()
+        with torch.no_grad():
+            for az in azimuths:
+                mesh.reset_()
+                renderer.transform.set_eyes_from_angles(2.732, 30, az)
+                alpha, rgb = renderer.render_mesh(mesh, mode=None)
+                if not (torch.isfinite(alpha).all() and alpha.gt(0.5).float().mean() > 0.05):
+                    raise AssertionError(f'pxg frame azimuth {az}: non-finite or empty')
+        torch.cuda.synchronize()
+        want_frames = {'softras_pxg_fwd': FRAMES, 'softras_pxg_combine': FRAMES,
+                       'softras_pxg_thr': 0, 'softras_pxg_bwd': 0, 'softras_pxg_sum': 0}
+        if read_pxg() != want_frames or any(read_counts().values()) \
+                or any(read_dir().values()):
+            raise AssertionError(f'pxg launches of {FRAMES} frames: {read_pxg()}, '
+                                 f'{read_counts()}, {read_dir()}')
+        frame_pxg = read_pxg()
+        # the work items of the bench step's frame
+        pin_f = pxg_impl.prep_pxg(fv_full, tex_full, p_full, for_grad=True)
+        parts_f, depths_f = pxg_impl.launch_pxg_fwd(pin_f, p_full, True)
+        img_g, ag_g, cnt_g = pxg_impl.launch_pxg_combine(pin_f, parts_f, p_full)
+        over_f = pxg_impl.overfull_tiles(pin_f, cnt_g, p_full)
+        n_items = (pin_f.item_off[1:] - pin_f.item_off[:-1]).long()
+        faces_t = (pin_f.tile_off[1:] - pin_f.tile_off[:-1]).long()
+        busiest = int(faces_t.argmax().item())
+        W_f = pin_f.items.shape[0]
+        log(f'  {W_f} work items of at most {pxg_impl.GROUP} faces over '
+            f'{int(faces_t.gt(0).sum().item())} covered tiles; {pin_f.entries.numel():,} '
+            f'entries; the busiest tile holds {int(faces_t[busiest].item())} faces in '
+            f'{int(n_items[busiest].item())} items; {over_f.numel()} overfull tiles at K = '
+            f'{p_full.max_faces_id}')
+        if not torch.equal(cnt_g, counts_full):
+            raise AssertionError('1024 px: counts differ from the binned route\'s')
+        img_d, _, _ = cuda_impl.launch(inputs, p_full)
+        f_b, _ = beyond(img_g, img_d, TOL, pixel_dim=1)
+        check('1024 px image vs binned', f_b)
+        fwd_err_g = pixels_vs_plain('pxg frame 1 vs plain', fv_full, tex_full, p_full, img_g)
+        g_err['fwd'] = max(g_err['fwd'], fwd_err_g)
+        thr_g = pxg_impl.launch_pxg_thr(pin_f, depths_f, cnt_g, p_full)
+        same_full = (thr_g == thr_f).float().mean().item()
+        check('1024 px threshold vs binned', 1.0 - same_full, 1e-4)
+
+        def pxg_steps(tag, step):
+            zero_counts()
+            for i in range(STEPS):
+                step(i)
+                want = {n: i + 1 for n in pxg_wrappers}
+                if not over_f.numel():
+                    want['softras_pxg_thr'] = 0
+                if read_pxg() != want or any(read_counts().values()) \
+                        or any(read_dir().values()):
+                    raise AssertionError(f'pxg {tag}: launches after step {i + 1}: '
+                                         f'{read_pxg()}, {read_counts()}, {read_dir()}')
+            torch.cuda.synchronize()
+            return read_pxg()
+
+        pxg_counts = pxg_steps('soft_rasterize', lambda i: bench_step())
+        for name, g in (('face_vertices', fv_leaf.grad), ('textures', tex_leaf.grad)):
+            if not (torch.isfinite(g).all() and g.abs().max() > 0):
+                raise AssertionError(f'pxg gradient of {name}: non-finite or zero')
+        pxg_mesh_counts = pxg_steps('render_mesh', render_step)
+        for name, g in (('mesh.vertices', v_leaf.grad), ('mesh.textures', t_leaf.grad)):
+            if g is None or not (torch.isfinite(g).all() and g.abs().max() > 0):
+                raise AssertionError(f'pxg gradient of {name}: missing, non-finite or zero')
+        log(f'  launches: {frame_pxg} for {FRAMES} frames; {pxg_counts} for {STEPS} '
+            f'soft_rasterize steps, {pxg_mesh_counts} for {STEPS} render_mesh steps; none '
+            f'binned or dir')
+        if not over_f.numel():
+            # no pixel over K = 16: one step at K = 4 gives the threshold kernel work
+            zero_counts()
+            fv_leaf.grad = tex_leaf.grad = None
+            soft_rasterize(fv_leaf, tex_leaf, image_size=1024, sigma_val=1e-5, gamma_val=1e-4,
+                           max_faces_per_pixel_for_grad=4).sum().backward()
+            torch.cuda.synchronize()
+            if read_pxg()['softras_pxg_thr'] != 1:
+                raise AssertionError(f'pxg step at K = 4: {read_pxg()}')
+            log(f'  no overfull tile at K = 16; a step at K = 4: {read_pxg()}')
+            pxg_counts['softras_pxg_thr'] = read_pxg()['softras_pxg_thr']
+
+        # 4,096 pixels' gradient against the plain backward on those pixels
+        pin_t = pxg_impl.prep_pxg(fv_full, tex_sym, p_full, for_grad=True)
+        img_t, ag_t, cnt_t, thr_tg = pxg_impl.forward(pin_t, p_full, True)
+        f_thr_g = ((thr_px - at(thr_tg[:, None])[..., 0]).abs()
+                   > THR_RTOL * thr_px.abs()).float().mean().item()
+        check('pxg 1024 px threshold on the sampled pixels', f_thr_g, THR_FRAC)
+        gf_g, gt_g = pxg_impl.backward(pin_t, img_t, ag_t, thr_tg, g_img, p_full)
+        torch.cuda.synchronize()
+
+        def plain_bwd_pxg():
+            return torch_impl.backward_pixels(fv_full, tex_sym, at(img_t), at(ag_t), g_px,
+                                              p_full, xk, yk, thr=thr_px, chunk_pairs=1 << 22)
+
+        gf_w2, gt_w2 = plain_bwd_pxg()
+        f_f, e_f = grad_beyond(gf_g, gf_w2)
+        f_t, e_t = grad_beyond(fold_ties(gt_g), fold_ties(gt_w2))
+        check('pxg 1024 px face gradient of the sampled pixels', f_f, GRAD_FRAC)
+        check('pxg 1024 px texture gradient of the sampled pixels', f_t, GRAD_FRAC)
+        g_err['bwd'] = max(g_err['bwd'], e_f, e_t)
+        log(f'  gradient of {some} vs plain: face grad {f_f:.6f} beyond (max {e_f:.2g} of '
+            f'scale), texture grad {f_t:.6f} (max {e_t:.2g}); threshold {f_thr_g:.6f}; '
+            f'threshold map {same_full:.6f} equal to the binned one')
+
+        # each kernel alone on the bench step's inputs, and its plain version
+        thr_g = pxg_impl.launch_pxg_thr(pin_f, depths_f, cnt_g, p_full)
+        grows_f = pxg_impl.launch_pxg_bwd(pin_f, img_g, ag_g, thr_g, g_ones, p_full)
+        gm = {
+            'prep': timed(lambda: pxg_impl.prep_pxg(fv_full, tex_full, p_full, for_grad=True),
+                          reps=5),
+            'fwd': timed(lambda: pxg_impl.launch_pxg_fwd(pin_f, p_full, True), reps=30),
+            'fwd_nothr': timed(lambda: pxg_impl.launch_pxg_fwd(pin_f, p_full, False), reps=30),
+            'combine': timed(lambda: pxg_impl.launch_pxg_combine(pin_f, parts_f, p_full), reps=30),
+            'thr': timed(lambda: pxg_impl.launch_pxg_thr(pin_f, depths_f, cnt_g, p_full), reps=30),
+            'bwd': timed(lambda: pxg_impl.launch_pxg_bwd(pin_f, img_g, ag_g, thr_g, g_ones,
+                                                         p_full), reps=30),
+            'sum': timed(lambda: pxg_impl.launch_pxg_sum(pin_f, grows_f, p_full), reps=30)}
+        PLAIN_ITEMS = 64
+        pin_few = pin_f._replace(items=pin_f.items[:PLAIN_ITEMS])
+        gm_plain = {
+            'fwd': timed(lambda: pxg_impl.fwd_partials_plain(pin_few, p_full, True,
+                                                             chunk_pairs=1 << 24), reps=2, warm=1),
+            'combine': timed(lambda: pxg_impl.combine_plain(pin_f, parts_f, p_full), reps=2,
+                             warm=1),
+            'thr': timed(lambda: pxg_impl.thr_plain(pin_f, depths_f, cnt_g, p_full), reps=2,
+                         warm=1),
+            'bwd': timed(plain_bwd_pxg, reps=2, warm=1),
+            'sum': timed(lambda: pxg_impl.sum_plain(pin_f, grows_f, p_full), reps=2, warm=1)}
+        gm_on = {'fwd': f'{PLAIN_ITEMS} of {W_f} items', 'combine': 'the whole frame',
+                 'thr': 'the whole frame', 'bwd': some, 'sum': 'all rows'}
+        # one PyTorch call for the combine's sums and for the face sum:
+        # index_add_ of the rows by tile, and by face
+        item_tile = pin_f.items[:, 0].long()
+        dump_t = torch.zeros((int(pin_f.item_off.numel()) - 1, pxg_impl.PARTS * pxg_impl.PIXELS),
+                             device=dev)
+        parts_rows = parts_f.reshape(W_f, -1)
+        gm_lib = {'combine': timed(lambda: dump_t.zero_().index_add_(0, item_tile, parts_rows),
+                                   reps=5)}
+        n_fe = (pin_f.face_off[1:] - pin_f.face_off[:-1]).long()
+        face_key = torch.repeat_interleave(torch.arange(n_fe.numel(), device=dev), n_fe)
+        rows_by_face = grows_f[pin_f.face_entries.long()]
+        dump_f = torch.zeros((n_fe.numel(), grows_f.shape[1]), device=dev)
+        gm_lib['sum'] = timed(lambda: dump_f.zero_().index_add_(0, face_key, rows_by_face), reps=5)
+
+        # the least time for the same work, from this frame's pair counts
+        E_f = pin_f.entries.numel()
+        item_bytes = 4 * (E_f + pin_f.items.numel() + pin_f.item_off.numel())
+        part_bytes = 4 * W_f * pxg_impl.PARTS * pxg_impl.PIXELS
+        list_bytes = 4 * W_f * p_full.max_faces_id * pxg_impl.PIXELS
+        over_items = int(n_items[over_f.long()].sum().item())
+        over_px = int((cnt_g > p_full.max_faces_id).sum().item())
+        gb = {
+            # the pair work of the binned forward, and the partial rows and
+            # depth lists out
+            'fwd': bound(census['tile_list'] * OPS_BBOX + census['in_bbox'] * OPS_DIST
+                         + census['inside'] * OPS_INSIDE
+                         + census['candidates'] * (OPS_SHADE + OPS_LIST),
+                         4 * inputs.rows.numel() + item_bytes + part_bytes + list_bytes),
+            # a merge step per (item, pixel); the partial rows in, the image,
+            # aggregates and counts out
+            'combine': bound(W_f * pxg_impl.PIXELS * OPS_COMBINE,
+                             part_bytes + 4 * pin_f.item_off.numel() + 4 * B * 7 * HW),
+            # a compare per list entry of the overfull tiles' items; those
+            # lists and the counts of their pixels in, their thresholds out
+            'thr': bound(over_items * p_full.max_faces_id * pxg_impl.PIXELS * OPS_LIST,
+                         4 * over_items * p_full.max_faces_id * pxg_impl.PIXELS
+                         + 4 * 2 * over_f.numel() * pxg_impl.PIXELS),
+            # the function that the backward and its sum compute together
+            'bwd': bound(census['in_bbox'] * OPS_DIST + census['inside'] * OPS_INSIDE
+                         + census['candidates'] * OPS_DEPTH + census['within_thr'] * OPS_GRAD
+                         + E_f * GC,
+                         4 * inputs.rows.numel() + item_bytes + 4 * 11 * census['drawn']
+                         + 4 * B * F * GC),
+            # the entry rows and the face index in, the gradients out
+            'sum': bound(E_f * GC, 4 * E_f * GC + 4 * (pin_f.face_off.numel() + E_f)
+                         + 4 * B * F * GC)}
+        for name in ('fwd', 'combine', 'thr', 'bwd', 'sum'):
+            b = gb[name]
+            log(f'  bound softras_pxg_{name}: {b[0]:.6f} ms by {b[1]}: {b[2]}')
+        log(f'  overfull: {over_f.numel()} tiles, {over_items} items, {over_px} pixels over K')
+        log(f'  kernels alone, ms: prep {gm["prep"]:.4f}, partials {gm["fwd"]:.4f} (without '
+            f'the depth lists {gm["fwd_nothr"]:.4f}), combine {gm["combine"]:.4f}, threshold '
+            f'{gm["thr"]:.4f}, backward {gm["bwd"]:.4f}, sum {gm["sum"]:.4f}  [{smi}]')
+        log(f'  plain versions, ms: ' + ', '.join(f'{k} {v:.3f} on {gm_on[k]}'
+                                                  for k, v in gm_plain.items())
+            + f'; index_add_: combine {gm_lib["combine"]:.4f}, sum {gm_lib["sum"]:.4f}  [{smi}]')
+        mem = {'parts': part_bytes, 'depth lists': list_bytes, 'entry rows': 4 * E_f * GC}
+        log(f'  scratch, bytes: {mem}')
+
+    # the steps and frames on both routes in turns: binned, pxg, pxg, binned
+    g_times = {'binned': [], 'pxg': []}
+    for r_name in ('binned', 'pxg', 'pxg', 'binned'):
+        with route.with_layout('pxg' if r_name == 'pxg' else 'pxt'):
+            t_r = timed(bench_step, reps=STEPS)
+            t0 = time.perf_counter()
+            for i in range(STEPS):
+                render_step(i)
+            torch.cuda.synchronize()
+            t_m = (time.perf_counter() - t0) * 1e3 / STEPS
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                for i in range(FRAMES):
+                    mesh.reset_()
+                    renderer.transform.set_eyes_from_angles(2.732, 30, azimuths[i])
+                    renderer.render_mesh(mesh, mode='rgb')
+            torch.cuda.synchronize()
+            g_times[r_name].append((t_r, t_m, (time.perf_counter() - t0) * 1e3 / FRAMES))
+    g_med = {r: [float(np.median([t[k] for t in ts])) for k in range(3)]
+             for r, ts in g_times.items()}
+    log(f'  in turns (binned, pxg, pxg, binned), ms: soft_rasterize step / render_mesh step / '
+        f'render_mesh frame: {g_times}; medians binned {g_med["binned"]}, pxg {g_med["pxg"]}'
+        f'  [{smi}]')
+
+    log('phase 12c: demo 2 on the pxg route, 120 views at 64 px, 1,300 faces')
+    with route.with_layout('pxg'):
+        model_g = deform.DeformModel(v_s, f_s).to(dev)
+        grad_pxg = first_grad(model_g)
+        f_g2, e_g2 = grad_beyond(grad_pxg, grad_binned)
+        check('demo 2 first gradient on the pxg route vs the binned route', f_g2, GRAD_FRAC)
+        optimizer_g = torch.optim.Adam(model_g.parameters(), lr=0.01, betas=(0.5, 0.99))
+        zero_counts()
+        losses_g, t_pxg = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            loss, sil = deform.deform_step(model_g, optimizer_g, trainer, targets)
+            torch.cuda.synchronize()
+            t_pxg.append((time.perf_counter() - t0) * 1e3)
+            losses_g.append(loss.item())
+        train_pxg = read_pxg()
+        want = dict.fromkeys(pxg_wrappers, TRAIN_STEPS)
+        want['softras_pxg_thr'] = train_pxg['softras_pxg_thr']     # only with an overfull tile
+        if train_pxg != want or train_pxg['softras_pxg_thr'] > TRAIN_STEPS \
+                or any(read_counts().values()) or any(read_dir().values()):
+            raise AssertionError(f'pxg launches of {TRAIN_STEPS} training steps: {train_pxg}, '
+                                 f'{read_counts()}, {read_dir()}')
+        if not (np.isfinite(losses_g).all() and losses_g[-1] < losses_g[0]):
+            raise AssertionError(f'the training loss on the pxg route did not fall: {losses_g}')
+    log(f'  first gradient vs the binned route: {f_g2:.6f} of entries beyond (max {e_g2:.2g} '
+        f'of scale); launches {train_pxg} for {TRAIN_STEPS} steps; loss {losses_g[0]:.6f} -> '
+        f'{losses_g[-1]:.6f}; step {np.median(t_pxg[2:]):.3f} ms on the pxg route, '
+        f'{np.median(t_train[2:]):.3f} ms binned (phase 7; medians, host clock)  [{smi}]')
+
+    # ---- 13. results ----------------------------------------------------
+    launches = {**step_counts, **n_step_counts, **dir_counts, **pxg_counts}
 
     def entry(name, source, replaces, err, ms, plain_ms, plain_on, b, library_ms=None):
         return {'name': name, 'route': 'cuda',
@@ -1597,6 +2030,14 @@ def main() -> int:
         entry('softras_dir_bwd', 'softras_dir_bwd.cu', 'jrender_tpu/ops/softras/dir_impl.py:480',
               max(d_err['bwd'], small['bwd_err']), small['bwd_ms'], small['bwd_plain_ms'],
               small['plain_on'], small['bwd_bound']),
+        *(entry(f'softras_pxg_{k}', src, rep, g_err[k], gm[k], gm_plain[k], gm_on[k], gb[k],
+                gm_lib.get(k))
+          for k, src, rep in (
+              ('fwd', 'softras_pxg_fwd.cu', 'jrender_tpu/ops/softras/pxg_impl.py:314'),
+              ('combine', 'softras_pxg_fwd.cu', 'jrender_tpu/ops/softras/pxg_impl.py:449'),
+              ('thr', 'softras_pxg_thr.cu', 'jrender_tpu/ops/softras/pxg_impl.py:545'),
+              ('bwd', 'softras_pxg_bwd.cu', 'jrender_tpu/ops/softras/pxg_impl.py:758'),
+              ('sum', 'softras_pxg_bwd.cu', 'jrender_tpu/ops/softras/pxg_impl.py:998'))),
     ]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
                                              'count': count}}), flush=True)

@@ -2,15 +2,17 @@
 
 Counterpart of ``jrender_tpu/ops/softras/dir_impl.py`` (``dir_max_faces``
 :64, ``_dir_tile`` :74, ``prep_dir`` :99, ``soft_rasterize_fwd_dir`` :405,
-``soft_rasterize_bwd_dir`` :684) and of the route choice in
-``jrender_tpu/ops/softras/api.py`` (``_pallas_route`` :49-75).  A mesh of
-at most ``JR_DIR_MAX`` faces (default 0: the route is off, as in the JAX
-package) on an image size divisible by 16 or 8 skips the binning: each
+``soft_rasterize_bwd_dir`` :684).  SoftRas has three routes, which
+``route.py`` chooses as the JAX package's ``_pallas_route`` (api.py:49-75)
+chooses its layouts: this one, ``dir``; ``pxg`` (``pxg_impl``, under
+``JR_LAYOUT=pxg``); and the binned one (``cuda_impl``).  Under the default
+layout a mesh of at most ``JR_DIR_MAX`` faces (default 0: the route is off,
+as in the JAX package) on an image size divisible by 16 or 8 skips the
+binning: each
 screen tile walks the whole face table, culled face by face with the
 faces' bboxes, in Morton order of their bbox centres; the forward finds
 the top-K threshold in the same walk; the backward sums each face's
 gradient over the pixels of its bbox.  The variable is read at call time.
-Every other call takes the binned route (``cuda_impl``), as before.
 
 ``JR_DIR_TILE`` and ``JR_DIR_SORT`` are knobs of the TPU layout (the tile
 of its grid step, and turning the Morton order off) and have no
@@ -76,12 +78,6 @@ def dir_tile(image_size: int) -> int:
         if image_size % t == 0:
             return t
     return 0
-
-
-def route(p: SoftRasParams, F: int) -> str:
-    """'dir' or 'binned': the route a call with F faces takes; 'dir'
-    exactly where the JAX package's ``_pallas_route`` says 'dir'."""
-    return 'dir' if F <= dir_max_faces() and dir_tile(p.image_size) else 'binned'
 
 
 class DirInputs(NamedTuple):

@@ -58,11 +58,15 @@ def pixel_grid(image_size: int, device=None):
 def _pairwise_terms(face, face_inv, face_sym, face_obt, xp, yp, p: SoftRasParams):
     """Per (pixel, face) forward quantities; face et al [F, ...], xp/yp [P].
     Returns a dict of [P, F] tensors."""
-    fb = face[None]                                               # [1,F,9]
-    xpb = xp[:, None]
-    ypb = yp[:, None]
+    return pair_terms(face[None], face_inv[None], face_sym[None], face_obt[None],
+                      xp[:, None], yp[:, None], p)
 
-    w = G.barycentric_coordinate(face_inv[None], xpb, ypb)        # [P,F,3]
+
+def pair_terms(fb, face_inv, face_sym, face_obt, xpb, ypb, p: SoftRasParams):
+    """``_pairwise_terms`` on operands that broadcast against each other:
+    face rows [..., 9] (inv, sym [..., 9], obt [..., 3]) and pixel centres
+    [...]; every term has the broadcast shape of the pairs."""
+    w = G.barycentric_coordinate(face_inv, xpb, ypb)              # [...,3]
     threshold = p.threshold
     not_border = ~G.check_border_outside(xpb, ypb, fb,
                                          G.border_inflation(threshold))
@@ -70,7 +74,7 @@ def _pairwise_terms(face, face_inv, face_sym, face_obt, xp, yp, p: SoftRasParams
     t = sign = dis_x = dis_y = None
     if p.dist_func_id == 0:
         inside = G.check_pixel_inside(w)
-        sf = inside.to(face.dtype)
+        sf = inside.to(fb.dtype)
         dist_valid = inside
     elif p.dist_func_id == 1:
         dis = G.barycentric_distance(w)
@@ -78,7 +82,7 @@ def _pairwise_terms(face, face_inv, face_sym, face_obt, xp, yp, p: SoftRasParams
         sf = torch.sigmoid(dis / p.sigma_val)
     else:
         sign, dis_x, dis_y, t = G.euclidean_p2f_distance(
-            w, fb, face_sym[None], face_obt[None], xpb, ypb)
+            w, fb, face_sym, face_obt, xpb, ypb)
         dis = dis_x * dis_x + dis_y * dis_y
         dist_valid = ~((sign < 0) & (dis >= threshold))
         sf = torch.sigmoid(sign * dis / p.sigma_val)
@@ -278,7 +282,7 @@ def topk_face_ids(face_vertices, p: SoftRasParams, xp, yp,
 # --------------------------------------------------------------------------
 
 def backward_single(face, tex, colors, aggrs, grad_out, p: SoftRasParams, xp, yp,
-                    thr=None, face_ids=None, ids=None):
+                    thr=None, face_ids=None, ids=None, n_faces=None):
     """Backward of one batch element over pixels (xp, yp) [P], dense over
     all faces (``backward_single`` of the JAX oracle, jax_impl.py:189-331,
     in the masked form of the TPU kernel, pxt_impl.py:900-1038).
@@ -288,10 +292,12 @@ def backward_single(face, tex, colors, aggrs, grad_out, p: SoftRasParams, xp, yp
     kernels mask), or when its face is among ``face_ids`` [P,K] (as the
     oracle gathers), or always when both are None.
     ``ids`` [F], where given, are the faces' own ids, which the hard-rgb
-    winner in ``aggrs`` names.
+    winner in ``aggrs`` names; ``n_faces``, where given, is the mesh's face
+    count, which alpha 'sum' divides by, when ``face`` is a part of it.
     Returns (grad_face [F,9], grad_tex like tex).
     """
     F = face.shape[0]
+    n_all = F if n_faces is None else n_faces
     dt = face.dtype
     face_inv, face_sym, face_obt = G.face_info_preprocess(face)
     terms = _pairwise_terms(face, face_inv, face_sym, face_obt, xp, yp, p)
@@ -313,7 +319,7 @@ def backward_single(face, tex, colors, aggrs, grad_out, p: SoftRasParams, xp, yp
     if p.alpha_func_id == 0:
         C_grad_xy = torch.zeros_like(sf)
     elif p.alpha_func_id == 1:
-        C_grad_xy = (g_alpha / F).expand_as(sf)
+        C_grad_xy = (g_alpha / n_all).expand_as(sf)
     else:
         C_grad_xy = g_alpha * (1.0 - colors[:, 3:4]) / (1.0 - sf).clamp_min(1e-6)
 

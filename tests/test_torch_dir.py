@@ -33,8 +33,8 @@ from jrender_tpu.ops.softras import dir_impl as jax_dir
 from jrender_tpu.ops.softras import jax_impl, pallas_impl
 from jrender_tpu.ops.softras import make_params as jax_params
 
-from jrender_tpu_torch.ops.softras import (cuda_impl, dir_impl, make_params, soft_rasterize,
-                                           torch_impl)
+from jrender_tpu_torch.ops.softras import (cuda_impl, dir_impl, make_params, route,
+                                           soft_rasterize, torch_impl)
 from jrender_tpu_torch.ops.softras.api import soft_rasterize_with_aux
 from jrender_tpu_torch.utils.checks import fold_ties, tie_soup, tie_symmetric
 
@@ -55,7 +55,7 @@ def run_both_dir(fv, tex, **kw):
     device='cpu') on the same inputs, as numpy: what ``check_images`` takes,
     and the port's counts."""
     pj, pt = jax_params(**kw), make_params(**kw)
-    assert dir_impl.route(pt, fv.shape[1]) == 'dir'
+    assert route.route(pt, fv.shape[1]) == 'dir'
     oj, aj, _ = jax_impl.soft_rasterize_fwd_jax(jnp.asarray(fv), jnp.asarray(tex), pj)
 
     def port(dtype=torch.float32):
@@ -73,7 +73,7 @@ def grads_both_dir(fv, tex, g, K_oracle=None, **kw):
     through ``soft_rasterize(device='cpu')`` under autograd on the dir
     route, incoming gradient g."""
     pt = make_params(**kw)
-    assert dir_impl.route(pt, fv.shape[1]) == 'dir'
+    assert route.route(pt, fv.shape[1]) == 'dir'
     pj = jax_params(**{**kw, 'grad_mode': 'topk', **(
         {} if K_oracle is None else {'max_faces_per_pixel_for_grad': K_oracle})})
     fj, tj = jnp.asarray(fv), jnp.asarray(tex)
@@ -102,7 +102,7 @@ def test_route_matches_jax(dir_max, monkeypatch):
         for size in (16, 20, 24, 32, 36, 40, 64, 72, 100):
             for kw in (dict(), dict(grad_mode='full'), dict(max_faces_per_pixel_for_grad=400)):
                 want = jax_api._pallas_route(jax_params(image_size=size, **kw), F) == 'dir'
-                got = dir_impl.route(make_params(image_size=size, **kw), F)
+                got = route.route(make_params(image_size=size, **kw), F)
                 assert got == ('dir' if want else 'binned'), (F, size, kw)
     assert dir_impl.dir_tile(24) == 8 and dir_impl.dir_tile(32) == 16 and dir_impl.dir_tile(20) == 0
 

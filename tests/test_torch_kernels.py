@@ -548,3 +548,161 @@ def test_softras_dir_wrappers_check_their_inputs():
         dir_impl.launch_dir_bwd(table, img, ag, thr, g[:, :3], p)
     with pytest.raises(ValueError):
         dir_impl.launch_dir_bwd(table, img.cpu(), ag, thr, g, p)
+
+
+# ---- the pxg route: K7 partials and combine, K8 threshold, K9 backward and sum --
+#
+# The pxg kernels read the binned route's rows and tile lists, cut into work
+# items (pxg_impl.prep_pxg); a group of 8 faces splits nearly every tile.  They
+# are held against their plain versions at the binned kernels' tolerances and
+# against the binned route on the same inputs: counts and thresholds come
+# from the same pair math, so those maps agree to the bit, and so do the
+# hard winners.
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kw', [
+    dict(),
+    dict(dist_func='barycentric', aggr_func_alpha='sum', max_faces_per_pixel_for_grad=4),
+    dict(dist_func='hard', aggr_func_rgb='hard', aggr_func_alpha='hard',
+         max_faces_per_pixel_for_grad=2),
+    dict(texture_type='vertex', fill_back=False, gamma_val=0.1,
+         background_color=(0.1, 0.2, 0.3)),
+    dict(grad_mode='full'),
+    dict(max_faces_per_pixel_for_grad=40),
+], ids=['default', 'bary-sum-K4', 'hard-K2', 'vertex-bg', 'full', 'K40'])
+@pytest.mark.parametrize('group', [8, 64])
+def test_softras_pxg_kernels_match_plain_and_binned(kw, group):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.softras import pxg_impl
+    vertex = kw.get('texture_type') == 'vertex'
+    dense = kw.get('max_faces_per_pixel_for_grad') == 40
+    x, t = soup(8, F=600 if dense else 300, B=2, T=3 if vertex else 4,
+                radius=(0.3, 0.6) if dense else (0.03, 0.3))
+    x = with_big_faces(x)
+    F = x.shape[1]
+    t = t.reshape(2, F, 3, 3) if vertex else tie_symmetric(t)
+    p = make_params(image_size=72, **{'sigma_val': 1e-3, 'gamma_val': 1e-3, **kw})
+    with_thr = torch_impl.use_threshold(p, F)
+    pin = pxg_impl.prep_pxg(x, t, p, for_grad=True, group=group)
+    parts, depths = pxg_impl.launch_pxg_fwd(pin, p, with_thr)
+    img, ag, cnt = pxg_impl.launch_pxg_combine(pin, parts, p)
+    torch.cuda.synchronize()
+    w_parts, w_depths = pxg_impl.fwd_partials_plain(pin, p, with_thr)
+    assert torch.equal(parts[:, 6], w_parts[:, 6])                       # counts
+    mostly_close(parts.permute(0, 2, 1), w_parts.permute(0, 2, 1), 1e-4)
+    # the combine alone, on the kernel's partials, and the whole plain chain
+    c_img, c_ag, c_cnt = pxg_impl.combine_plain(pin, parts, p)
+    mostly_close(img, c_img, 1e-5, frac=0.0)
+    assert torch.equal(cnt, c_cnt)
+    w_img, _, w_cnt = pxg_impl.combine_plain(pin, w_parts, p)
+    mostly_close(img[:, :3], w_img[:, :3], 1e-4)
+    mostly_close(img[:, 3], w_img[:, 3], 1e-4)
+    # the binned route on the same inputs
+    inputs = cuda_impl.prepare(x, t, p, for_grad=True)
+    b_img, b_ag, b_cnt = cuda_impl.launch(inputs, p)
+    b_thr = cuda_impl.topk_threshold(x, p, inputs, b_cnt)
+    assert torch.equal(cnt, b_cnt)
+    mostly_close(img, b_img, 1e-4)
+    if p.aggr_func_rgb == 'hard':
+        assert torch.equal(ag, b_ag) and torch.equal(img[:, :3], b_img[:, :3])
+    thr = pxg_impl.launch_pxg_thr(pin, depths, cnt, p) if with_thr else None
+    thr_w = pxg_impl.thr_plain(pin, w_depths, cnt, p) if with_thr else None
+    if with_thr:
+        assert (cnt > p.max_faces_id).any()
+        assert torch.equal(thr, b_thr)
+        bad = (thr - thr_w).abs() > 1e-6 * thr_w.abs()
+        assert bad.float().mean().item() <= THR_FRAC
+    # the backward: twice to the bit; the entry rows and the whole gradient
+    # against the plain versions (with their own threshold), the face sum
+    # against its plain version on the same rows, and the binned backward
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    g = torch.randn(img.shape, generator=gen, device='cuda')
+    grows = pxg_impl.launch_pxg_bwd(pin, img, ag, thr, g, p)
+    gf, gt = pxg_impl.launch_pxg_sum(pin, grows, p)
+    gf2, gt2 = pxg_impl.backward(pin, img, ag, thr, g, p)
+    torch.cuda.synchronize()
+    assert torch.equal(gf, gf2) and torch.equal(gt, gt2)
+    sf_, st_ = pxg_impl.sum_plain(pin, grows, p)
+    grad_close(gf, sf_, frac=0.0)
+    grad_close(gt, st_, frac=0.0)
+    rows_w = pxg_impl.bwd_rows_plain(pin, img, ag, thr_w, g, p)
+    grad_close(grows[:, :9], rows_w[:, :9])
+    wf, wt = torch_impl.soft_rasterize_bwd_plain(x, t, img, ag, thr_w, g, p)
+    kf, kt = cuda_impl.soft_rasterize_bwd(x, t, b_img, b_ag, b_thr, g, p, inputs)
+    if not vertex:
+        gt, wt, kt = fold_ties(gt), fold_ties(wt), fold_ties(kt)
+    for got, want_, binned in ((gf, wf, kf), (gt, wt, kt)):
+        grad_close(got, want_)
+        grad_close(got, binned)
+    assert gf[:, :2].abs().amax() > 0 or p.dist_func == 'hard'   # the screen-filling faces
+
+
+@pytest.mark.gpu
+def test_soft_rasterize_pxg_route_on_the_card(monkeypatch):
+    """Under JR_LAYOUT=pxg a frame launches the pxg partials and combine
+    once, a step each pxg kernel once, and nothing of the binned or dir
+    routes; with JR_LAYOUT unset the pxg kernels never run."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.softras import dir_impl, pxg_impl, soft_rasterize
+    wrappers = (cuda_impl.launch, cuda_impl.launch_thr, cuda_impl.launch_bwd,
+                cuda_impl.launch_reduce, dir_impl.launch_dir_fwd, dir_impl.launch_dir_bwd,
+                pxg_impl.launch_pxg_fwd, pxg_impl.launch_pxg_combine, pxg_impl.launch_pxg_thr,
+                pxg_impl.launch_pxg_bwd, pxg_impl.launch_pxg_sum)
+    x, t = soup(9, F=600, T=4, radius=(0.3, 0.6))
+    x.requires_grad_(True)
+    t.requires_grad_(True)
+
+    def counts():
+        return [w.launches for w in wrappers]
+
+    monkeypatch.setenv('JR_LAYOUT', 'pxg')
+    monkeypatch.setenv('JR_DIR_MAX', '4096')             # the pxg layout never takes dir
+    before = counts()
+    with torch.no_grad():
+        soft_rasterize(x, t, image_size=64, sigma_val=1e-3)
+    after = counts()
+    assert [a - b for a, b in zip(after, before)] == [0] * 6 + [1, 1, 0, 0, 0]
+    soft_rasterize(x, t, image_size=64, sigma_val=1e-3).sum().backward()
+    torch.cuda.synchronize()
+    last = counts()
+    assert [a - b for a, b in zip(last, after)] == [0] * 6 + [1] * 5
+    assert torch.isfinite(x.grad).all() and x.grad.abs().max() > 0
+    assert torch.isfinite(t.grad).all() and t.grad.abs().max() > 0
+    monkeypatch.setenv('JR_LAYOUT', 'px_f')
+    with pytest.raises(NotImplementedError):
+        soft_rasterize(x, t, image_size=64, sigma_val=1e-3)
+    monkeypatch.delenv('JR_LAYOUT')
+    monkeypatch.delenv('JR_DIR_MAX')
+    soft_rasterize(x, t, image_size=64, sigma_val=1e-3).sum().backward()
+    assert [a - b for a, b in zip(counts(), last)] == [1, 1, 1, 1] + [0] * 7
+
+
+@pytest.mark.gpu
+def test_softras_pxg_wrappers_check_their_inputs():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.softras import pxg_impl
+    x, t = soup(1, F=40)
+    p = make_params(image_size=32, max_faces_per_pixel_for_grad=1)
+    pin = pxg_impl.prep_pxg(x, t, p, for_grad=True, group=8)
+    parts, depths = pxg_impl.launch_pxg_fwd(pin, p, True)
+    img, ag, cnt = pxg_impl.launch_pxg_combine(pin, parts, p)
+    g = torch.ones_like(img)
+    with pytest.raises(TypeError):
+        pxg_impl.launch_pxg_fwd(pin._replace(rows=pin.rows.double()), p, False)
+    with pytest.raises(TypeError):
+        pxg_impl.launch_pxg_fwd(pin._replace(items=pin.items.long()), p, False)
+    with pytest.raises(ValueError):
+        pxg_impl.launch_pxg_combine(pin, parts[:, :7], p)
+    with pytest.raises(ValueError):
+        pxg_impl.launch_pxg_thr(pin, None, cnt, p)                 # K = 1 has depth lists
+    with pytest.raises(ValueError):
+        pxg_impl.launch_pxg_bwd(pin, img, ag, None, g[:, :3], p)
+    rows = pxg_impl.launch_pxg_bwd(pin, img, ag, None, g, p)
+    with pytest.raises(ValueError):
+        pxg_impl.launch_pxg_sum(pin._replace(face_off=None), rows, p)
+    with pytest.raises(ValueError):
+        pxg_impl.launch_pxg_sum(pin, rows[:, :5], p)

@@ -37,6 +37,17 @@ and 39,474 faces, 5x5 texels per face) with
   * ``dir_crossover``: the ``soft_rasterize`` and ``render_mesh`` steps of
     spheres of 9,940, 19,800 and 39,474 faces on both routes in turns, to
     find the face count where the dir route stops paying.
+  * ``pxg_stages``: the pxg route (``JR_LAYOUT=pxg``) on the 39,474-face
+    mesh: its prep (the binned route's binning and rows, then the work
+    items), the partials kernel with and without the depth lists, the
+    combine, the threshold, the backward and the face sum, each timed
+    alone; each kernel on the busiest tile's items alone; the
+    ``soft_rasterize`` step, the ``render_mesh`` step and frame on both
+    routes in turns (binned, pxg, pxg, binned); ``pxg_group``: the kernels
+    at work items of 16 to 256 faces and of whole tiles; ``pxg_profile``
+    /``_step``/``_raster_step`` and ``binned_profile_raster_step``:
+    torch.profiler over 4 frames, 4 ``render_mesh`` steps and 4
+    ``soft_rasterize`` steps (launches, device busy share).
 
 Seeded; needs a card (exits 2 without one) and nvcc.
 """
@@ -353,6 +364,62 @@ def main() -> int:
             'routes_in_turns': in_turns(fv.shape[1], raster_step, render_step)}}), flush=True)
         del raster_step, render_step
         torch.cuda.empty_cache()
+
+    # the pxg route on the 39,474-face mesh
+    from jrender_tpu_torch.ops.softras import pxg_impl, route as sroute
+    fv, tex, raster_step, render_step, frame = route_steps(130, 153)
+    _, t_base = timed(lambda: cuda_impl.prepare(fv, tex, p, for_grad=False))
+    _, t_base_g = timed(lambda: cuda_impl.prepare(fv, tex, p, for_grad=True))
+
+    def pxg_kernels(group):
+        """Each pxg kernel alone at work items of ``group`` faces; and
+        each on the busiest tile's items alone."""
+        pin, t_prep = timed(lambda: pxg_impl.prep_pxg(fv, tex, p, for_grad=True, group=group))
+        (parts, depths), t_fwd = timed(lambda: pxg_impl.launch_pxg_fwd(pin, p, True), reps=30)
+        _, t_fwd_nothr = timed(lambda: pxg_impl.launch_pxg_fwd(pin, p, False), reps=30)
+        (img, ag, cnt), t_comb = timed(lambda: pxg_impl.launch_pxg_combine(pin, parts, p),
+                                       reps=30)
+        thr, t_thr = timed(lambda: pxg_impl.launch_pxg_thr(pin, depths, cnt, p), reps=30)
+        g1 = torch.ones_like(img)
+        grows, t_bwd = timed(lambda: pxg_impl.launch_pxg_bwd(pin, img, ag, thr, g1, p), reps=30)
+        _, t_sum = timed(lambda: pxg_impl.launch_pxg_sum(pin, grows, p), reps=30)
+        off = pin.item_off.long()
+        faces_t = (pin.tile_off[1:] - pin.tile_off[:-1]).long()
+        busy = int(faces_t.argmax().item())
+        tail = pin._replace(items=pin.items[off[busy]:off[busy + 1]].contiguous())
+        _, t_fwd_tail = timed(lambda: pxg_impl.launch_pxg_fwd(tail, p, True), reps=30)
+        _, t_bwd_tail = timed(lambda: pxg_impl.launch_pxg_bwd(tail, img, ag, thr, g1, p),
+                              reps=30)
+        return {'group': group, 'items': pin.items.shape[0], 'entries': pin.entries.numel(),
+                'busiest_tile_faces': int(faces_t[busy].item()),
+                'busiest_tile_items': int((off[busy + 1] - off[busy]).item()),
+                'prep_ms': t_prep, 'fwd_kernel_ms': t_fwd, 'fwd_nothr_kernel_ms': t_fwd_nothr,
+                'combine_kernel_ms': t_comb, 'thr_kernel_ms': t_thr, 'bwd_kernel_ms': t_bwd,
+                'sum_kernel_ms': t_sum, 'fwd_kernel_busiest_tile_ms': t_fwd_tail,
+                'bwd_kernel_busiest_tile_ms': t_bwd_tail,
+                'overfull_tiles': int(pxg_impl.overfull_tiles(pin, cnt, p).numel())}
+
+    stages = pxg_kernels(pxg_impl.GROUP)
+    routes = {'binned': {}, 'pxg': {}}
+    for name in ('binned', 'pxg', 'pxg', 'binned'):
+        with sroute.with_layout('pxg' if name == 'pxg' else 'pxt'):
+            got = routes[name]
+            got.setdefault('soft_rasterize_step_ms', []).append(timed(raster_step)[1])
+            got.setdefault('render_mesh_step_ms', []).append(wall(render_step))
+            got.setdefault('render_mesh_ms', []).append(wall(frame))
+    print(json.dumps({'pxg_stages': {
+        'faces': fv.shape[1], 'binning_and_rows_ms': t_base,
+        'binning_with_inverse_and_rows_ms': t_base_g, **stages,
+        'routes_in_turns': routes}}), flush=True)
+    for group in (16, 32, 128, 256, 2048):
+        print(json.dumps({'pxg_group': pxg_kernels(group)}), flush=True)
+    with sroute.with_layout('pxg'):
+        profiled('pxg_profile', frame, min(routes['pxg']['render_mesh_ms']))
+        profiled('pxg_profile_step', render_step, min(routes['pxg']['render_mesh_step_ms']))
+        profiled('pxg_profile_raster_step', raster_step,
+                 min(routes['pxg']['soft_rasterize_step_ms']))
+    profiled('binned_profile_raster_step', raster_step,
+             min(routes['binned']['soft_rasterize_step_ms']))
 
     import subprocess
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
