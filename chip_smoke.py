@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's SoftRas (binned, dir and pxg routes) and N3MR mesh paths on
-one CUDA card and check them.
+"""Drive the port's SoftRas (binned, dir, pxg, f_px and px_f routes) and N3MR
+mesh paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -54,6 +54,9 @@ of which raises on failure:
      size 4, orthographic camera at a random azimuth per step, ambient
      light only) on a 1,300-face sphere towards images the port renders
      from a seeded random texture; the loss must fall;
+ 10b. the fixed-order sums (ops/segment_sum.py): the vertex normals of the
+     39,474-face sphere and their gradient, N3MR's depth gradient at 1024
+     px: each run twice, bit-equal, and held against the CPU plain version;
  11. the dir route, which ``JR_DIR_MAX`` opens to small meshes (phases
      3-10 run with it unset and assert that the dir kernels never ran):
      a. both dir kernels against their plain versions and against the
@@ -95,7 +98,31 @@ of which raises on failure:
         routes in turns;
      c. demo 2's trainer on the pxg route: the first step's gradient against
         phase 7's binned one, 20 steps, the loss must fall;
- 13. one JSON line of the kernels; the last line is the device JSON.
+ 13. the f_px route, which ``JR_LAYOUT=f_px`` opens (phases 3-12 run with it
+     unset and assert that no f_px or px_f kernel ran):
+     a. its forward (K3), untruncated backward (K4) and face sum against
+        their plain versions and the binned route on whole images of 32 to
+        256 px, phase 11a's sweep, ``grad_mode='full'``; counts equal to the
+        binned route's on every pixel; each backward twice, bit-equal; a
+        binding K = 16 step takes the binned route;
+     b. 8 ``render_mesh`` frames (one K3 launch each) and 8
+        ``grad_mode='full'`` steps of ``soft_rasterize`` (one launch of K3,
+        K4 and the face sum each) at 1024 px on the 39,474-face sphere, none
+        of another route; 4,096 pixels and their gradient against the plain
+        versions; each kernel timed alone and bounded;
+ 14. the px_f route (``JR_LAYOUT=px_f``):
+     a. its forward with the threshold (K5), backward (K6) and face sum
+        against their plain versions and the binned route at 24 to 256 px,
+        the same sweep, K = 1, 4, 16 and 40 (bisection); counts on every
+        pixel and thresholds on 99.99% equal to the binned route's; 256 px
+        in 4 bands of tile rows: the bands side by side equal the whole
+        image to the bit and their gradients summed the whole gradient;
+     b. 8 frames, 8 steps of ``soft_rasterize`` and 8 of ``render_mesh`` at
+        1024 px, K = 16, one launch of each px_f wrapper per step; 4,096
+        pixels and their gradient against the plain versions; each kernel
+        timed alone and bounded; the steps on both routes in turns;
+ 15. one JSON line of the kernels (18 of them); the last line is the device
+     JSON.
 
 The meshes, textures, cameras and pixel samples come from fixed seeds.
 
@@ -148,6 +175,19 @@ kernels' own inputs (the partial rows, the entry rows).  The pxg bounds
 count the binned kernels' pair work and the bytes of each kernel's own
 inputs and outputs (partial rows, depth lists, entry rows); the plain
 partials run on the first 64 work items.
+
+F_px and px_f tolerances are phase 3's, and the counts (and the
+thresholds to the bit on 99.99% of pixels) equal the binned route's.
+Against the plain version a gradient entry beyond the tolerance is not
+counted where the plain version evaluated in float64 (its own forward and
+threshold) shows the float32 plain version to be off there by at least a
+quarter of the difference: a knife-edge pixel, which the renderer's
+defaults at sizes that are not powers of two have most of
+(``checks.grad_unexplained``); the other entries are held to the 0.1%,
+and every entry to the binned kernels' gradient at the same 0.1%.  The
+bounds count the binned kernels' pair work (the lists of 16 x 16 tiles),
+as the pxg forward's does: the wider tiles' extra bbox tests are the
+tiling's cost, not the function's.
 
 Bounds.  ``softras_bwd``'s bound is that of the function the backward and
 its reduction compute together: rows, lists and the maps of the pixels
@@ -290,12 +330,15 @@ def main() -> int:
     repo = Path(__file__).resolve().parent
     sys.path.insert(0, str(repo))
     from jrender_tpu_torch import Mesh, Renderer, _build, deform
-    from jrender_tpu_torch.ops.softras import (binning, cuda_impl, dir_impl, make_params,
-                                               pxg_impl, route, soft_rasterize, torch_impl)
+    from jrender_tpu_torch.ops import segment_sum
+    from jrender_tpu_torch.ops.softras import (binning, cuda_impl, dir_impl, fpx_impl,
+                                               make_params, pxf_impl, pxg_impl, route,
+                                               soft_rasterize, tiled, torch_impl)
     from jrender_tpu_torch.transform import look_at, perspective
     from jrender_tpu_torch.structures import face_vertices
-    from jrender_tpu_torch.utils.checks import (fold_ties, grad_beyond, tie_soup,
-                                                tie_symmetric)
+    from jrender_tpu_torch.structures import vertex_normals_fn
+    from jrender_tpu_torch.utils.checks import (fold_ties, grad_beyond, grad_unexplained,
+                                                tie_soup, tie_symmetric)
     from jrender_tpu_torch.utils.primitives import uv_sphere
 
     dev = torch.device('cuda')
@@ -309,15 +352,22 @@ def main() -> int:
     pxg_wrappers = {'softras_pxg_fwd': pxg_impl.launch_pxg_fwd,
                     'softras_pxg_combine': pxg_impl.launch_pxg_combine,
                     'softras_pxg_thr': pxg_impl.launch_pxg_thr,
-                    'softras_pxg_bwd': pxg_impl.launch_pxg_bwd,
-                    'softras_pxg_sum': pxg_impl.launch_pxg_sum}
+                    'softras_pxg_bwd': pxg_impl.launch_pxg_bwd}
+    tiled_wrappers = {'softras_fpx_fwd': fpx_impl.launch_fpx_fwd,
+                      'softras_fpx_bwd': fpx_impl.launch_fpx_bwd,
+                      'softras_pxf_fwd': pxf_impl.launch_pxf_fwd,
+                      'softras_pxf_bwd': pxf_impl.launch_pxf_bwd}
+    # the face sum after the pxg, f_px and px_f backward kernels, which vertex
+    # normals and N3MR's depth gradient share, counts in
+    # segment_sum.launch_segment_sum (``read_sum``)
     # phases 3-10 take the binned route: JR_DIR_MAX is unset until phase 11,
     # JR_LAYOUT until phase 12
     os.environ.pop('JR_DIR_MAX', None)
     os.environ.pop('JR_LAYOUT', None)
 
     def zero_counts():
-        for w in (*wrappers.values(), *dir_wrappers.values(), *pxg_wrappers.values()):
+        for w in (*wrappers.values(), *dir_wrappers.values(), *pxg_wrappers.values(),
+                  *tiled_wrappers.values(), segment_sum.launch_segment_sum):
             w.launches = 0
 
     def read_counts():
@@ -333,9 +383,16 @@ def main() -> int:
     def read_pxg():
         return {name: w.launches for name, w in pxg_wrappers.items()}
 
+    def read_tiled():
+        return {name: w.launches for name, w in tiled_wrappers.items()}
+
+    def read_sum():
+        return segment_sum.launch_segment_sum.launches
+
     def no_pxg(tag):
-        if any(read_pxg().values()):
-            raise AssertionError(f'{tag}: the pxg kernels ran with JR_LAYOUT unset: {read_pxg()}')
+        if any(read_pxg().values()) or any(read_tiled().values()):
+            raise AssertionError(f'{tag}: the pxg, f_px or px_f kernels ran with JR_LAYOUT '
+                                 f'unset: {read_pxg()}, {read_tiled()}')
 
     # ---- 1. device ------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -1242,6 +1299,58 @@ def main() -> int:
 
     no_pxg('phases 8-10')
 
+    # ---- 10b. the fixed-order sums ----------------------------------------
+    log('phase 10b: fixed-order sums at full width (vertex normals, N3MR depth gradient)')
+    from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda_r, torch_impl as ntorch_r
+    v_r = torch.tensor(v, device=dev)[None]
+    f_r = torch.tensor(f, device=dev)[None]
+    gen.manual_seed(SEED + 12)
+    g_r = torch.randn(v_r.shape, generator=gen, device=dev)
+    zero_counts()
+    runs_r = []
+    for _ in range(2):
+        x_r = v_r.clone().requires_grad_(True)
+        nrm = vertex_normals_fn(x_r, f_r)
+        (nrm * g_r).sum().backward()
+        runs_r.append((nrm, x_r.grad))
+    torch.cuda.synchronize()
+    if segment_sum.launch_segment_sum.launches != 2:
+        raise AssertionError(f'vertex normals: {segment_sum.launch_segment_sum.launches} '
+                             f'segment-sum launches for 2 calls')
+    if not (torch.equal(runs_r[0][0], runs_r[1][0]) and torch.equal(runs_r[0][1], runs_r[1][1])):
+        raise AssertionError('vertex normals: two runs differ in their bits')
+    x_c = v_r.cpu().requires_grad_(True)
+    nrm_c = vertex_normals_fn(x_c, f_r.cpu())
+    (nrm_c * g_r.cpu()).sum().backward()
+    e_nrm = (runs_r[0][0].cpu() - nrm_c).abs().max().item()
+    f_ng, e_ng = grad_beyond(runs_r[0][1].cpu(), x_c.grad)
+    if not e_nrm <= 1e-5:
+        raise AssertionError(f'vertex normals vs the CPU plain version: max {e_nrm:.3g}')
+    check('vertex normals gradient vs the CPU plain version', f_ng, 0.0)
+    _, fi_r, wt_r, dp_r, finv_r, zc_r, _ = ncuda_r.forward_maps(fv_n, None, 1024, 0.1, 100.0,
+                                                                 1e-3)
+    gen.manual_seed(SEED + 13)
+    gd_r = torch.randn(dp_r.shape, generator=gen, device=dev)
+    dep = [ntorch_r.backward_depth(fv_n, fi_r, finv_r, wt_r, dp_r, zc_r, gd_r) for _ in range(2)]
+    torch.cuda.synchronize()
+    if segment_sum.launch_segment_sum.launches != 4 or not torch.equal(dep[0], dep[1]):
+        raise AssertionError('N3MR depth gradient: not one launch per call, or two runs differ')
+    dep_c = ntorch_r.backward_depth(*(t.cpu() for t in (fv_n, fi_r, finv_r, wt_r, dp_r, zc_r,
+                                                        gd_r)))
+    f_dep, e_dep = grad_beyond(dep[0].cpu(), dep_c)
+    check('N3MR depth gradient vs the CPU plain version', f_dep, 0.0)
+    so_n = segment_sum.segment_order(f_r.reshape(-1), v_r.shape[1])
+    rows_n = torch.randn((f_r.numel(), 3), generator=gen, device=dev)
+    seg_ms = timed(lambda: segment_sum.launch_segment_sum(rows_n, so_n), reps=30)
+    seg_lib_ms = timed(lambda: torch.zeros((v_r.shape[1], 3), device=dev).index_add_(
+        0, so_n.seg, rows_n), reps=30)
+    log(f'  vertex normals of {f_r.shape[1]:,} faces: bit-equal twice with their gradient, '
+        f'max {e_nrm:.2g} from the CPU plain version (gradient max {e_ng:.2g} of scale); '
+        f'depth gradient at 1024 px: bit-equal twice, max {e_dep:.2g} of scale from the CPU '
+        f'plain version; the normals\' sum alone {seg_ms:.4f} ms, index_add_ {seg_lib_ms:.4f} '
+        f'ms  [{smi}]')
+
+
     # ---- 11. the dir route (JR_DIR_MAX) ----------------------------------
     log('phase 11a: dir kernels vs plain and vs the binned route, whole images')
     d_err = {'fwd': 0.0, 'bwd': 0.0}
@@ -1680,12 +1789,12 @@ def main() -> int:
         gen.manual_seed(SEED + 3)
         g = torch.randn(img.shape, generator=gen, device=dev)
         grows = pxg_impl.launch_pxg_bwd(pin, img, ag, thr, g, p)
-        gf, gt = pxg_impl.launch_pxg_sum(pin, grows, p)
+        gf, gt = tiled.face_sum(pin, grows, p)
         gf2, gt2 = pxg_impl.backward(pin, img, ag, thr, g, p)
         torch.cuda.synchronize()
         if not (torch.equal(gf, gf2) and torch.equal(gt, gt2)):
             raise AssertionError(f'{tag}: two runs of the pxg backward differ in their bits')
-        sf_, st_ = pxg_impl.sum_plain(pin, grows, p)
+        sf_, st_ = tiled.sum_plain(pin, grows, p)
         (f_sf, e_sf), (f_st, e_st) = grad_beyond(gf, sf_), grad_beyond(gt, st_)
         check(f'{tag} face sum', max(f_sf, f_st), 0.0)
         wf, wt = torch_impl.soft_rasterize_bwd_plain(fv, tex, img, ag, thr_w, g, p,
@@ -1766,9 +1875,9 @@ def main() -> int:
                     raise AssertionError(f'pxg frame azimuth {az}: non-finite or empty')
         torch.cuda.synchronize()
         want_frames = {'softras_pxg_fwd': FRAMES, 'softras_pxg_combine': FRAMES,
-                       'softras_pxg_thr': 0, 'softras_pxg_bwd': 0, 'softras_pxg_sum': 0}
+                       'softras_pxg_thr': 0, 'softras_pxg_bwd': 0}
         if read_pxg() != want_frames or any(read_counts().values()) \
-                or any(read_dir().values()):
+                or any(read_dir().values()) or any(read_tiled().values()) or read_sum():
             raise AssertionError(f'pxg launches of {FRAMES} frames: {read_pxg()}, '
                                  f'{read_counts()}, {read_dir()}')
         frame_pxg = read_pxg()
@@ -1805,11 +1914,13 @@ def main() -> int:
                 if not over_f.numel():
                     want['softras_pxg_thr'] = 0
                 if read_pxg() != want or any(read_counts().values()) \
-                        or any(read_dir().values()):
+                        or any(read_dir().values()) or any(read_tiled().values()) \
+                        or read_sum() != i + 1:
                     raise AssertionError(f'pxg {tag}: launches after step {i + 1}: '
-                                         f'{read_pxg()}, {read_counts()}, {read_dir()}')
+                                         f'{read_pxg()}, {read_counts()}, {read_dir()}, face '
+                                         f'sums {read_sum()}')
             torch.cuda.synchronize()
-            return read_pxg()
+            return {**read_pxg(), 'segment_sum': read_sum()}
 
         pxg_counts = pxg_steps('soft_rasterize', lambda i: bench_step())
         for name, g in (('face_vertices', fv_leaf.grad), ('textures', tex_leaf.grad)):
@@ -1869,7 +1980,7 @@ def main() -> int:
             'thr': timed(lambda: pxg_impl.launch_pxg_thr(pin_f, depths_f, cnt_g, p_full), reps=30),
             'bwd': timed(lambda: pxg_impl.launch_pxg_bwd(pin_f, img_g, ag_g, thr_g, g_ones,
                                                          p_full), reps=30),
-            'sum': timed(lambda: pxg_impl.launch_pxg_sum(pin_f, grows_f, p_full), reps=30)}
+            'sum': timed(lambda: tiled.face_sum(pin_f, grows_f, p_full), reps=30)}
         PLAIN_ITEMS = 64
         pin_few = pin_f._replace(items=pin_f.items[:PLAIN_ITEMS])
         gm_plain = {
@@ -1880,7 +1991,7 @@ def main() -> int:
             'thr': timed(lambda: pxg_impl.thr_plain(pin_f, depths_f, cnt_g, p_full), reps=2,
                          warm=1),
             'bwd': timed(plain_bwd_pxg, reps=2, warm=1),
-            'sum': timed(lambda: pxg_impl.sum_plain(pin_f, grows_f, p_full), reps=2, warm=1)}
+            'sum': timed(lambda: tiled.sum_plain(pin_f, grows_f, p_full), reps=2, warm=1)}
         gm_on = {'fwd': f'{PLAIN_ITEMS} of {W_f} items', 'combine': 'the whole frame',
                  'thr': 'the whole frame', 'bwd': some, 'sum': 'all rows'}
         # one PyTorch call for the combine's sums and for the face sum:
@@ -1985,9 +2096,10 @@ def main() -> int:
         want = dict.fromkeys(pxg_wrappers, TRAIN_STEPS)
         want['softras_pxg_thr'] = train_pxg['softras_pxg_thr']     # only with an overfull tile
         if train_pxg != want or train_pxg['softras_pxg_thr'] > TRAIN_STEPS \
-                or any(read_counts().values()) or any(read_dir().values()):
+                or any(read_counts().values()) or any(read_dir().values()) \
+                or any(read_tiled().values()) or read_sum() != TRAIN_STEPS:
             raise AssertionError(f'pxg launches of {TRAIN_STEPS} training steps: {train_pxg}, '
-                                 f'{read_counts()}, {read_dir()}')
+                                 f'{read_counts()}, {read_dir()}, face sums {read_sum()}')
         if not (np.isfinite(losses_g).all() and losses_g[-1] < losses_g[0]):
             raise AssertionError(f'the training loss on the pxg route did not fall: {losses_g}')
     log(f'  first gradient vs the binned route: {f_g2:.6f} of entries beyond (max {e_g2:.2g} '
@@ -1995,8 +2107,461 @@ def main() -> int:
         f'{losses_g[-1]:.6f}; step {np.median(t_pxg[2:]):.3f} ms on the pxg route, '
         f'{np.median(t_train[2:]):.3f} ms binned (phase 7; medians, host clock)  [{smi}]')
 
-    # ---- 13. results ----------------------------------------------------
-    launches = {**step_counts, **n_step_counts, **dir_counts, **pxg_counts}
+    # ---- 13./14. the f_px and px_f routes (JR_LAYOUT) ---------------------
+    t_err = dict.fromkeys(['fpx_fwd', 'fpx_bwd', 'pxf_fwd', 'pxf_bwd'], 0.0)
+    t_same = {'thr': 1.0}
+
+    def grad_check(tag, got, want, exact, binned):
+        """A gradient against the binned route's and the plain version's,
+        all but GRAD_FRAC of the entries within the tolerance; against the
+        plain version an entry is not counted where the plain version in
+        float64 (``exact``) shows the float32 plain version itself to be off
+        by at least a quarter of the difference, a knife-edge pixel
+        (``checks.grad_unexplained``).  Returns (share beyond the plain one
+        and unexplained, share beyond it in all, the max error over the
+        scale, share beyond the binned one)."""
+        f_w, _ = grad_unexplained(got, want, exact)
+        f_all, e_w = grad_beyond(got, want)
+        f_k, _ = grad_beyond(got, binned)
+        check(tag, f_w, GRAD_FRAC)
+        check(f'{tag} vs binned', f_k, GRAD_FRAC)
+        return f_w, f_all, e_w, f_k
+
+    def compare_tiled(name, tag, fv, tex, p):
+        """The f_px ('fpx') or px_f ('pxf') kernels against their plain
+        versions and against the binned route on the same inputs, whole
+        image; the backward twice."""
+        surface = p.texture_type == 'surface'
+        if surface:
+            tex = tie_symmetric(tex)
+        with_thr = name == 'pxf' and torch_impl.use_threshold(p, fv.shape[1])
+        if name == 'fpx':
+            if torch_impl.use_threshold(p, fv.shape[1]):
+                raise AssertionError(f'{tag}: the f_px backward is untruncated')
+            pin = fpx_impl.prep_fpx(fv, tex, p, for_grad=True)
+            img, ag, cnt, thr = fpx_impl.launch_fpx_fwd(pin, p)
+        else:
+            pin = pxf_impl.prep_pxf(fv, tex, p, for_grad=True)
+            img, ag, cnt, thr = pxf_impl.launch_pxf_fwd(pin, p, with_thr)
+        want, ag_w, cnt_w, thr_w = tiled.fwd_plain(pin, p, with_thr)
+        torch.cuda.synchronize()
+        f_rgb, e_rgb = beyond(img[:, :3], want[:, :3], TOL, pixel_dim=1)
+        f_a, e_a = beyond(img[:, 3], want[:, 3], TOL)
+        check(f'{tag} rgb', f_rgb)
+        check(f'{tag} alpha', f_a)
+        check(f'{tag} count', beyond(cnt.float(), cnt_w.float(), 0)[0])
+        if p.aggr_func_rgb == 'hard':
+            check(f'{tag} face index', beyond(ag[:, 1], ag_w[:, 1], 0)[0])
+        if not torch.isfinite(img).all():
+            raise AssertionError(f'{tag}: non-finite output')
+        msg = (f'  {tag}: {pin.tile_h}x{pin.tile_w} tiles, {pin.items.shape[0]} items; rgb '
+               f'{f_rgb:.4f} beyond (max {e_rgb:.3g}), alpha {f_a:.4f}')
+        e_thr = 0.0
+        inputs = cuda_impl.prepare(fv, tex, p, for_grad=True)
+        b_img, b_ag, b_cnt = cuda_impl.launch(inputs, p)
+        b_thr = cuda_impl.topk_threshold(fv, p, inputs, b_cnt)
+        if not torch.equal(cnt, b_cnt):
+            raise AssertionError(f'{tag}: counts differ from the binned route\'s')
+        if with_thr:
+            bad = (thr - thr_w).abs() > THR_RTOL * thr_w.abs()
+            check(f'{tag} threshold', bad.float().mean().item(), THR_FRAC)
+            if not (thr[cnt <= p.max_faces_id] == p.far).all():
+                raise AssertionError(f'{tag}: a pixel with at most K candidates has a threshold')
+            e_thr = (thr - thr_w).abs().max().item()
+            same_thr = (b_thr == thr).float().mean().item()
+            t_same['thr'] = min(t_same['thr'], same_thr)
+            check(f'{tag} threshold vs binned', 1.0 - same_thr, 1e-4)
+            msg += (f', thr {bad.float().mean().item():.6f} beyond, {same_thr:.6f} equal to '
+                    f'binned')
+        f_b, _ = beyond(img, b_img, TOL, pixel_dim=1)
+        check(f'{tag} image vs binned', f_b)
+        msg += f'; vs binned: counts equal, image {f_b:.4f} beyond'
+        gen.manual_seed(SEED + 3)
+        g = torch.randn(img.shape, generator=gen, device=dev)
+        impl = fpx_impl if name == 'fpx' else pxf_impl
+        bwd = fpx_impl.launch_fpx_bwd if name == 'fpx' else pxf_impl.launch_pxf_bwd
+        grows = bwd(pin, img, ag, thr, g, p)
+        gf, gt = tiled.face_sum(pin, grows, p)
+        gf2, gt2 = impl.backward(pin, img, ag, thr, g, p)
+        torch.cuda.synchronize()
+        if not (torch.equal(gf, gf2) and torch.equal(gt, gt2)):
+            raise AssertionError(f'{tag}: two runs of the backward differ in their bits')
+        sf_, st_ = tiled.sum_plain(pin, grows, p)
+        (f_sf, e_sf), (f_st, e_st) = grad_beyond(gf, sf_), grad_beyond(gt, st_)
+        check(f'{tag} face sum', max(f_sf, f_st), 0.0)
+        wf, wt = torch_impl.soft_rasterize_bwd_plain(fv, tex, img, ag, thr_w, g, p,
+                                                     chunk_pairs=1 << 22)
+        # the plain version in float64, its own forward and threshold: the
+        # witness for knife-edge entries
+        fv64, tex64 = fv.double(), tex.double()
+        img64, ag64, _ = torch_impl.soft_rasterize_fwd_plain(fv64, tex64, p, chunk_pairs=1 << 22)
+        thr64 = torch_impl.topk_threshold_plain(fv64, p, chunk_pairs=1 << 22) \
+            if with_thr else None
+        xf, xt = torch_impl.soft_rasterize_bwd_plain(fv64, tex64, img64, ag64, thr64,
+                                                     g.double(), p, chunk_pairs=1 << 22)
+        kf, kt = cuda_impl.soft_rasterize_bwd(fv, tex, b_img, b_ag, b_thr, g, p, inputs)
+        wt, xt, kt = wt.reshape(gt.shape), xt.reshape(gt.shape), kt.reshape(gt.shape)
+        if surface:
+            gt, wt, xt, kt = fold_ties(gt), fold_ties(wt), fold_ties(xt), fold_ties(kt)
+        f_f, a_f, e_f, k_f = grad_check(f'{tag} face gradient', gf, wf, xf, kf)
+        f_t, a_t, e_t, k_t = grad_check(f'{tag} texture gradient', gt, wt, xt, kt)
+        moves = p.aggr_func_rgb == 'softmax' or (p.dist_func != 'hard'
+                                                  and p.aggr_func_alpha != 'hard')
+        if moves and not gf.abs().max() > 0:
+            raise AssertionError(f'{tag}: zero face gradient')
+        for k, e in (('fwd', max(e_rgb, e_a, e_thr)), ('bwd', max(e_f, e_t))):
+            t_err[f'{name}_{k}'] = max(t_err[f'{name}_{k}'], e)
+        g_err['sum'] = max(g_err['sum'], e_sf, e_st)
+        log(msg + f'; face grad {a_f:.6f} beyond, {f_f:.6f} not the plain version\'s '
+            f'rounding (max {e_f:.2g} of scale), texture grad {a_t:.6f} / {f_t:.6f} (max '
+            f'{e_t:.2g}); vs binned '
+            f'{k_f:.6f} / {k_t:.6f}; sum max {max(e_sf, e_st):.2g}; bit-equal twice')
+        return gf
+
+    def sweep(name, sizes, **kw):
+        """Phase 11a's configurations on the route, with ``kw`` added."""
+        for dist, rgb, alpha in configs:
+            p = make_params(image_size=128, dist_func=dist, aggr_func_rgb=rgb,
+                            aggr_func_alpha=alpha, sigma_val=1e-4, gamma_val=1e-3, **kw)
+            compare_tiled(name, f'sphere 128 {dist}/{rgb}/{alpha}', fv_mid, tex_mid, p)
+        for size in sizes:
+            compare_tiled(name, f'sphere {size} renderer defaults', fv_mid, tex_mid,
+                          make_params(image_size=size, **kw))
+        for T in (1, 4, 25):
+            fv, tex = soup(400, 1, T, SEED + T)
+            compare_tiled(name, f'soup 128 T={T}', fv, tex,
+                          make_params(image_size=128, sigma_val=1e-4, gamma_val=1e-3, **kw))
+        fv, tex = soup(400, 1, 3, SEED)
+        compare_tiled(name, 'soup 64 vertex, background, fill_back off', fv,
+                      tex.reshape(1, 400, 3, 3),
+                      make_params(image_size=64, texture_type='vertex', fill_back=False,
+                                  background_color=(0.2, 0.4, 0.6), sigma_val=1e-4,
+                                  gamma_val=0.1, **kw))
+        gf_b = compare_tiled(name, 'soup 256 screen-filling faces, B=2', fv_big, tex_b2,
+                                make_params(image_size=256, sigma_val=1e-4, gamma_val=1e-3,
+                                            **kw))
+        if not gf_b[:, :2].abs().amax() > 0:
+            raise AssertionError('the screen-filling faces have no gradient')
+        compare_tiled(name, 'tie soup 32, hard', tie, textures(4, 1, SEED + 11), p_tie)
+
+    log("phase 13a: f_px kernels vs plain and vs the binned route, whole images, "
+        "grad_mode='full'")
+    with route.with_layout('f_px'):
+        sweep('fpx', (32, 48, 64, 96, 128, 256), grad_mode='full')
+        # a binding truncation takes the binned route: K = 16 < F
+        zero_counts()
+        x_b = fv_mid.clone().requires_grad_(True)
+        soft_rasterize(x_b, tex_mid, image_size=128, sigma_val=1e-4).sum().backward()
+        torch.cuda.synchronize()
+        if any(read_tiled().values()) or read_sum() \
+                or read_counts() != dict.fromkeys(wrappers, 1):
+            raise AssertionError(f'f_px layout, binding K = 16: {read_tiled()}, {read_counts()}, '
+                                 f'face sums {read_sum()}')
+    log('  a binding K = 16 step under JR_LAYOUT=f_px: one launch of each binned wrapper, '
+        'none of f_px')
+
+    log("phase 13b: the f_px route at full width, render_mesh frames and grad_mode='full' "
+        "steps at 1024 px, 39,474 faces")
+    p_full_f = make_params(image_size=1024, grad_mode='full')
+    census_f = pair_census(fv_full, p_full_f, cl, counts_full)
+
+    def full_step(i=0):
+        fv_leaf.grad = tex_leaf.grad = None
+        soft_rasterize(fv_leaf, tex_leaf, image_size=1024, sigma_val=1e-5, gamma_val=1e-4,
+                       grad_mode='full').sum().backward()
+
+    fpx_names = ('softras_fpx_fwd', 'softras_fpx_bwd')
+    pxf_names = ('softras_pxf_fwd', 'softras_pxf_bwd')
+
+    def only_tiled(tag, want, sums=0):
+        """The tiled wrappers' counts are ``want`` (zero where unnamed), the
+        face sum's ``sums``, and no other route's wrapper ran."""
+        full = dict.fromkeys(tiled_wrappers, 0)
+        full.update(want)
+        if read_tiled() != full or any(read_counts().values()) or any(read_dir().values()) \
+                or any(read_pxg().values()) or read_sum() != sums:
+            raise AssertionError(f'{tag}: launches {read_tiled()}, {read_counts()}, '
+                                 f'{read_dir()}, {read_pxg()}, face sums {read_sum()}')
+
+    def tiled_frames(tag):
+        zero_counts()
+        with torch.no_grad():
+            for az in azimuths:
+                mesh.reset_()
+                renderer.transform.set_eyes_from_angles(2.732, 30, az)
+                alpha, rgb = renderer.render_mesh(mesh, mode=None)
+                if not (torch.isfinite(alpha).all() and alpha.gt(0.5).float().mean() > 0.05):
+                    raise AssertionError(f'{tag} frame azimuth {az}: non-finite or empty')
+        torch.cuda.synchronize()
+
+    def tiled_steps(tag, step, names):
+        zero_counts()
+        for i in range(STEPS):
+            step(i)
+            only_tiled(f'{tag} step {i + 1}', dict.fromkeys(names, i + 1), i + 1)
+        torch.cuda.synchronize()
+        return {**{n: read_tiled()[n] for n in names}, 'segment_sum': read_sum()}
+
+    with route.with_layout('f_px'):
+        tiled_frames('f_px')
+        only_tiled(f'f_px {FRAMES} frames', {'softras_fpx_fwd': FRAMES})
+        frame_fpx = {**{n: read_tiled()[n] for n in fpx_names}, 'segment_sum': read_sum()}
+        fpx_counts = tiled_steps("f_px grad_mode='full' soft_rasterize", full_step, fpx_names)
+        for nm, g in (('face_vertices', fv_leaf.grad), ('textures', tex_leaf.grad)):
+            if not (torch.isfinite(g).all() and g.abs().max() > 0):
+                raise AssertionError(f'f_px gradient of {nm}: non-finite or zero')
+        zero_counts()
+        bench_step()
+        torch.cuda.synchronize()
+        if any(read_tiled().values()) or read_sum() \
+                or read_counts() != dict.fromkeys(wrappers, 1):
+            raise AssertionError(f'f_px layout, binding K = 16 at 1024 px: {read_tiled()}, '
+                                 f'{read_counts()}, face sums {read_sum()}')
+        log(f'  launches: {frame_fpx} for {FRAMES} frames; {fpx_counts} for {STEPS} '
+            f"grad_mode='full' soft_rasterize steps; a binding K = 16 step: {read_counts()}, "
+            f'none of f_px')
+        pin_x = fpx_impl.prep_fpx(fv_full, tex_full, p_full_f, for_grad=True)
+        img_x, ag_x, cnt_x, _ = fpx_impl.launch_fpx_fwd(pin_x, p_full_f)
+        if not torch.equal(cnt_x, counts_full):
+            raise AssertionError('f_px 1024 px: counts differ from the binned route\'s')
+        img_d, _, _ = cuda_impl.launch(inputs, p_full)
+        check('f_px 1024 px image vs binned', beyond(img_x, img_d, TOL, pixel_dim=1)[0])
+        t_err['fpx_fwd'] = max(t_err['fpx_fwd'], pixels_vs_plain(
+            'f_px frame 1 vs plain', fv_full, tex_full, p_full_f, img_x))
+        # the gradient of the 4,096 pixels, untruncated, against the plain backward
+        pin_xs = fpx_impl.prep_fpx(fv_full, tex_sym, p_full_f, for_grad=True)
+        img_xs, ag_xs, _, _ = fpx_impl.forward(pin_xs, p_full_f)
+        gf_x, gt_x = fpx_impl.backward(pin_xs, img_xs, ag_xs, None, g_img, p_full_f)
+        torch.cuda.synchronize()
+
+        def plain_bwd_fpx():
+            return torch_impl.backward_pixels(fv_full, tex_sym, at(img_xs), at(ag_xs), g_px,
+                                              p_full_f, xk, yk, thr=None, chunk_pairs=1 << 22)
+
+        gf_w3, gt_w3 = plain_bwd_fpx()
+        f_f, e_f = grad_beyond(gf_x, gf_w3)
+        f_t, e_t = grad_beyond(fold_ties(gt_x), fold_ties(gt_w3))
+        check('f_px 1024 px face gradient of the sampled pixels', f_f, GRAD_FRAC)
+        check('f_px 1024 px texture gradient of the sampled pixels', f_t, GRAD_FRAC)
+        t_err['fpx_bwd'] = max(t_err['fpx_bwd'], e_f, e_t)
+        log(f'  gradient of {some} vs plain, untruncated: face grad {f_f:.6f} beyond (max '
+            f'{e_f:.2g} of scale), texture grad {f_t:.6f} (max {e_t:.2g})')
+
+    def tiled_timing(name, pin_k, p_k, img_k, ag_k, thr_k, census_k, plain_fwd, plain_bwd):
+        """Each kernel of the route alone on the full frame's inputs, its plain
+        version and, for the face sum, index_add_; the bounds from this
+        frame's pair counts.  Returns (ms, plain ms, plain_on, library ms,
+        bounds)."""
+        impl = fpx_impl if name == 'fpx' else pxf_impl
+        if name == 'fpx':
+            fwd = lambda: fpx_impl.launch_fpx_fwd(pin_k, p_k)
+            bwd = lambda: fpx_impl.launch_fpx_bwd(pin_k, img_k, ag_k, None, g_ones, p_k)
+            prep = lambda: fpx_impl.prep_fpx(fv_full, tex_full, p_k, for_grad=True)
+        else:
+            fwd = lambda: pxf_impl.launch_pxf_fwd(pin_k, p_k, True)
+            bwd = lambda: pxf_impl.launch_pxf_bwd(pin_k, img_k, ag_k, thr_k, g_ones, p_k)
+            prep = lambda: pxf_impl.prep_pxf(fv_full, tex_full, p_k, for_grad=True)
+        summ = lambda: tiled.face_sum(pin_k, grows_k, p_k)
+        grows_k = bwd()
+        ms = {'prep': timed(prep, reps=5), 'fwd': timed(fwd, reps=30),
+              'bwd': timed(bwd, reps=30), 'sum': timed(summ, reps=30)}
+        if name == 'pxf':
+            ms['fwd_nothr'] = timed(lambda: pxf_impl.launch_pxf_fwd(pin_k, p_k, False), reps=30)
+        plain = {'fwd': timed(plain_fwd, reps=2, warm=1), 'bwd': timed(plain_bwd, reps=2, warm=1),
+                 'sum': timed(lambda: tiled.sum_plain(pin_k, grows_k, p_k), reps=2, warm=1)}
+        on = {'fwd': some, 'bwd': some, 'sum': 'all rows'}
+        n_fe = (pin_k.face_off[1:] - pin_k.face_off[:-1]).long()
+        key = torch.repeat_interleave(torch.arange(n_fe.numel(), device=dev), n_fe)
+        by_face = grows_k[pin_k.face_entries.long()]
+        dump = torch.zeros((n_fe.numel(), grows_k.shape[1]), device=dev)
+        lib = {'sum': timed(lambda: dump.zero_().index_add_(0, key, by_face), reps=5)}
+        E_k, W_k = pin_k.entries.numel(), pin_k.items.shape[0]
+        list_bytes = 4 * (E_k + pin_k.tile_off.numel())
+        item_bytes = 4 * (E_k + pin_k.items.numel())
+        K = p_k.max_faces_id
+        thr_ops = census_k['candidates'] * OPS_LIST if name == 'pxf' else 0
+        bnd = {
+            # the binned forward's pair work, which needs no more than 16 x 16
+            # tiles' lists (``tile_list``: the wider f_px tiles' lists test
+            # more pairs, a cost of this tiling, not of the function), the
+            # candidates (on px_f) compared into the threshold's list; the
+            # rows, the lists and the outputs (image 4, aggregates 2, count,
+            # threshold)
+            'fwd': bound(census_k['tile_list'] * OPS_BBOX + census_k['in_bbox'] * OPS_DIST
+                         + census_k['inside'] * OPS_INSIDE
+                         + census_k['candidates'] * OPS_SHADE + thr_ops,
+                         4 * inputs.rows.numel() + list_bytes
+                         + 4 * B * (7 + (name == 'pxf')) * HW),
+            # the function that the backward and its face sum compute together
+            'bwd': bound(census_k['in_bbox'] * OPS_DIST + census_k['inside'] * OPS_INSIDE
+                         + census_k['candidates'] * OPS_DEPTH
+                         + census_k['within_thr'] * OPS_GRAD + E_k * GC,
+                         4 * inputs.rows.numel() + item_bytes
+                         + 4 * (10 + (name == 'pxf')) * census_k['drawn'] + 4 * B * F * GC),
+            # the entry rows and the face index in, the gradients out
+            'sum': bound(E_k * GC, 4 * E_k * GC + 4 * (pin_k.face_off.numel() + E_k)
+                         + 4 * B * F * GC)}
+        faces_t = (pin_k.tile_off[1:] - pin_k.tile_off[:-1]).long()
+        log(f'  {pin_k.tile_h}x{pin_k.tile_w} tiles: {int(faces_t.gt(0).sum().item())} covered '
+            f'of {faces_t.numel()}, {E_k:,} entries, {W_k} work items of at most '
+            f'{impl.GROUP} faces, the busiest tile {int(faces_t.max().item())} faces')
+        for k in ('fwd', 'bwd', 'sum'):
+            log(f'  bound softras_{name}_{k}: {bnd[k][0]:.6f} ms by {bnd[k][1]}: {bnd[k][2]}')
+        log(f'  kernels alone, ms: ' + ', '.join(f'{k} {v:.4f}' for k, v in ms.items())
+            + f'  [{smi}]')
+        log(f'  plain versions, ms: ' + ', '.join(f'{k} {v:.3f} on {on[k]}'
+                                                  for k, v in plain.items())
+            + f'; index_add_: sum {lib["sum"]:.4f}  [{smi}]')
+        return ms, plain, on, lib, bnd
+
+    with route.with_layout('f_px'):
+        fpx_t = tiled_timing(
+            'fpx', pin_x, p_full_f, img_x, ag_x, None, census_f,
+            lambda: torch_impl.forward_pixels(fv_full, tex_full, p_full_f, xk, yk,
+                                              chunk_pairs=1 << 24),
+            plain_bwd_fpx)
+
+    # ---- 14. the px_f route ------------------------------------------------
+    log('phase 14a: px_f kernels vs plain and vs the binned route, whole images')
+    with route.with_layout('px_f'):
+        sweep('pxf', (24, 40, 48, 64, 96, 120, 256))
+        for K in (1, 4, 16):
+            compare_tiled('pxf', f'soup 128 B=2 K={K}', fv_b2, tex_b2,
+                          make_params(image_size=128, sigma_val=1e-4, gamma_val=1e-3,
+                                      max_faces_per_pixel_for_grad=K))
+        # K = 40 is past the per-pixel lists: the forward's bisection
+        compare_tiled('pxf', 'dense soup 128 K=40, bisection', fv_dense, tex_dense,
+                      make_params(image_size=128, sigma_val=1e-4, gamma_val=1e-3,
+                                  max_faces_per_pixel_for_grad=40))
+        compare_tiled('pxf', "soup 24 (tile 8) grad_mode='full'", fv_b2, tex_b2,
+                      make_params(image_size=24, sigma_val=1e-4, gamma_val=1e-3,
+                                  grad_mode='full'))
+    log(f'  thresholds equal to the binned route on at least {t_same["thr"]:.6f} of pixels in '
+        f'every case, counts on all')
+
+    # bands: 256 px in 4 contiguous bands of tile rows, K = 16 and K = 40
+    for tag_b, fv, tex, kw in (('sphere 256 K=16', fv_mid, tex_mid, {}),
+                               ('dense soup 256 K=40', fv_dense, tex_dense,
+                                dict(sigma_val=1e-4, gamma_val=1e-3,
+                                     max_faces_per_pixel_for_grad=40)),
+                               ('soup 256 B=2 K=4', fv_big, tex_b2,
+                                dict(sigma_val=1e-4, gamma_val=1e-3,
+                                     max_faces_per_pixel_for_grad=4))):
+        p_b = make_params(image_size=256, **kw)
+        tex = tie_symmetric(tex)
+        whole = pxf_impl.prep_pxf(fv, tex, p_b, for_grad=True)
+        outs_w = pxf_impl.launch_pxf_fwd(whole, p_b, True)
+        gen.manual_seed(SEED + 14)
+        g_b = torch.randn(outs_w[0].shape, generator=gen, device=dev)
+        gf_w, gt_w = pxf_impl.backward(whole, outs_w[0], outs_w[1], outs_w[3], g_b, p_b)
+        rows_b = whole.tiles_y // 4
+        parts, sf_b, st_b = [], torch.zeros_like(gf_w), torch.zeros_like(gt_w)
+        for k in range(4):
+            pin_b = pxf_impl.prep_pxf(fv, tex, p_b, ty0=k * rows_b, ty_band=rows_b,
+                                      for_grad=True)
+            out_b = pxf_impl.launch_pxf_fwd(pin_b, p_b, True)
+            parts.append(out_b)
+            sl = slice(k * rows_b * whole.tile_h, (k + 1) * rows_b * whole.tile_h)
+            bf, bt = pxf_impl.backward(pin_b, out_b[0], out_b[1], out_b[3],
+                                       g_b[:, :, sl].contiguous(), p_b)
+            sf_b += bf
+            st_b += bt
+        torch.cuda.synchronize()
+        for i, full in enumerate(outs_w):
+            if not torch.equal(torch.cat([o[i] for o in parts], dim=-2), full):
+                raise AssertionError(f'bands {tag_b}: output {i} of the 4 bands differs from '
+                                     f'the whole image\'s')
+        (f_bf, e_bf), (f_bt, e_bt) = grad_beyond(sf_b, gf_w), grad_beyond(
+            fold_ties(st_b), fold_ties(gt_w))
+        check(f'bands {tag_b} face gradient', f_bf, 0.0)
+        check(f'bands {tag_b} texture gradient', f_bt, 0.0)
+        log(f'  bands {tag_b}: 4 bands of {rows_b} tile rows (ty0 = 0, {rows_b}, {2 * rows_b}, '
+            f'{3 * rows_b}): image, aggregates, counts and thresholds equal to the whole '
+            f'image\'s to the bit; gradients summed over the bands within max {e_bf:.2g} / '
+            f'{e_bt:.2g} of scale of the whole')
+
+    log('phase 14b: the px_f route at full width, render_mesh frames and steps at 1024 px, '
+        '39,474 faces, K = 16')
+    with route.with_layout('px_f'):
+        tiled_frames('px_f')
+        only_tiled(f'px_f {FRAMES} frames', {'softras_pxf_fwd': FRAMES})
+        frame_pxf = {**{n: read_tiled()[n] for n in pxf_names}, 'segment_sum': read_sum()}
+        pxf_counts = tiled_steps('px_f soft_rasterize', lambda i: bench_step(), pxf_names)
+        for nm, g in (('face_vertices', fv_leaf.grad), ('textures', tex_leaf.grad)):
+            if not (torch.isfinite(g).all() and g.abs().max() > 0):
+                raise AssertionError(f'px_f gradient of {nm}: non-finite or zero')
+        pxf_mesh_counts = tiled_steps('px_f render_mesh', render_step, pxf_names)
+        for nm, g in (('mesh.vertices', v_leaf.grad), ('mesh.textures', t_leaf.grad)):
+            if g is None or not (torch.isfinite(g).all() and g.abs().max() > 0):
+                raise AssertionError(f'px_f gradient of {nm}: missing, non-finite or zero')
+        log(f'  launches: {frame_pxf} for {FRAMES} frames; {pxf_counts} for {STEPS} '
+            f'soft_rasterize steps, {pxf_mesh_counts} for {STEPS} render_mesh steps; none '
+            f'binned, dir or pxg')
+        pin_p = pxf_impl.prep_pxf(fv_full, tex_full, p_full, for_grad=True)
+        img_p, ag_p, cnt_p, thr_p = pxf_impl.launch_pxf_fwd(pin_p, p_full, True)
+        if not torch.equal(cnt_p, counts_full):
+            raise AssertionError('px_f 1024 px: counts differ from the binned route\'s')
+        same_p = (thr_p == thr_f).float().mean().item()
+        check('px_f 1024 px threshold vs binned', 1.0 - same_p, 1e-4)
+        img_d, _, _ = cuda_impl.launch(inputs, p_full)
+        check('px_f 1024 px image vs binned', beyond(img_p, img_d, TOL, pixel_dim=1)[0])
+        t_err['pxf_fwd'] = max(t_err['pxf_fwd'], pixels_vs_plain(
+            'px_f frame 1 vs plain', fv_full, tex_full, p_full, img_p))
+        pin_ps = pxf_impl.prep_pxf(fv_full, tex_sym, p_full, for_grad=True)
+        img_ps, ag_ps, _, thr_ps = pxf_impl.forward(pin_ps, p_full, True)
+        f_thr_p = ((thr_px - at(thr_ps[:, None])[..., 0]).abs()
+                   > THR_RTOL * thr_px.abs()).float().mean().item()
+        check('px_f 1024 px threshold on the sampled pixels', f_thr_p, THR_FRAC)
+        gf_p, gt_p = pxf_impl.backward(pin_ps, img_ps, ag_ps, thr_ps, g_img, p_full)
+        torch.cuda.synchronize()
+
+        def plain_bwd_pxf():
+            return torch_impl.backward_pixels(fv_full, tex_sym, at(img_ps), at(ag_ps), g_px,
+                                              p_full, xk, yk, thr=thr_px, chunk_pairs=1 << 22)
+
+        gf_w4, gt_w4 = plain_bwd_pxf()
+        f_f, e_f = grad_beyond(gf_p, gf_w4)
+        f_t, e_t = grad_beyond(fold_ties(gt_p), fold_ties(gt_w4))
+        check('px_f 1024 px face gradient of the sampled pixels', f_f, GRAD_FRAC)
+        check('px_f 1024 px texture gradient of the sampled pixels', f_t, GRAD_FRAC)
+        t_err['pxf_bwd'] = max(t_err['pxf_bwd'], e_f, e_t)
+        log(f'  gradient of {some} vs plain: face grad {f_f:.6f} beyond (max {e_f:.2g} of '
+            f'scale), texture grad {f_t:.6f} (max {e_t:.2g}); threshold {f_thr_p:.6f}; '
+            f'threshold map {same_p:.6f} equal to the binned one')
+        pxf_t = tiled_timing(
+            'pxf', pin_p, p_full, img_p, ag_p, thr_p, census, lambda: torch_impl.forward_pixels(
+                fv_full, tex_full, p_full, xk, yk, chunk_pairs=1 << 24), plain_bwd_pxf)
+
+    # the steps and frames on both routes in turns: binned, px_f, px_f, binned
+    p_times = {'binned': [], 'px_f': []}
+    for r_name in ('binned', 'px_f', 'px_f', 'binned'):
+        with route.with_layout(r_name if r_name == 'px_f' else 'pxt'):
+            t_r = timed(bench_step, reps=STEPS)
+            t0 = time.perf_counter()
+            for i in range(STEPS):
+                render_step(i)
+            torch.cuda.synchronize()
+            t_m = (time.perf_counter() - t0) * 1e3 / STEPS
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                for i in range(FRAMES):
+                    mesh.reset_()
+                    renderer.transform.set_eyes_from_angles(2.732, 30, azimuths[i])
+                    renderer.render_mesh(mesh, mode='rgb')
+            torch.cuda.synchronize()
+            p_times[r_name].append((t_r, t_m, (time.perf_counter() - t0) * 1e3 / FRAMES))
+    p_med = {r: [float(np.median([t[k] for t in ts])) for k in range(3)]
+             for r, ts in p_times.items()}
+    log(f'  in turns (binned, px_f, px_f, binned), ms: soft_rasterize step / render_mesh step / '
+        f'render_mesh frame: {p_times}; medians binned {p_med["binned"]}, px_f '
+        f'{p_med["px_f"]}  [{smi}]')
+
+    # ---- 15. results ----------------------------------------------------
+    launches = {**step_counts, **n_step_counts, **dir_counts, **pxg_counts, **fpx_counts,
+                **pxf_counts}
+    # the face sum ran in the pxg, f_px and px_f steps alike
+    launches['segment_sum'] = sum(c['segment_sum'] for c in (pxg_counts, fpx_counts,
+                                                              pxf_counts))
 
     def entry(name, source, replaces, err, ms, plain_ms, plain_on, b, library_ms=None):
         return {'name': name, 'route': 'cuda',
@@ -2036,8 +2601,18 @@ def main() -> int:
               ('fwd', 'softras_pxg_fwd.cu', 'jrender_tpu/ops/softras/pxg_impl.py:314'),
               ('combine', 'softras_pxg_fwd.cu', 'jrender_tpu/ops/softras/pxg_impl.py:449'),
               ('thr', 'softras_pxg_thr.cu', 'jrender_tpu/ops/softras/pxg_impl.py:545'),
-              ('bwd', 'softras_pxg_bwd.cu', 'jrender_tpu/ops/softras/pxg_impl.py:758'),
-              ('sum', 'softras_pxg_bwd.cu', 'jrender_tpu/ops/softras/pxg_impl.py:998'))),
+              ('bwd', 'softras_pxg_bwd.cu', 'jrender_tpu/ops/softras/pxg_impl.py:758'))),
+        # timed on the pxg step's entry rows (phase 12b); the f_px and px_f
+        # steps' rows are timed in phases 13b and 14b
+        entry('segment_sum', 'segment_sum.cu', 'jrender_tpu/ops/softras/pxg_impl.py:998',
+              g_err['sum'], gm['sum'], gm_plain['sum'], gm_on['sum'], gb['sum'],
+              gm_lib['sum']),
+        *(entry(f'softras_{r}_{k}', f'softras_{r}_{k}.cu',
+                f'jrender_tpu/ops/softras/pallas_impl.py:{line}',
+                t_err[f'{r}_{k}'], tm[0][k], tm[1][k], tm[2][k], tm[4][k], tm[3].get(k))
+          for r, tm, rows_ in (('fpx', fpx_t, ((313, 'fwd'), (442, 'bwd'))),
+                               ('pxf', pxf_t, ((894, 'fwd'), (1161, 'bwd'))))
+          for line, k in rows_),
     ]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
                                              'count': count}}), flush=True)

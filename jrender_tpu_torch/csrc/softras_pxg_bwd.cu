@@ -1,43 +1,40 @@
 // SoftRas backward over grouped work items (the pxg route) for Hopper
-// (sm_90a), and a deterministic per-face sum, with plain C entry points.
+// (sm_90a), with a plain C entry point.
 //
 // Replaces the TPU kernel jrender_tpu/ops/softras/pxg_impl.py
-// _make_bwd_kernel_pxg (:758, launched at :989 by soft_rasterize_bwd_pxg)
-// and the segment sum by face id that follows it there (:998-1011).  They
-// compute the reference's top-K truncated backward (soft_rasterize.py:
-// 523-1358): for every candidate pair with zp <= thr (:803-804), the
-// gradient of the pixel with respect to the face's 9 coordinates and its
-// texture values, summed over the pixels per face.  The pair terms are
-// softras_grad.cuh's (pxg_impl.py:801-932: surface texels enter as their
-// value, vertex colours without perspective correction, :844-850).  The
-// TPU's 11-channel per-group pixel gather (:963-969) is a lane-layout
-// device and has no counterpart: a block reads its tile's maps itself.
+// _make_bwd_kernel_pxg (:758, launched at :989 by soft_rasterize_bwd_pxg).
+// With the segment sum by face id that follows it there (:998-1011, here
+// csrc/segment_sum.cu) it computes the reference's top-K truncated
+// backward (soft_rasterize.py:523-1358): for every candidate pair with
+// zp <= thr (:803-804), the gradient of the pixel with respect to the
+// face's 9 coordinates and its texture values, summed over the pixels per
+// face.  The pair terms are softras_grad.cuh's (pxg_impl.py:801-932:
+// surface texels enter as their value, vertex colours without perspective
+// correction, :844-850).  The TPU's 11-channel per-group pixel gather
+// (:963-969) is a lane-layout device and has no counterpart: a block
+// reads its tile's maps itself.
 //
-// Design.  Two kernels, two entry points.
-//  softras_pxg_bwd_kernel: one block of 8 warps per work item, as the
-//    forward cuts the lists.  It stages its tile's pixel maps (image 4,
-//    aggrs 2, incoming gradient 4, threshold 1) and its faces' rows in
-//    shared memory and gives each staged face to one warp, which walks the
-//    pixels of the face's inflated bbox inside the tile, 32 at a time, as
-//    the binned backward does (softras_bwd.cu); lanes add their pixels in
-//    order, a butterfly adds the lanes.  It writes one gradient row per
-//    entry of the item, grows [E, GC].  Big faces are entries like the
-//    others, one per tile of their range: no block walks a whole
-//    screen-filling face.
-//  softras_pxg_sum_kernel: one warp per face adds the face's entry rows in
-//    ascending entry order (its tiles in order), through the prep's
-//    face_off / face_entries, and writes grad_face_vertices [B,F,9] and
-//    grad_textures [B,F,GC-9].
-// No atomics, every sum in a fixed order: two runs give the same bits.
-// Scratch: E rows of GC floats (at 1024 px on the 39,474-face sphere about
-// 150,000 entries of 84 floats).
+// Design.  One block of 8 warps per work item, as the forward cuts the
+// lists.  It stages its tile's pixel maps (image 4, aggrs 2, incoming
+// gradient 4, threshold 1) and its faces' rows in shared memory and gives
+// each staged face to one warp, which walks the pixels of the face's
+// inflated bbox inside the tile, 32 at a time, as the binned backward does
+// (softras_bwd.cu); lanes add their pixels in order, a butterfly adds the
+// lanes.  It writes one gradient row per entry of the item, grows [E, GC],
+// which the segment sum adds per face in ascending entry (tile) order.
+// Big faces are entries like the others, one per tile of their range: no
+// block walks a whole screen-filling face.  No atomics, every sum in a
+// fixed order: two runs give the same bits.  Scratch: E rows of GC floats
+// (at 1024 px on the 39,474-face sphere about 150,000 entries of 84
+// floats).
 //
 // Bound.  Operations: the forward's pair math for every pair in a bbox
 // plus the gradient terms of the pairs within the threshold.  Bytes of
-// the function the two kernels compute together: the face rows, the lists,
-// the 11 maps of the pixels with a candidate, one gradient row per face
-// out.  The entry rows between them are this two-pass design's cost and
-// count only in the sum's own bound, as its input.
+// the function this kernel and the face sum compute together: the face
+// rows, the lists, the 11 maps of the pixels with a candidate, one
+// gradient row per face out.  The entry rows between them are this
+// two-pass design's cost and count only in the sum's own bound, as its
+// input.
 #include <cuda_runtime.h>
 
 #include "softras_grad.cuh"
@@ -61,15 +58,6 @@ struct PxgBwdArgs {
   int W, F, row, image_size, tiles_x, chunk, GC;
   int dist_func, rgb_func, alpha_func;
   Scalars s;
-};
-
-struct PxgSumArgs {
-  const float* grows;        // [E, GC]
-  const int* face_off;       // [B * F + 1] first place of each face in face_entries
-  const int* face_entries;   // [E] the entries of each face, ascending
-  float* grad_face;          // [B, F, 9]
-  float* grad_tex;           // [B, F, GC - 9]
-  int B, F, GC;
 };
 
 template <int DIST>
@@ -187,24 +175,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    softras_pxg_sum_kernel(const PxgSumArgs a) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long gw = (long long)blockIdx.x * kWarps + warp;  // b * F + f
-  if (gw >= (long long)a.B * a.F) return;
-  const int e0 = a.face_off[gw], e1 = a.face_off[gw + 1];
-  const int T3 = a.GC - 9;
-  for (int c = lane; c < a.GC; c += 32) {
-    float v = 0.0f;
-    for (int e = e0; e < e1; ++e) v += a.grows[(size_t)a.face_entries[e] * a.GC + c];
-    if (c < 9) {
-      a.grad_face[gw * 9 + c] = v;
-    } else {
-      a.grad_tex[gw * T3 + (c - 9)] = v;
-    }
-  }
-}
-
 template <int DIST>
 cudaError_t launch(const PxgBwdArgs& a, cudaStream_t stream) {
   const int T3 = a.s.texture_type == 0 ? a.GC - 9 : 0;
@@ -228,14 +198,4 @@ extern "C" int softras_pxg_bwd(const softras::PxgBwdArgs* args, void* stream) {
   return (int)err;
 }
 
-extern "C" int softras_pxg_sum(const softras::PxgSumArgs* args, void* stream) {
-  using namespace softras;
-  const long long faces = (long long)args->B * args->F;
-  const unsigned blocks = (unsigned)((faces + kWarps - 1) / kWarps);
-  softras_pxg_sum_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(*args);
-  return (int)cudaGetLastError();
-}
-
 extern "C" int softras_pxg_bwd_args_size() { return (int)sizeof(softras::PxgBwdArgs); }
-
-extern "C" int softras_pxg_sum_args_size() { return (int)sizeof(softras::PxgSumArgs); }

@@ -33,6 +33,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..segment_sum import segment_order, segment_sum
+
 ROW = 19          # per-face row: face 9, pixel-space inverse 9, front 1
 ROW_INV = 9
 ROW_FRONT = 18
@@ -261,8 +263,9 @@ def backward_textures(tex_shape, face_index, weight, depth, zcorn, grad_rgb, eps
 
 def backward_depth(face, face_index, face_inv, weight, depth, zcorn, grad_depth):
     """Analytic depth gradient [B,F,9] (rasterize.py:729-788), from the
-    per-pixel maps alone.  The sum per face is ``index_add_``: on a card
-    its order, and so the last bits, can change from run to run."""
+    per-pixel maps alone.  The sum per face is ``ops.segment_sum``: each
+    face adds its pixels in ascending order, with no float atomics on the
+    card, so two runs give the same bits."""
     B, F = face.shape[:2]
     is_ = face_index.shape[1]
     fi = face_index.reshape(B, -1).long()
@@ -280,9 +283,8 @@ def backward_depth(face, face_index, face_inv, weight, depth, zcorn, grad_depth)
     gv = torch.cat([gxy, gz[..., None]], -1)                         # [B,P,3,3]
     gv = torch.where(has[..., None, None], gv, 0.0).reshape(-1, 9)
     seg = torch.where(has, fi + torch.arange(B, device=fi.device)[:, None] * F, B * F)
-    out = torch.zeros((B * F + 1, 9), dtype=gv.dtype, device=gv.device)
-    out.index_add_(0, seg.reshape(-1), gv)
-    return out[:-1].reshape(B, F, 9)
+    out = segment_sum(gv, segment_order(seg, B * F))
+    return out.reshape(B, F, 9)
 
 
 class _EdgeRows(NamedTuple):

@@ -14,17 +14,20 @@ With ``grad_mode='topk'`` (the default) a pixel sends gradient to its
 ``max_faces_per_pixel_for_grad`` nearest candidates only; ``'full'``
 sends it to every candidate.
 
-Three routes, chosen as the JAX package chooses among its layouts
-(``route.route``, read at call time): under ``JR_LAYOUT=pxg`` a size
-divisible by 8 goes to the pxg kernels (``pxg_impl``), which cut each
-tile's face list into work items of their own and merge the items'
-partial aggregates per tile; under the default layout a mesh of at most
-``JR_DIR_MAX`` faces (default 0: never) on a size divisible by 8 goes to
-the dir kernels (``dir_impl``), which walk the whole face table per screen
-tile and find the threshold in the forward's own walk; everything else to
-the binned kernels (``cuda_impl``).  ``JR_LAYOUT=px_f`` or ``f_px`` raises:
-those layouts are not ported.  The backward takes the route its forward
-took.
+Five routes, chosen as the JAX package chooses among its layouts
+(``route.route``, read at call time; its docstring has the table): under
+``JR_LAYOUT=pxg`` a size divisible by 8 goes to the pxg kernels
+(``pxg_impl``), which cut each tile's face list into work items of their
+own and merge the items' partial aggregates per tile; under
+``JR_LAYOUT=px_f`` to the px_f kernels (``pxf_impl``: t x t tiles, the
+threshold in the forward's walk); under ``JR_LAYOUT=f_px`` a size that
+16 x min(128, is) tiles divide goes to the f_px kernels (``fpx_impl``),
+unless the top-K truncation binds: their backward is untruncated; under
+the default layout a mesh of at most ``JR_DIR_MAX`` faces (default 0:
+never) on a size divisible by 8 goes to the dir kernels (``dir_impl``),
+which walk the whole face table per screen tile and find the threshold in
+the forward's own walk; everything else to the binned kernels
+(``cuda_impl``).  The backward takes the route its forward took.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..._device import resolve_device
-from . import cuda_impl, dir_impl, pxg_impl, torch_impl
+from . import cuda_impl, dir_impl, fpx_impl, pxf_impl, pxg_impl, torch_impl
 from .route import route
 from .params import SoftRasParams, make_params
 
@@ -43,17 +46,13 @@ class SoftRasterize(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, face_vertices, textures, p: SoftRasParams, need_grad: bool):
-        ctx.route = route(p, face_vertices.shape[1])
+        ctx.route = route(p, face_vertices.shape[1], need_grad)
         with_thr = need_grad and torch_impl.use_threshold(p, face_vertices.shape[1])
-        if ctx.route in ('dir', 'pxg'):
-            # the Morton table, or the work items, are made once and kept
-            # for the backward
-            if ctx.route == 'dir':
-                table = dir_impl.prep_dir(face_vertices, textures, p)
-                images, aggrs, _, thr = dir_impl.forward(table, p, with_thr)
-            else:
-                table = pxg_impl.prep_pxg(face_vertices, textures, p, for_grad=need_grad)
-                images, aggrs, _, thr = pxg_impl.forward(table, p, with_thr)
+        if ctx.route in _TABLED:
+            # the route's table (Morton order, work items or tile lists) is
+            # made once and kept for the backward
+            table = _prep(ctx.route, face_vertices, textures, p, need_grad)
+            images, aggrs, _, thr = _TABLED[ctx.route].forward(table, p, with_thr)
             if need_grad:
                 ctx.p = p
                 ctx.table = table
@@ -79,10 +78,9 @@ class SoftRasterize(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, grad_images):
         face_vertices, textures, images, aggrs, thr = ctx.saved_tensors
-        if ctx.route in ('dir', 'pxg'):
-            impl = dir_impl if ctx.route == 'dir' else pxg_impl
-            grad_face, grad_tex = impl.backward(ctx.table, images, aggrs, thr, grad_images,
-                                                ctx.p)
+        if ctx.route in _TABLED:
+            grad_face, grad_tex = _TABLED[ctx.route].backward(
+                ctx.table, images, aggrs, thr, grad_images, ctx.p)
             grad_tex = grad_tex.reshape(textures.shape)
         else:
             grad_face, grad_tex = cuda_impl.soft_rasterize_bwd(
@@ -90,6 +88,18 @@ class SoftRasterize(torch.autograd.Function):
                 ctx.inputs)
         return (grad_face if ctx.needs_input_grad[0] else None,
                 grad_tex if ctx.needs_input_grad[1] else None, None, None)
+
+
+# the routes whose forward and backward share a table of their own
+_TABLED = {'dir': dir_impl, 'pxg': pxg_impl, 'f_px': fpx_impl, 'px_f': pxf_impl}
+
+
+def _prep(r: str, face_vertices, textures, p: SoftRasParams, for_grad: bool):
+    """The table of route ``r``; ``for_grad`` adds what its backward reads."""
+    if r == 'dir':
+        return dir_impl.prep_dir(face_vertices, textures, p)
+    prep = {'pxg': pxg_impl.prep_pxg, 'f_px': fpx_impl.prep_fpx, 'px_f': pxf_impl.prep_pxf}[r]
+    return prep(face_vertices, textures, p, for_grad=for_grad)
 
 
 def _inputs(face_vertices, textures, texture_type, device):
@@ -147,11 +157,8 @@ def soft_rasterize_with_aux(face_vertices, textures, p: SoftRasParams,
     face_vertices, textures = _inputs(face_vertices, textures, p.texture_type,
                                       device)
     with torch.no_grad():
-        r = route(p, face_vertices.shape[1])
-        if r == 'dir':
-            return dir_impl.forward(dir_impl.prep_dir(face_vertices, textures, p), p,
-                                    False)[:3]
-        if r == 'pxg':
-            return pxg_impl.forward(pxg_impl.prep_pxg(face_vertices, textures, p), p,
-                                    False)[:3]
+        r = route(p, face_vertices.shape[1], False)
+        if r in _TABLED:
+            table = _prep(r, face_vertices, textures, p, False)
+            return _TABLED[r].forward(table, p, False)[:3]
         return cuda_impl.soft_rasterize_fwd(face_vertices, textures, p)

@@ -124,10 +124,12 @@ def chunk_for_bwd(row: int, tex_sums: int) -> int:
 
 
 def prepare(face_vertices: torch.Tensor, textures: torch.Tensor,
-            p: SoftRasParams, for_grad: bool = False) -> FwdInputs:
-    """Binning and per-face rows for the kernels; plain torch on the device.
-    ``for_grad`` adds the inverse of the binning's sort, which the
-    backward's face reduction gathers through."""
+            p: SoftRasParams, for_grad: bool = False, tile_h: int = TILE,
+            tile_w: int = TILE) -> FwdInputs:
+    """Binning (``tile_h`` x ``tile_w`` tiles) and per-face rows for the
+    kernels; plain torch on the device.  ``for_grad`` adds the inverse of
+    the binning's sort, which the backward's face reduction gathers
+    through."""
     B, F = face_vertices.shape[:2]
     face = face_vertices.reshape(B, F, 9)
     if p.texture_type_id == 0:
@@ -137,7 +139,7 @@ def prepare(face_vertices: torch.Tensor, textures: torch.Tensor,
             raise ValueError(f'surface textures need T = R*R texels, got T={T}')
     else:
         R = 1
-    lists = binning.build_tile_lists_compact(face, p.image_size, TILE, TILE,
+    lists = binning.build_tile_lists_compact(face, p.image_size, tile_h, tile_w,
                                              p.threshold, with_inverse=for_grad)
     return FwdInputs(face_rows(face, textures, p), lists, R)
 

@@ -45,14 +45,16 @@ Kernels and wrappers (each wrapper counts its launches in ``.launches``):
                                                    than K candidates
   ``launch_pxg_bwd``      csrc/softras_pxg_bwd.cu  one gradient row per entry
                                                    (tile, face) of every item
-  ``launch_pxg_sum``      csrc/softras_pxg_bwd.cu  each face's rows summed in
-                                                   tile order
+Each face's rows are then summed in tile order by ``tiled.face_sum`` (the
+segment sum, csrc/segment_sum.cu), which the f_px and px_f routes share,
+as they share ``tiled.tile_work``, which writes the lists out.
 
 The plain versions beside them (``fwd_partials_plain``, ``combine_plain``,
-``thr_plain``, ``bwd_rows_plain``, ``sum_plain``, ``bwd_plain``) are built
-on ``torch_impl``.  ``forward`` and ``backward`` go by the device of their
-input: a CPU tensor takes the plain versions, a CUDA tensor the kernels.
-There is no fallback: a CUDA input launches the kernels or raises.
+``thr_plain``, ``bwd_rows_plain``, ``bwd_plain``; the face sum's is
+``tiled.sum_plain``) are built on ``torch_impl``.  ``forward`` and
+``backward`` go by the device of their input: a CPU tensor takes the plain
+versions, a CUDA tensor the kernels.  There is no fallback: a CUDA input
+launches the kernels or raises.
 """
 from __future__ import annotations
 
@@ -62,7 +64,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import cuda_impl, torch_impl
+from . import cuda_impl, tiled, torch_impl
 from . import geometry as G
 from .cuda_impl import ROW_BASE, TILE, _Scalars, _check, _entry, _run, _scalars
 from .params import SoftRasParams
@@ -87,11 +89,6 @@ class PxgInputs(NamedTuple):
     tex_res: int                        # R, T = R * R (1 for vertex colours)
 
 
-def _offsets(n: torch.Tensor) -> torch.Tensor:
-    """[len + 1] exclusive prefix sums of n (int64)."""
-    return torch.cat([n.new_zeros(1), n.cumsum(0)])
-
-
 def tiles_for(image_size: int) -> int:
     """Tiles per side: 16-px tiles, the last one ragged."""
     return -(-image_size // TILE)
@@ -102,62 +99,11 @@ def prep_pxg(face_vertices: torch.Tensor, textures: torch.Tensor, p: SoftRasPara
     """Rows, tile lists and work items of the pxg route, plain torch on the
     device of the input.  ``for_grad`` adds each face's entries, which the
     backward's face sum walks."""
-    if group < 1:
-        raise ValueError(f'a work item holds at least one face, got group={group}')
     B, F = face_vertices.shape[:2]
     base = cuda_impl.prepare(face_vertices, textures, p)
-    cl = base.lists
-    dev = base.rows.device
     tiles = tiles_for(p.image_size)
-    NT = tiles * tiles
-    counts = cl.counts.reshape(-1).long()           # faces per tile, big faces included
-    runs = cl.run_counts.reshape(-1).long()
-    nbig = counts - runs
-    n_items = (counts + group - 1) // group
-    E, W, NB, NG = (int(v) for v in torch.stack(
-        [counts.sum(), n_items.sum(), nbig.sum(), cl.gcount.long().sum()]).tolist())
-    tile_off = _offsets(counts)
-    tid = torch.arange(B * NT, device=dev)
-    entries = torch.empty(E, dtype=torch.int32, device=dev)
-
-    # each tile's sorted run, after its big faces
-    run_tile = torch.repeat_interleave(tid, runs, output_size=E - NB)
-    k = torch.arange(E - NB, device=dev) - _offsets(runs)[run_tile]
-    src = cl.starts.reshape(-1).long()[run_tile] + k
-    entries[tile_off[run_tile] + nbig[run_tile] + k] = cl.faces_sorted[run_tile // NT, src]
-
-    # the big faces: each enumerates the tiles of its range; a stable sort
-    # by tile keeps a tile's big faces in ascending order
-    if NB:
-        flat = cl.glist.reshape(-1)
-        place = torch.argsort((flat < 0).to(torch.int8), stable=True)[:NG]
-        g_b = place // F
-        g_face = flat[place].long()
-        rg = cl.ranges[g_b, g_face].long()                       # ty0, ty1, tx0, tx1
-        w = rg[:, 3] - rg[:, 2] + 1
-        area = (rg[:, 1] - rg[:, 0] + 1) * w
-        owner = torch.repeat_interleave(torch.arange(NG, device=dev), area, output_size=NB)
-        k = torch.arange(NB, device=dev) - _offsets(area)[owner]
-        ww = w[owner]
-        tile = g_b[owner] * NT + (rg[owner, 0] + k // ww) * tiles + rg[owner, 2] + k % ww
-        tile_s, order = torch.sort(tile, stable=True)
-        rank = torch.arange(NB, device=dev) - _offsets(nbig)[tile_s]
-        entries[tile_off[tile_s] + rank] = g_face[owner[order]].to(torch.int32)
-
-    item_off = _offsets(n_items)
-    item_tile = torch.repeat_interleave(tid, n_items, output_size=W)
-    first = tile_off[item_tile] + (torch.arange(W, device=dev) - item_off[item_tile]) * group
-    end = torch.minimum(first + group, tile_off[item_tile + 1])
-    items = torch.stack([item_tile, first, end], dim=1).to(torch.int32).contiguous()
-
-    face_off = face_entries = None
-    if for_grad:
-        owner = torch.repeat_interleave(tid // NT, counts, output_size=E)
-        key = owner * F + entries.long()
-        face_entries = torch.sort(key, stable=True).indices.to(torch.int32)
-        face_off = _offsets(torch.bincount(key, minlength=B * F)).to(torch.int32)
-    return PxgInputs(base.rows, entries, tile_off.to(torch.int32), items,
-                     item_off.to(torch.int32), face_off, face_entries, base.tex_res)
+    work = tiled.tile_work(base.lists, B, F, tiles, tiles, group, for_grad)
+    return PxgInputs(base.rows, *work, base.tex_res)
 
 
 def _shape(pin: PxgInputs, p: SoftRasParams):
@@ -429,25 +375,9 @@ def bwd_rows_plain(pin: PxgInputs, images, aggrs, thr, grad_images, p: SoftRasPa
     return rows_out
 
 
-def sum_plain(pin: PxgInputs, grad_rows: torch.Tensor, p: SoftRasParams):
-    """The plain version of the face sum: each face's entry rows added up.
-    Returns (grad_face_vertices [B,F,9], grad_textures [B,F,T,3] or
-    [B,F,3,3])."""
-    if pin.face_off is None:
-        raise ValueError("the face sum needs each face's entries: "
-                         'prep_pxg(..., for_grad=True) makes them')
-    B, F = pin.rows.shape[:2]
-    n = (pin.face_off[1:] - pin.face_off[:-1]).long()
-    owner = torch.repeat_interleave(torch.arange(B * F, device=n.device), n)
-    total = grad_rows.new_zeros((B * F, grad_rows.shape[1])).index_add_(
-        0, owner, grad_rows[pin.face_entries.long()])
-    total = total.reshape(B, F, -1)
-    return total[..., :9].contiguous(), total[..., 9:].reshape(_tex_shape(p, B, F, R=pin.tex_res))
-
-
 def bwd_plain(pin: PxgInputs, images, aggrs, thr, grad_images, p: SoftRasParams):
     """(grad_face_vertices, grad_textures): the entry rows, summed per face."""
-    return sum_plain(pin, bwd_rows_plain(pin, images, aggrs, thr, grad_images, p), p)
+    return tiled.sum_plain(pin, bwd_rows_plain(pin, images, aggrs, thr, grad_images, p), p)
 
 
 # --------------------------------------------------------------------------
@@ -483,13 +413,6 @@ class _PxgBwdArgs(ctypes.Structure):
                                                'grad', 'thr', 'grows')] + \
         [(n, ctypes.c_int) for n in ('W', 'F', 'row', 'image_size', 'tiles_x', 'chunk', 'GC',
                                      'dist_func', 'rgb_func', 'alpha_func')] + [('s', _Scalars)]
-
-
-class _PxgSumArgs(ctypes.Structure):
-    """Mirror of ``softras::PxgSumArgs`` in csrc/softras_pxg_bwd.cu."""
-    _fields_ = [(n, ctypes.c_void_p) for n in ('grows', 'face_off', 'face_entries',
-                                               'grad_face', 'grad_tex')] + \
-        [(n, ctypes.c_int) for n in ('B', 'F', 'GC')]
 
 
 def _check_inputs(pin: PxgInputs, p: SoftRasParams):
@@ -640,33 +563,6 @@ def launch_pxg_bwd(pin: PxgInputs, images, aggrs, thr, grad_images, p: SoftRasPa
 launch_pxg_bwd.launches = 0
 
 
-def launch_pxg_sum(pin: PxgInputs, grows: torch.Tensor, p: SoftRasParams):
-    """Launch the face sum on the current stream: a warp per face adds its
-    entries' rows in ascending entry (tile) order.  Returns
-    (grad_face_vertices [B,F,9], grad_textures [B,F,T,3] or [B,F,3,3]).
-    ``launch_pxg_sum.launches`` counts the launches."""
-    dev, B, F, row, NT = _check_inputs(pin, p)
-    if pin.face_off is None or pin.face_entries is None:
-        raise ValueError("the face sum needs each face's entries: "
-                         'prep_pxg(..., for_grad=True) makes them')
-    GC = cuda_impl._grad_columns(p, pin.tex_res)
-    E = pin.entries.numel()
-    _check(pin.face_off, 'face_off', torch.int32, (B * F + 1,), dev)
-    _check(pin.face_entries, 'face_entries', torch.int32, (E,), dev)
-    _check(grows, 'grows', torch.float32, (E, GC), dev)
-    grad_face = torch.empty((B, F, 9), dtype=torch.float32, device=dev)
-    grad_tex = torch.empty(_tex_shape(p, B, F, R=pin.tex_res), dtype=torch.float32, device=dev)
-    fn = _entry('softras_pxg_bwd', 'softras_pxg_sum', _PxgSumArgs)
-    args = _PxgSumArgs(grows.data_ptr(), pin.face_off.data_ptr(), pin.face_entries.data_ptr(),
-                       grad_face.data_ptr(), grad_tex.data_ptr(), B, F, GC)
-    _run(fn, 'softras_pxg_sum', args, dev)
-    launch_pxg_sum.launches += 1
-    return grad_face, grad_tex
-
-
-launch_pxg_sum.launches = 0
-
-
 # --------------------------------------------------------------------------
 # by device
 # --------------------------------------------------------------------------
@@ -696,4 +592,4 @@ def backward(pin: PxgInputs, images, aggrs, thr, grad_images, p: SoftRasParams):
     if dev.type != 'cuda':
         raise ValueError(f'soft_rasterize runs on cuda or cpu, not {dev}')
     grows = launch_pxg_bwd(pin, images, aggrs, thr, grad_images.contiguous(), p)
-    return launch_pxg_sum(pin, grows, p)
+    return tiled.face_sum(pin, grows, p)

@@ -108,16 +108,19 @@ def _sample_colors(tex, w_clip, face, zp, p: SoftRasParams):
     return torch.einsum('pfk,fkc->pfc', wz, tex) * zp[..., None]
 
 
-def forward_single(face, tex, p: SoftRasParams, xp, yp, ids=None):
+def forward_single(face, tex, p: SoftRasParams, xp, yp, ids=None, n_faces=None):
     """Forward rasterization of one batch element over pixels (xp, yp) [P].
 
     face [F,9], tex [F,T,3] (surface) or [F,3,3] (vertex).  ``ids`` [F],
     where given, are the faces' own ids (the dir layout's faces come in
     Morton order): the hard z-buffer breaks depth ties by the lowest id and
     reports it, as it does by the lowest position without them.
+    ``n_faces``, where given, is the mesh's face count, which alpha 'sum'
+    divides by, when ``face`` is a part of it.
     Returns (soft_colors [P,4], aggrs [P,2], counts [P] int32).
     """
     F = face.shape[0]
+    n_all = F if n_faces is None else n_faces
     face_inv, face_sym, face_obt = G.face_info_preprocess(face)
     terms = _pairwise_terms(face, face_inv, face_sym, face_obt, xp, yp, p)
     sf, zp = terms['sf'], terms['zp']
@@ -130,7 +133,7 @@ def forward_single(face, tex, p: SoftRasParams, xp, yp, ids=None):
     if p.alpha_func_id == 0:
         alpha = (alpha_valid & (sf > 0.5)).any(dim=1).to(face.dtype)
     elif p.alpha_func_id == 1:
-        alpha = sf_a.sum(dim=1) / F
+        alpha = sf_a.sum(dim=1) / n_all
     else:
         alpha = 1.0 - (1.0 - sf_a).prod(dim=1)
 
@@ -158,7 +161,7 @@ def forward_single(face, tex, p: SoftRasParams, xp, yp, ids=None):
         else:
             # the lowest id among the nearest, wherever it stands
             tied = zp_key == zp_key.amin(dim=1, keepdim=True)
-            idk = torch.where(tied, ids.long()[None, :], F + ids.numel())
+            idk = torch.where(tied, ids.long()[None, :], torch.iinfo(torch.int64).max)
             fmin = (idk == idk.amin(dim=1, keepdim=True)).to(torch.int8).argmax(dim=1)
         depth_min = zp_key.gather(1, fmin[:, None])[:, 0]
         has_hit = depth_min < BIG_DEPTH

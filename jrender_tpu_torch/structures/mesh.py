@@ -18,6 +18,7 @@ from typing import List
 import torch
 
 from .._device import resolve_device
+from ..ops.segment_sum import SegmentSum, segment_order
 from ..utils.math import normalize
 
 
@@ -42,8 +43,9 @@ def vertex_normals_fn(vertices: torch.Tensor, faces: torch.Tensor) -> torch.Tens
     """Area-weighted vertex normals (reference mesh.py:231-248): each face
     adds the cross product at each corner to that corner's vertex.
 
-    The segment sum is ``index_add_``.  On the card it accumulates with
-    atomics, so the last bits of a sum can change from run to run."""
+    The sum per vertex is ``ops.segment_sum``: each vertex adds its corners
+    in ascending (face, corner) order, with no float atomics on the card,
+    and its gradient is a gather; two runs give the same bits."""
     bs, nv = vertices.shape[:2]
     fv = face_vertices(vertices, faces)
     # contribution at corner k: cross(v_{k+1} - v_k, v_{k+2} - v_k)
@@ -53,10 +55,8 @@ def vertex_normals_fn(vertices: torch.Tensor, faces: torch.Tensor) -> torch.Tens
         torch.linalg.cross(fv[:, :, 0] - fv[:, :, 2], fv[:, :, 1] - fv[:, :, 2], dim=-1),
     ], dim=2)                                                    # [B,F,3,3]
     offs = torch.arange(bs, device=vertices.device)[:, None, None] * nv
-    acc = torch.zeros((bs * nv, 3), dtype=vertices.dtype, device=vertices.device)
-    for k in range(3):
-        acc.index_add_(0, (faces[:, :, k:k + 1].long() + offs).reshape(-1),
-                       n[:, :, k].reshape(-1, 3))
+    order = segment_order(faces.long() + offs, bs * nv)          # corners in (b, f, k) order
+    acc = SegmentSum.apply(n.reshape(-1, 3), order)
     return normalize(acc.reshape(bs, nv, 3), axis=2, eps=1e-6)
 
 

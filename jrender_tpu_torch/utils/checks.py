@@ -19,6 +19,14 @@ arithmetics do not round alike there.  ``tie_symmetric`` makes surface
 textures equal on the two sides of the tie, so that the face gradient
 does not depend on it, and ``fold_ties`` sums a texture gradient over
 each tie pair.
+
+Knife edges: a pair on the edge of a validity test (a tie of two
+barycentrics, the distance cut, ``zp <= thr``) falls one way in one
+float32 arithmetic and the other way in another, and moves all of a
+face's entries.  ``grad_unexplained`` does not count an entry where a
+float64 evaluation of the reference shows the float32 reference itself to
+be that far off (``ROUNDING_SHARE``), as tests/test_torch_softras.py does
+for image pixels; every other entry beyond the tolerance counts.
 """
 from __future__ import annotations
 
@@ -26,6 +34,9 @@ import numpy as np
 import torch
 
 GRAD_TOL = 2e-3
+# an entry's difference is the reference's rounding when the float32
+# reference's own error there (against float64) is at least this share of it
+ROUNDING_SHARE = 0.25
 
 
 def _tensor(x):
@@ -70,6 +81,27 @@ def grad_beyond(got, want, faces=None):
     if d.numel() == 0:
         return 0.0, 0.0
     return bad.double().mean().item(), d.max().item() / scale
+
+
+def grad_unexplained(got, want, exact):
+    """(share of entries of ``got`` beyond ``grad_beyond``'s tolerance of
+    ``want`` and not explained by ``want``'s rounding, the max abs
+    difference of those entries over max|want|).  ``want`` is a float32
+    reference, ``exact`` the same reference evaluated in float64 on the
+    same inputs; an entry is explained where |want - exact| is at least
+    ROUNDING_SHARE of |got - want|."""
+    grad_beyond(got, want)                    # shapes and finiteness
+    got, want, exact = (_tensor(x).double() for x in (got, want, exact))
+    if exact.shape != want.shape:
+        raise AssertionError(f'float64 reference of shape {tuple(exact.shape)}, expected '
+                             f'{tuple(want.shape)}')
+    scale = max(want.abs().max().item(), 1e-6)
+    d = (got - want).abs()
+    bad = d > GRAD_TOL * scale + GRAD_TOL * want.abs()
+    left = bad & ((want - exact).abs() < ROUNDING_SHARE * d)
+    if d.numel() == 0:
+        return 0.0, 0.0
+    return left.double().mean().item(), (d * left).max().item() / scale
 
 
 def tie_soup():

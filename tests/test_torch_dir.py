@@ -55,7 +55,7 @@ def run_both_dir(fv, tex, **kw):
     device='cpu') on the same inputs, as numpy: what ``check_images`` takes,
     and the port's counts."""
     pj, pt = jax_params(**kw), make_params(**kw)
-    assert route.route(pt, fv.shape[1]) == 'dir'
+    assert route.route(pt, fv.shape[1], True) == 'dir'
     oj, aj, _ = jax_impl.soft_rasterize_fwd_jax(jnp.asarray(fv), jnp.asarray(tex), pj)
 
     def port(dtype=torch.float32):
@@ -73,7 +73,7 @@ def grads_both_dir(fv, tex, g, K_oracle=None, **kw):
     through ``soft_rasterize(device='cpu')`` under autograd on the dir
     route, incoming gradient g."""
     pt = make_params(**kw)
-    assert route.route(pt, fv.shape[1]) == 'dir'
+    assert route.route(pt, fv.shape[1], True) == 'dir'
     pj = jax_params(**{**kw, 'grad_mode': 'topk', **(
         {} if K_oracle is None else {'max_faces_per_pixel_for_grad': K_oracle})})
     fj, tj = jnp.asarray(fv), jnp.asarray(tex)
@@ -102,7 +102,7 @@ def test_route_matches_jax(dir_max, monkeypatch):
         for size in (16, 20, 24, 32, 36, 40, 64, 72, 100):
             for kw in (dict(), dict(grad_mode='full'), dict(max_faces_per_pixel_for_grad=400)):
                 want = jax_api._pallas_route(jax_params(image_size=size, **kw), F) == 'dir'
-                got = route.route(make_params(image_size=size, **kw), F)
+                got = route.route(make_params(image_size=size, **kw), F, True)
                 assert got == ('dir' if want else 'binned'), (F, size, kw)
     assert dir_impl.dir_tile(24) == 8 and dir_impl.dir_tile(32) == 16 and dir_impl.dir_tile(20) == 0
 

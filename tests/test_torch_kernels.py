@@ -42,15 +42,22 @@ the comparison (``jrender_tpu_torch/utils/checks.py`` has the helpers):
   the threshold computed its own way; the two maps are held together by
   the threshold test.
 
-The N3MR kernels' tests and tolerances follow the SoftRas ones; the dir
-route's (``ops/softras/dir_impl.py``) come last.
+The N3MR kernels' tests and tolerances follow the SoftRas ones; the dir,
+pxg, f_px and px_f routes' come after them, then the fixed-order sums
+(``ops/segment_sum.py``).  The f_px and px_f gradients are held to the
+binned route's kernels on every entry (the two compute the same pairs)
+and to the plain version on all but 0.1% of the entries, not counting an
+entry where the plain version in float64 shows the float32 plain version
+itself to be off by at least a quarter of the difference: a knife-edge
+pixel (``grad_close_or_knife_edge``, ``checks.grad_unexplained``).
 """
 import numpy as np
 import pytest
 import torch
 
 from jrender_tpu_torch.ops.softras import binning, cuda_impl, make_params, torch_impl
-from jrender_tpu_torch.utils.checks import fold_ties, grad_beyond, tie_symmetric
+from jrender_tpu_torch.utils.checks import (fold_ties, grad_beyond, grad_unexplained,
+                                            tie_symmetric)
 
 GRAD_FRAC = 0.001     # share of gradient entries allowed beyond the tolerance
 THR_FRAC = 0.001      # share of pixels whose threshold may differ
@@ -575,7 +582,7 @@ def test_softras_dir_wrappers_check_their_inputs():
 def test_softras_pxg_kernels_match_plain_and_binned(kw, group):
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
-    from jrender_tpu_torch.ops.softras import pxg_impl
+    from jrender_tpu_torch.ops.softras import pxg_impl, tiled
     vertex = kw.get('texture_type') == 'vertex'
     dense = kw.get('max_faces_per_pixel_for_grad') == 40
     x, t = soup(8, F=600 if dense else 300, B=2, T=3 if vertex else 4,
@@ -620,11 +627,11 @@ def test_softras_pxg_kernels_match_plain_and_binned(kw, group):
     gen = torch.Generator(device='cuda').manual_seed(5)
     g = torch.randn(img.shape, generator=gen, device='cuda')
     grows = pxg_impl.launch_pxg_bwd(pin, img, ag, thr, g, p)
-    gf, gt = pxg_impl.launch_pxg_sum(pin, grows, p)
+    gf, gt = tiled.face_sum(pin, grows, p)
     gf2, gt2 = pxg_impl.backward(pin, img, ag, thr, g, p)
     torch.cuda.synchronize()
     assert torch.equal(gf, gf2) and torch.equal(gt, gt2)
-    sf_, st_ = pxg_impl.sum_plain(pin, grows, p)
+    sf_, st_ = tiled.sum_plain(pin, grows, p)
     grad_close(gf, sf_, frac=0.0)
     grad_close(gt, st_, frac=0.0)
     rows_w = pxg_impl.bwd_rows_plain(pin, img, ag, thr_w, g, p)
@@ -646,11 +653,12 @@ def test_soft_rasterize_pxg_route_on_the_card(monkeypatch):
     routes; with JR_LAYOUT unset the pxg kernels never run."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.segment_sum import launch_segment_sum
     from jrender_tpu_torch.ops.softras import dir_impl, pxg_impl, soft_rasterize
     wrappers = (cuda_impl.launch, cuda_impl.launch_thr, cuda_impl.launch_bwd,
                 cuda_impl.launch_reduce, dir_impl.launch_dir_fwd, dir_impl.launch_dir_bwd,
                 pxg_impl.launch_pxg_fwd, pxg_impl.launch_pxg_combine, pxg_impl.launch_pxg_thr,
-                pxg_impl.launch_pxg_bwd, pxg_impl.launch_pxg_sum)
+                pxg_impl.launch_pxg_bwd, launch_segment_sum)
     x, t = soup(9, F=600, T=4, radius=(0.3, 0.6))
     x.requires_grad_(True)
     t.requires_grad_(True)
@@ -671,9 +679,10 @@ def test_soft_rasterize_pxg_route_on_the_card(monkeypatch):
     assert [a - b for a, b in zip(last, after)] == [0] * 6 + [1] * 5
     assert torch.isfinite(x.grad).all() and x.grad.abs().max() > 0
     assert torch.isfinite(t.grad).all() and t.grad.abs().max() > 0
-    monkeypatch.setenv('JR_LAYOUT', 'px_f')
-    with pytest.raises(NotImplementedError):
+    monkeypatch.setenv('JR_LAYOUT', 'px_f')           # its own kernels: none of these
+    with torch.no_grad():
         soft_rasterize(x, t, image_size=64, sigma_val=1e-3)
+    assert counts() == last
     monkeypatch.delenv('JR_LAYOUT')
     monkeypatch.delenv('JR_DIR_MAX')
     soft_rasterize(x, t, image_size=64, sigma_val=1e-3).sum().backward()
@@ -684,7 +693,7 @@ def test_soft_rasterize_pxg_route_on_the_card(monkeypatch):
 def test_softras_pxg_wrappers_check_their_inputs():
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
-    from jrender_tpu_torch.ops.softras import pxg_impl
+    from jrender_tpu_torch.ops.softras import pxg_impl, tiled
     x, t = soup(1, F=40)
     p = make_params(image_size=32, max_faces_per_pixel_for_grad=1)
     pin = pxg_impl.prep_pxg(x, t, p, for_grad=True, group=8)
@@ -703,6 +712,372 @@ def test_softras_pxg_wrappers_check_their_inputs():
         pxg_impl.launch_pxg_bwd(pin, img, ag, None, g[:, :3], p)
     rows = pxg_impl.launch_pxg_bwd(pin, img, ag, None, g, p)
     with pytest.raises(ValueError):
-        pxg_impl.launch_pxg_sum(pin._replace(face_off=None), rows, p)
+        tiled.face_sum(pin._replace(face_off=None), rows, p)
     with pytest.raises(ValueError):
-        pxg_impl.launch_pxg_sum(pin, rows[:, :5], p)
+        tiled.face_sum(pin, rows[:, :5], p)
+
+
+# ---- the f_px route (K3 forward, K4 untruncated backward) and the px_f route
+# (K5 forward with the threshold, K6 backward), by bands ------------------------
+#
+# Both read the binning at their own tile shape, written out tile after tile
+# (tiled.prep).  They are held against their plain versions at the binned
+# kernels' tolerances and against the binned route on the same inputs: counts,
+# thresholds and hard winners come from the same pair math, so those maps agree
+# to the bit.  K4 is untruncated: it is compared at grad_mode='full', or where
+# K >= F.  Alpha 'prod' multiplies in list order on both routes.
+
+
+def grad_close_or_knife_edge(got, want, exact, binned):
+    """``got`` within ``grad_close`` of the binned route's kernels on every
+    entry (they compute the same pairs, another order), and of the plain
+    version ``want`` on all but GRAD_FRAC of the entries that its own
+    rounding does not explain: a knife-edge pixel of a face (a tie of two
+    barycentrics that picks the gradient's inverse row, a pair on the
+    distance cut) falls one way in PyTorch's CUDA arithmetic and the other
+    in the kernels', and moves all of that face's entries; ``exact``, the
+    plain version in float64, shows where the float32 plain version is
+    itself that far off (``checks.grad_unexplained``)."""
+    grad_close(got, binned, frac=0.0)
+    share, err = grad_unexplained(got, want, exact)
+    assert share <= GRAD_FRAC, \
+        f'{share:.5f} of entries beyond tolerance and not rounding; max {err:.3g} of scale'
+
+
+def plain64(x, t, g, p, with_thr):
+    """The plain forward, threshold and backward in float64 on the same
+    inputs: (grad_face_vertices, grad_textures)."""
+    x, t = x.double(), t.double()
+    img, ag, _ = torch_impl.soft_rasterize_fwd_plain(x, t, p)
+    thr = torch_impl.topk_threshold_plain(x, p) if with_thr else None
+    return torch_impl.soft_rasterize_bwd_plain(x, t, img, ag, thr, g.double(), p)
+
+
+def _binned(x, t, p):
+    inputs = cuda_impl.prepare(x, t, p, for_grad=True)
+    img, ag, cnt = cuda_impl.launch(inputs, p)
+    return inputs, img, ag, cnt, cuda_impl.topk_threshold(x, p, inputs, cnt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kw', [
+    dict(grad_mode='full'),
+    dict(dist_func='barycentric', aggr_func_alpha='sum', grad_mode='full'),
+    dict(dist_func='hard', aggr_func_rgb='hard', aggr_func_alpha='hard', grad_mode='full'),
+    dict(texture_type='vertex', fill_back=False, gamma_val=0.1, grad_mode='full'),
+    dict(max_faces_per_pixel_for_grad=400),
+], ids=['full', 'bary-sum', 'hard', 'vertex', 'K>=F'])
+@pytest.mark.parametrize('size', [32, 48, 256])
+def test_softras_fpx_kernels_match_plain_and_binned(kw, size):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.softras import fpx_impl, tiled
+    vertex = kw.get('texture_type') == 'vertex'
+    x, t = soup(10, F=300, B=2, T=3 if vertex else 4)
+    x = with_big_faces(x)
+    F = x.shape[1]
+    t = t.reshape(2, F, 3, 3) if vertex else tie_symmetric(t)
+    p = make_params(image_size=size, **{'sigma_val': 1e-3, 'gamma_val': 1e-3, **kw})
+    assert not torch_impl.use_threshold(p, F)
+    pin = fpx_impl.prep_fpx(x, t, p, for_grad=True)
+    img, ag, cnt, _ = fpx_impl.launch_fpx_fwd(pin, p)
+    torch.cuda.synchronize()
+    want, ag_w, cnt_w, _ = tiled.fwd_plain(pin, p, False)
+    mostly_close(img[:, :3], want[:, :3], 1e-4)
+    mostly_close(img[:, 3], want[:, 3], 1e-4)
+    mostly_close(cnt.float(), cnt_w.float(), 0)
+    inputs, b_img, b_ag, b_cnt, b_thr = _binned(x, t, p)
+    assert b_thr is None and torch.equal(cnt, b_cnt)
+    mostly_close(img, b_img, 1e-4)
+    if p.aggr_func_rgb == 'hard':
+        assert torch.equal(ag, b_ag) and torch.equal(img[:, :3], b_img[:, :3])
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    g = torch.randn(img.shape, generator=gen, device='cuda')
+    grows = fpx_impl.launch_fpx_bwd(pin, img, ag, None, g, p)
+    gf, gt = tiled.face_sum(pin, grows, p)
+    gf2, gt2 = fpx_impl.backward(pin, img, ag, None, g, p)
+    torch.cuda.synchronize()
+    assert torch.equal(gf, gf2) and torch.equal(gt, gt2)
+    sf_, st_ = tiled.sum_plain(pin, grows, p)
+    grad_close(gf, sf_, frac=0.0)
+    grad_close(gt, st_, frac=0.0)
+    wf, wt = torch_impl.soft_rasterize_bwd_plain(x, t, img, ag, None, g, p)
+    xf, xt = plain64(x, t, g, p, False)
+    kf, kt = cuda_impl.soft_rasterize_bwd(x, t, b_img, b_ag, None, g, p, inputs)
+    if not vertex:
+        gt, wt, xt, kt = fold_ties(gt), fold_ties(wt), fold_ties(xt), fold_ties(kt)
+    for got, want_, exact, binned in ((gf, wf, xf, kf), (gt, wt, xt, kt)):
+        grad_close_or_knife_edge(got, want_, exact, binned)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kw', [
+    dict(),
+    dict(dist_func='barycentric', aggr_func_alpha='sum', max_faces_per_pixel_for_grad=4),
+    dict(dist_func='hard', aggr_func_rgb='hard', aggr_func_alpha='hard',
+         max_faces_per_pixel_for_grad=1),
+    dict(texture_type='vertex', fill_back=False, gamma_val=0.1),
+    dict(grad_mode='full'),
+    dict(max_faces_per_pixel_for_grad=40),
+], ids=['default', 'bary-sum-K4', 'hard-K1', 'vertex', 'full', 'K40'])
+@pytest.mark.parametrize('size', [24, 64, 96])
+def test_softras_pxf_kernels_match_plain_and_binned(kw, size):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.softras import pxf_impl, tiled
+    vertex = kw.get('texture_type') == 'vertex'
+    dense = kw.get('max_faces_per_pixel_for_grad') == 40
+    x, t = soup(11, F=600 if dense else 300, B=2, T=3 if vertex else 4,
+                radius=(0.3, 0.6) if dense else (0.03, 0.3))
+    x = with_big_faces(x)
+    F = x.shape[1]
+    t = t.reshape(2, F, 3, 3) if vertex else tie_symmetric(t)
+    p = make_params(image_size=size, **{'sigma_val': 1e-3, 'gamma_val': 1e-3, **kw})
+    with_thr = torch_impl.use_threshold(p, F)
+    pin = pxf_impl.prep_pxf(x, t, p, for_grad=True)
+    img, ag, cnt, thr = pxf_impl.launch_pxf_fwd(pin, p, with_thr)
+    torch.cuda.synchronize()
+    want, ag_w, cnt_w, thr_w = tiled.fwd_plain(pin, p, with_thr)
+    mostly_close(img[:, :3], want[:, :3], 1e-4)
+    mostly_close(img[:, 3], want[:, 3], 1e-4)
+    mostly_close(cnt.float(), cnt_w.float(), 0)
+    inputs, b_img, b_ag, b_cnt, b_thr = _binned(x, t, p)
+    assert torch.equal(cnt, b_cnt)
+    assert (thr is None) == (b_thr is None) == (not with_thr)
+    if with_thr:
+        assert (cnt > p.max_faces_id).any()
+        assert torch.equal(thr, b_thr)
+        bad = (thr - thr_w).abs() > 1e-6 * thr_w.abs()
+        assert bad.float().mean().item() <= THR_FRAC
+    mostly_close(img, b_img, 1e-4)
+    if p.aggr_func_rgb == 'hard':
+        assert torch.equal(ag, b_ag) and torch.equal(img[:, :3], b_img[:, :3])
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    g = torch.randn(img.shape, generator=gen, device='cuda')
+    grows = pxf_impl.launch_pxf_bwd(pin, img, ag, thr, g, p)
+    gf, gt = tiled.face_sum(pin, grows, p)
+    gf2, gt2 = pxf_impl.backward(pin, img, ag, thr, g, p)
+    torch.cuda.synchronize()
+    assert torch.equal(gf, gf2) and torch.equal(gt, gt2)
+    sf_, st_ = tiled.sum_plain(pin, grows, p)
+    grad_close(gf, sf_, frac=0.0)
+    grad_close(gt, st_, frac=0.0)
+    wf, wt = torch_impl.soft_rasterize_bwd_plain(x, t, img, ag, thr_w, g, p)
+    xf, xt = plain64(x, t, g, p, with_thr)
+    kf, kt = cuda_impl.soft_rasterize_bwd(x, t, b_img, b_ag, b_thr, g, p, inputs)
+    if not vertex:
+        gt, wt, xt, kt = fold_ties(gt), fold_ties(wt), fold_ties(xt), fold_ties(kt)
+    for got, want_, exact, binned in ((gf, wf, xf, kf), (gt, wt, xt, kt)):
+        grad_close_or_knife_edge(got, want_, exact, binned)
+    assert gf[:, :2].abs().amax() > 0 or p.dist_func == 'hard'   # the screen-filling faces
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('K', [4, 40])
+def test_softras_pxf_bands_reassemble_the_image(K):
+    """Four contiguous bands of tile rows at 128 px: the bands' images,
+    counts and thresholds side by side equal the whole image's, and their
+    gradients summed equal the whole gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.softras import pxf_impl
+    x, t = soup(12, F=500, T=4, radius=(0.05, 0.5))
+    x = with_big_faces(x)
+    t = tie_symmetric(t)
+    p = make_params(image_size=128, sigma_val=1e-3, gamma_val=1e-3,
+                    max_faces_per_pixel_for_grad=K)
+    whole = pxf_impl.prep_pxf(x, t, p, for_grad=True)
+    img, ag, cnt, thr = pxf_impl.launch_pxf_fwd(whole, p, True)
+    gen = torch.Generator(device='cuda').manual_seed(6)
+    g = torch.randn(img.shape, generator=gen, device='cuda')
+    gf, gt = pxf_impl.backward(whole, img, ag, thr, g, p)
+    rows = whole.tiles_y // 4
+    parts, sf, st = [], torch.zeros_like(gf), torch.zeros_like(gt)
+    for k in range(4):
+        pin = pxf_impl.prep_pxf(x, t, p, ty0=k * rows, ty_band=rows, for_grad=True)
+        out = pxf_impl.launch_pxf_fwd(pin, p, True)
+        parts.append(out)
+        sl = slice(k * rows * whole.tile_h, (k + 1) * rows * whole.tile_h)
+        bf, bt = pxf_impl.backward(pin, out[0], out[1], out[3], g[:, :, sl].contiguous(), p)
+        sf += bf
+        st += bt
+    torch.cuda.synchronize()
+    for i, full in enumerate((img, ag, cnt, thr)):
+        assert torch.equal(torch.cat([o[i] for o in parts], dim=-2), full)
+    grad_close(sf, gf, frac=0.0)
+    grad_close(fold_ties(st), fold_ties(gt), frac=0.0)
+
+
+@pytest.mark.gpu
+def test_soft_rasterize_fpx_pxf_routes_on_the_card(monkeypatch):
+    """Under JR_LAYOUT=f_px a frame launches K3 once and a grad_mode='full'
+    step K3, K4 and the face sum once; a binding step takes the binned
+    route.  Under JR_LAYOUT=px_f a step launches K5, K6 and the face sum
+    once.  With JR_LAYOUT unset neither route runs."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.segment_sum import launch_segment_sum
+    from jrender_tpu_torch.ops.softras import fpx_impl, pxf_impl, soft_rasterize
+    wrappers = (cuda_impl.launch, cuda_impl.launch_thr, cuda_impl.launch_bwd,
+                cuda_impl.launch_reduce, fpx_impl.launch_fpx_fwd, fpx_impl.launch_fpx_bwd,
+                pxf_impl.launch_pxf_fwd, pxf_impl.launch_pxf_bwd, launch_segment_sum)
+    x, t = soup(13, F=600, T=4, radius=(0.3, 0.6))
+    x.requires_grad_(True)
+    t.requires_grad_(True)
+
+    def counts():
+        return [w.launches for w in wrappers]
+
+    def delta(step):
+        before = counts()
+        step()
+        torch.cuda.synchronize()
+        return [a - b for a, b in zip(counts(), before)]
+
+    def frame():
+        with torch.no_grad():
+            soft_rasterize(x, t, image_size=64, sigma_val=1e-3)
+
+    def step(**kw):
+        return lambda: soft_rasterize(x, t, image_size=64, sigma_val=1e-3,
+                                      **kw).sum().backward()
+
+    monkeypatch.setenv('JR_LAYOUT', 'f_px')
+    assert delta(frame) == [0] * 4 + [1, 0] + [0, 0] + [0]
+    assert delta(step(grad_mode='full')) == [0] * 4 + [1, 1] + [0, 0] + [1]
+    assert delta(step()) == [1, 1, 1, 1] + [0] * 5               # K = 16 < F binds
+    monkeypatch.setenv('JR_LAYOUT', 'px_f')
+    assert delta(frame) == [0] * 6 + [1, 0] + [0]
+    assert delta(step()) == [0] * 6 + [1, 1] + [1]
+    assert torch.isfinite(x.grad).all() and x.grad.abs().max() > 0
+    monkeypatch.delenv('JR_LAYOUT')
+    assert delta(step()) == [1, 1, 1, 1] + [0] * 5
+
+
+@pytest.mark.gpu
+def test_softras_fpx_pxf_wrappers_check_their_inputs():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.softras import fpx_impl, pxf_impl, tiled
+    x, t = soup(1, F=40)
+    p = make_params(image_size=32, max_faces_per_pixel_for_grad=1)
+    pf = fpx_impl.prep_fpx(x, t, p, for_grad=True)
+    pp = pxf_impl.prep_pxf(x, t, p, for_grad=True)
+    img, ag, cnt, _ = fpx_impl.launch_fpx_fwd(pf, p)
+    g = torch.ones_like(img)
+    with pytest.raises(TypeError):
+        fpx_impl.launch_fpx_fwd(pf._replace(rows=pf.rows.double()), p)
+    with pytest.raises(ValueError):
+        fpx_impl.launch_fpx_fwd(pf._replace(rows=pf.rows.cpu()), p)
+    with pytest.raises(TypeError):
+        pxf_impl.launch_pxf_fwd(pp._replace(entries=pp.entries.long()), p, True)
+    with pytest.raises(ValueError):
+        pxf_impl.launch_pxf_fwd(pp._replace(tile_off=pp.tile_off[:-1]), p, True)
+    with pytest.raises(ValueError):
+        fpx_impl.forward(pf, p, True)                     # f_px has no threshold
+    with pytest.raises(ValueError):
+        fpx_impl.launch_fpx_fwd(pf, p, True)
+    with pytest.raises(ValueError):
+        fpx_impl.launch_fpx_bwd(pf, img, ag, None, g[:, :3], p)
+    with pytest.raises(ValueError):
+        fpx_impl.launch_fpx_bwd(pf, img, ag, cnt.float(), g, p)
+    with pytest.raises(ValueError):
+        fpx_impl.backward(pf, img, ag, cnt.float(), g, p)  # untruncated
+    img2, ag2, cnt2, thr2 = pxf_impl.launch_pxf_fwd(pp, p, True)
+    with pytest.raises(ValueError):
+        pxf_impl.launch_pxf_bwd(pp, img2, ag2, thr2[:, :5], g, p)
+    rows = pxf_impl.launch_pxf_bwd(pp, img2, ag2, thr2, g, p)
+    with pytest.raises(ValueError):
+        tiled.face_sum(pp._replace(face_off=None), rows, p)
+    with pytest.raises(ValueError):
+        tiled.face_sum(pp, rows[:, :5], p)
+    with pytest.raises(ValueError):
+        pxf_impl.prep_pxf(x, t, make_params(image_size=20))
+    with pytest.raises(ValueError):
+        fpx_impl.prep_fpx(x, t, make_params(image_size=144))
+
+
+# ---- fixed-order sums (ops/segment_sum.py): vertex normals and N3MR's depth
+# gradient add per vertex or face in a fixed order, with no float atomics ----
+
+
+@pytest.mark.gpu
+def test_vertex_normals_bit_equal_twice_with_gradient():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops import segment_sum
+    from jrender_tpu_torch.structures import vertex_normals_fn
+    from jrender_tpu_torch.utils.primitives import uv_sphere
+    v, f = uv_sphere(40, 50)
+    rng = np.random.RandomState(3)
+    v = torch.tensor(v[None].repeat(2, 0) * rng.uniform(0.9, 1.1, (2, 1, 1)), device='cuda',
+                     dtype=torch.float32)
+    f = torch.tensor(f[None].repeat(2, 0), device='cuda')
+    g = torch.tensor(rng.randn(*v.shape), device='cuda', dtype=torch.float32)
+    runs = []
+    for _ in range(2):
+        x = v.clone().requires_grad_(True)
+        before = segment_sum.launch_segment_sum.launches
+        n = vertex_normals_fn(x, f)
+        (n * g).sum().backward()
+        torch.cuda.synchronize()
+        assert segment_sum.launch_segment_sum.launches == before + 1
+        runs.append((n, x.grad))
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    xc = v.cpu().requires_grad_(True)
+    nc = vertex_normals_fn(xc, f.cpu())
+    (nc * g.cpu()).sum().backward()
+    assert torch.allclose(runs[0][0].cpu(), nc, rtol=1e-5, atol=1e-5)
+    assert torch.allclose(runs[0][1].cpu(), xc.grad, rtol=1e-4, atol=1e-4 * xc.grad.abs().max())
+
+
+@pytest.mark.gpu
+def test_n3mr_depth_gradient_bit_equal_twice():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda, torch_impl as ntorch
+    from jrender_tpu_torch.ops.segment_sum import launch_segment_sum
+    face = n3mr_soup(4, F=200, B=2)
+    tex = n3mr_textures(2, 2, 200, 2)
+    rows, fi, wt, dp, finv, zc, rgb = ncuda.forward_maps(face, tex, 64, 0.1, 100.0, 1e-3)
+    gd = torch.tensor(np.random.RandomState(3).randn(*dp.shape).astype(np.float32),
+                      device='cuda')
+    before = launch_segment_sum.launches
+    a = ntorch.backward_depth(face, fi, finv, wt, dp, zc, gd)
+    b = ntorch.backward_depth(face, fi, finv, wt, dp, zc, gd)
+    torch.cuda.synchronize()
+    assert launch_segment_sum.launches == before + 2
+    assert torch.equal(a, b) and a.abs().max() > 0
+    c = ntorch.backward_depth(*(x.cpu() for x in (face, fi, finv, wt, dp, zc, gd)))
+    assert torch.allclose(a.cpu(), c, rtol=1e-5, atol=1e-6 * c.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('C', [1, 3, 9, 84])
+def test_segment_sum_kernel_any_width(C):
+    """The segment-sum kernel on rows of C values: empty segments are zero,
+    rows past the segment count are dropped, the sums equal the plain
+    version's within float32 reordering and two runs give the same bits;
+    it refuses CPU rows, other dtypes and an order of another length."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops import segment_sum as ss
+    rng = np.random.RandomState(C)
+    seg = rng.randint(0, 600, size=5000)
+    seg = np.where((seg >= 500) & (seg < 520), seg + 80, seg)   # 500-519 empty, 520-599 dropped
+    seg = torch.tensor(seg, device='cuda')
+    rows = torch.tensor(rng.randn(5000, C).astype(np.float32), device='cuda')
+    so = ss.segment_order(seg, 520)
+    a = ss.launch_segment_sum(rows, so)
+    b = ss.launch_segment_sum(rows, so)
+    torch.cuda.synchronize()
+    assert a.shape == (520, C) and torch.equal(a, b)
+    assert not a[500:].any()
+    want = ss.sum_plain(rows.cpu(), ss.SegmentOrder(None, so.off.cpu(), so.order.cpu(), 520))
+    assert torch.allclose(a.cpu(), want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError):
+        ss.launch_segment_sum(rows.cpu(), so)
+    with pytest.raises(TypeError):
+        ss.launch_segment_sum(rows.double(), so)
+    with pytest.raises(ValueError):
+        ss.launch_segment_sum(rows[:-1], so)

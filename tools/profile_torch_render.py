@@ -366,7 +366,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # the pxg route on the 39,474-face mesh
-    from jrender_tpu_torch.ops.softras import pxg_impl, route as sroute
+    from jrender_tpu_torch.ops.softras import pxg_impl, route as sroute, tiled
     fv, tex, raster_step, render_step, frame = route_steps(130, 153)
     _, t_base = timed(lambda: cuda_impl.prepare(fv, tex, p, for_grad=False))
     _, t_base_g = timed(lambda: cuda_impl.prepare(fv, tex, p, for_grad=True))
@@ -382,7 +382,7 @@ def main() -> int:
         thr, t_thr = timed(lambda: pxg_impl.launch_pxg_thr(pin, depths, cnt, p), reps=30)
         g1 = torch.ones_like(img)
         grows, t_bwd = timed(lambda: pxg_impl.launch_pxg_bwd(pin, img, ag, thr, g1, p), reps=30)
-        _, t_sum = timed(lambda: pxg_impl.launch_pxg_sum(pin, grows, p), reps=30)
+        _, t_sum = timed(lambda: tiled.face_sum(pin, grows, p), reps=30)
         off = pin.item_off.long()
         faces_t = (pin.tile_off[1:] - pin.tile_off[:-1]).long()
         busy = int(faces_t.argmax().item())
