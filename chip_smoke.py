@@ -12,11 +12,16 @@ of which raises on failure:
   2. build every CUDA source of the package (one nvcc each, in
      parallel) and print the compiler's register and spill report;
   3. every kernel against its plain PyTorch version on whole images:
-     the forward at 128 and 256 px over the rasterizer's configurations;
-     the top-K threshold over the same meshes, K = 1, 4, 16 and 40; the
-     backward and its face reduction at 128 px over distance x rgb x
+     the forward at 128 and 256 px over the rasterizer's configurations,
+     and the split of a tile's list over the cluster's blocks: lists of many
+     chunks a rank over distance x rgb x alpha, big faces spanning ranks,
+     lists of one face, twins at equal depth in different ranks (the lower
+     id wins), rows past 48 KB of shared memory, counts and winners exact
+     there; the top-K threshold over the same meshes, K = 1, 4, 16 and 40;
+     the backward and its face reduction at 128 px over distance x rgb x
      alpha, texture sizes, vertex colours, batches, a ragged size,
-     ``grad_mode='full'`` and big faces, each run twice for bit equality;
+     ``grad_mode='full'``, big faces, rows past 48 KB and runs of many
+     chunks a rank; forward and backward each run twice for bit equality;
   4. the render path at full width: ``Renderer(image_size=1024)`` renders
      8 frames of the 39,474-face UV sphere with 5x5 texels per face,
      demo 1's camera; the launch count must equal the frames; 4,096
@@ -27,7 +32,9 @@ of which raises on failure:
      ``mesh.textures``, at 1024 px on the same sphere; one launch of each
      kernel per step; the gradient of 4,096 random pixels is held against
      the plain backward on those pixels; every kernel is timed alone and
-     bounded from this run's pair counts;
+     bounded from this run's pair counts; the forward and backward also on
+     the busiest tile's faces alone and built with 2, 4 and 8 blocks per
+     tile;
   6. dense: 256 px on the same sphere, where the JAX package's per-tile
      cap of 2,048 faces binds; 4,096 pixels against the plain version;
   7. a trainer: 20 steps of demo 2's optimisation (120 views at 64 px of
@@ -219,6 +226,7 @@ FRAMES = 8
 STEPS = 8
 TRAIN_STEPS = 20
 SAMPLES = 4096
+SPLITS = (2, 4, 8)   # blocks per tile of the binned forward and backward, timed in phase 5
 # published peaks of one H100 SXM: fp32 on the CUDA cores, HBM3 bandwidth
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -405,8 +413,12 @@ def main() -> int:
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.time()
-    _build.build(kernels_src)
-    log(f'build: {kernels_src} in {time.time() - t0:.1f} s')
+    # with the binned forward and backward built at the other blocks per tile
+    variants = [(k, ((m, S),)) for k, m, chosen in (
+        ('softras_fwd', 'SOFTRAS_FWD_SPLIT', cuda_impl.FWD_SPLIT),
+        ('softras_bwd', 'SOFTRAS_BWD_SPLIT', cuda_impl.BWD_SPLIT)) for S in SPLITS if S != chosen]
+    _build.build(kernels_src + variants)
+    log(f'build: {kernels_src} and {len(variants)} variants in {time.time() - t0:.1f} s')
     for name in kernels_src:
         # ptxas -v: per compiled function, its spills, then its registers
         # and static shared memory (the kernels' shared memory is dynamic)
@@ -443,9 +455,9 @@ def main() -> int:
         vt = perspective(look_at(torch.tensor(v, device=dev)[None], eye), angle=30)
         return face_vertices(vt, torch.tensor(f, device=dev)[None]).reshape(1, -1, 9)
 
-    def soup(F, B, T, seed, radius=(0.02, 0.25)):
+    def soup(F, B, T, seed, radius=(0.02, 0.25), centre=(-0.8, 0.8)):
         rng = np.random.RandomState(seed)
-        c = rng.uniform(-0.8, 0.8, (B, F, 1, 2))
+        c = rng.uniform(*centre, (B, F, 1, 2))
         r = rng.uniform(*radius, (B, F, 1, 1))
         ang = rng.uniform(0, 2 * np.pi, (B, F, 1)) + np.arange(3) * 2 * np.pi / 3 \
             + rng.uniform(-0.3, 0.3, (B, F, 3))
@@ -455,24 +467,39 @@ def main() -> int:
         tex = rng.uniform(size=(B, F, T, 3)).astype(np.float32)
         return torch.tensor(fv, device=dev), torch.tensor(tex, device=dev)
 
-    def compare(tag, fv, tex, p):
-        img, ag, cnt = cuda_impl.launch(cuda_impl.prepare(fv, tex, p), p)
+    def compare(tag, fv, tex, p, mt=None, exact=False):
+        """The forward kernel twice (bit-equal) and against the plain
+        version; ``mt``: the binning's emit cap; ``exact``: counts and hard
+        winners must equal the plain version's on every pixel.  Returns the
+        max abs error and the kernel's outputs."""
+        inputs = cuda_impl.prepare(fv, tex, p)
+        if mt is not None:
+            inputs = inputs._replace(lists=binning.build_tile_lists_compact(
+                fv, p.image_size, cuda_impl.TILE, cuda_impl.TILE, p.threshold, mt))
+        img, ag, cnt = out = cuda_impl.launch(inputs, p)
+        again = cuda_impl.launch(inputs, p)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            raise AssertionError(f'{tag}: two runs of the forward differ in their bits')
         want, ag_w, cnt_w = torch_impl.soft_rasterize_fwd_plain(fv, tex, p, chunk_pairs=1 << 24)
         f_rgb, e_rgb = beyond(img[:, :3], want[:, :3], TOL, pixel_dim=1)
         f_a, e_a = beyond(img[:, 3], want[:, 3], TOL)
         f_c, _ = beyond(cnt.float(), cnt_w.float(), 0)
         check(f'{tag} rgb', f_rgb)
         check(f'{tag} alpha', f_a)
-        check(f'{tag} count', f_c)
+        check(f'{tag} count', f_c, 0.0 if exact else EDGE_FRAC)
+        f_id = 0.0
         if p.aggr_func_rgb == 'hard':
             f_id, _ = beyond(ag[:, 1], ag_w[:, 1], 0)
-            check(f'{tag} face index', f_id)
+            check(f'{tag} face index', f_id, 0.0 if exact else EDGE_FRAC)
         if not torch.isfinite(img).all():
             raise AssertionError(f'{tag}: non-finite output')
+        cl = inputs.lists
         log(f'  {tag}: rgb {f_rgb:.4f} beyond (max {e_rgb:.3g}), alpha {f_a:.4f} '
-            f'(max {e_a:.3g}), count {f_c:.4f}')
-        return max(e_rgb, e_a)
+            f'(max {e_a:.3g}), count {f_c:.4f}, face index {f_id:.4f}; longest list '
+            f'{int(cl.gcount.max()) + int(cl.run_counts.max())} ({int(cl.gcount.max())} '
+            f'big), bit-equal twice')
+        return max(e_rgb, e_a), out
 
     def compare_thr(tag, fv, tex, p):
         """The threshold kernel against topk_threshold, whole image."""
@@ -566,6 +593,35 @@ def main() -> int:
     fv_b2, tex_b2 = soup(400, 2, 25, SEED + 7)
     compare('soup 256 B=2 sigma 1e-4', fv_b2, tex_b2, make_params(image_size=256, sigma_val=1e-4))
     compare('soup 200 ragged edge', fv_b2, tex_b2, make_params(image_size=200))
+    # the split of a tile's list over the cluster's FWD_SPLIT blocks: lists of
+    # many chunks a rank (a dense soup at 128 px), big faces whose prefix of
+    # the list spans several ranks (emit cap 2), a sparse soup whose lists
+    # rank 0 walks alone, and twins at equal depth in different shares; counts
+    # and winners exact
+    fv_long, tex_long = soup(3000, 1, 4, SEED + 10, radius=(0.02, 0.08), centre=(-0.3, 0.3))
+    for dist, rgb, alpha in configs:
+        compare(f'long lists 128 {dist}/{rgb}/{alpha}', fv_long, tex_long,
+                make_params(image_size=128, dist_func=dist, aggr_func_rgb=rgb,
+                            aggr_func_alpha=alpha, sigma_val=1e-4), exact=True)
+    for rgb in ('hard', 'softmax'):
+        compare(f'long lists 128 {rgb}, big faces (emit cap 2)', fv_long, tex_long,
+                make_params(image_size=128, aggr_func_rgb=rgb, sigma_val=1e-4), mt=2, exact=True)
+    fv, tex = soup(24, 2, 4, SEED + 11, radius=(0.01, 0.03))
+    compare('sparse soup 128, most lists of one face', fv, tex, make_params(image_size=128),
+            exact=True)
+    # 18 x 18 texels a face: the staged rows pass 48 KB of shared memory
+    fv_big_t, tex_big_t = soup(400, 1, 324, SEED + 13)
+    compare('soup 128 T=324, rows past 48 KB', fv_big_t, tex_big_t,
+            make_params(image_size=128, sigma_val=1e-4), exact=True)
+    fv, tex = soup(1500, 1, 4, SEED + 12, radius=(0.02, 0.08), centre=(-0.3, 0.3))
+    fv_twin, tex_twin = torch.cat([fv, fv], 1), torch.cat([tex, tex.flip(-1)], 1)
+    for mt in (None, 2):
+        _, (_, ag_t, _) = compare(f'twins 128 hard, emit cap {mt}', fv_twin, tex_twin,
+                                  make_params(image_size=128, aggr_func_rgb='hard',
+                                              sigma_val=1e-4), mt=mt, exact=True)
+        won = ag_t[:, 1]
+        if not (won >= 0).any() or (won >= 1500).any():
+            raise AssertionError(f'twins, emit cap {mt}: a tie went to the higher id')
 
     log('phase 3b: threshold kernel vs plain, whole images')
     thr_err = 0.0
@@ -628,6 +684,13 @@ def main() -> int:
             tex_dense.expand(-1, -1, 3, -1).contiguous(),
             make_params(image_size=128, sigma_val=1e-4, gamma_val=1e-3,
                         texture_type='vertex'), mt=16)
+    run_bwd('soup 128 T=324, rows past 48 KB', fv_big_t, tex_big_t,
+            make_params(image_size=128, sigma_val=1e-4, gamma_val=1e-3))
+    # runs of many chunks for each of the backward's BWD_SPLIT ranks, and
+    # with an emit cap of 2 tiles most faces big
+    for mt in (None, 2):
+        run_bwd(f'long runs 128, emit cap {mt}', fv_long, tex_long,
+                make_params(image_size=128, sigma_val=1e-4, gamma_val=1e-3), mt=mt)
 
     # ---- 4. the render path at full width ---------------------------------
     log('phase 4: Renderer(image_size=1024).render_mesh, 39,474 faces')
@@ -890,6 +953,50 @@ def main() -> int:
     log(f'  render_mesh forward {render_ms:.3f} ms/frame; soft_rasterize fwd+bwd step '
         f'{step_ms:.3f} ms; render_mesh fwd+bwd step {render_step_ms:.3f} ms  [{smi}]')
 
+    # the split of a tile's list: each kernel on the faces of the busiest tile
+    # alone (before the split that tile's one block was the kernel's tail),
+    # and the kernels built with the other numbers of blocks per tile
+    # (cuda_impl.split_variant), on the same inputs
+    busy = int(cl.counts[0].argmax())
+    ids_b = binning.tile_list(cl, 0, busy, -(-1024 // cuda_impl.TILE)).long()
+    in_busy = cuda_impl.prepare(fv_full[:, ids_b].contiguous(), tex_full[:, ids_b].contiguous(),
+                                p_full, for_grad=True)
+    img_b, ag_b, cnt_b = cuda_impl.launch(in_busy, p_full)
+    thr_b = cuda_impl.launch_thr(in_busy, cnt_b, p_full)
+    cases = {'frame': (inputs, img_f, ag_f, thr_f, g_ones),
+             'busiest tile': (in_busy, img_b, ag_b, thr_b, torch.ones_like(img_b))}
+    split_ms = {}
+    for kernel, chosen in (('softras_fwd', cuda_impl.FWD_SPLIT),
+                           ('softras_bwd', cuda_impl.BWD_SPLIT)):
+        for S in SPLITS:
+            fn = None if S == chosen else cuda_impl.split_variant(kernel, S)
+            for which, (inp, im, ag_, th, g_) in cases.items():
+                if kernel == 'softras_fwd':
+                    args = cuda_impl.fwd_args(inp, p_full)[0]
+                    run = (lambda: cuda_impl.launch(inp, p_full)) if fn is None else \
+                        (lambda: cuda_impl._run(fn, kernel, args, dev))
+                else:
+                    args = cuda_impl.bwd_args(inp, im, ag_, th, g_, p_full)[0]
+                    run = (lambda: cuda_impl.launch_bwd(inp, im, ag_, th, g_, p_full)) \
+                        if fn is None else (lambda: cuda_impl._run(fn, kernel, args, dev))
+                split_ms[kernel, S, which] = timed(run, reps=30)
+    fwd_busy_ms = split_ms['softras_fwd', cuda_impl.FWD_SPLIT, 'busiest tile']
+    bwd_busy_ms = split_ms['softras_bwd', cuda_impl.BWD_SPLIT, 'busiest tile']
+    for kernel, chosen in (('softras_fwd', cuda_impl.FWD_SPLIT),
+                           ('softras_bwd', cuda_impl.BWD_SPLIT)):
+        log(f'  {kernel}, blocks per tile (chosen {chosen}): ' + '; '.join(
+            f'{S}: frame {split_ms[kernel, S, "frame"]:.4f} ms, busiest tile '
+            f'({ids_b.numel()} faces) alone {split_ms[kernel, S, "busiest tile"]:.4f} ms'
+            for S in SPLITS) + f'  [{smi}]')
+    # their dynamic shared memory, as the launchers size it (registers and
+    # spills: phase 2)
+    reserved_b = cuda_impl.bwd_reserved_bytes(GC - 9)
+    chunk_f = cuda_impl.staged_chunk(row)
+    chunk_b = cuda_impl.staged_chunk(row, reserved_b)
+    log(f'  shared memory a block: softras_fwd {max(8 * chunk_f * (row + 1), 4 * 7 * 256):,} '
+        f'bytes ({chunk_f} faces a chunk, 2 buffers), softras_bwd '
+        f'{8 * chunk_b * (row + 1) + reserved_b:,} bytes ({chunk_b} faces a chunk, 2 buffers)')
+
     # ---- 6. dense: the JAX per-tile cap binds ---------------------------
     log('phase 6: 256 px, 39,474 faces')
     p_dense = make_params(image_size=256)
@@ -935,7 +1042,7 @@ def main() -> int:
                       aggr_func_alpha=r.aggr_func_alpha, texture_type=r.texture_type,
                       max_faces_per_pixel_for_grad=r.max_faces_per_pixel_for_grad)
     tag = f'step 1, B={VIEWS}'
-    fwd_err = max(fwd_err, compare(tag, fv_t, tex_t, p_t))
+    fwd_err = max(fwd_err, compare(tag, fv_t, tex_t, p_t)[0])
     thr_err = max(thr_err, compare_thr(tag, fv_t, tex_t, p_t))
     run_bwd(tag, fv_t, tex_t, p_t)
 
@@ -2571,12 +2678,14 @@ def main() -> int:
                 'bound_by': b[1], 'library_ms': library_ms}
 
     log(json.dumps({'kernels': [
-        entry('softras_fwd', 'softras_fwd.cu', 'jrender_tpu/ops/softras/pxt_impl.py:370',
-              fwd_err, fwd_ms, fwd_plain_ms, some, fwd_bound),
+        {**entry('softras_fwd', 'softras_fwd.cu', 'jrender_tpu/ops/softras/pxt_impl.py:370',
+                 fwd_err, fwd_ms, fwd_plain_ms, some, fwd_bound),
+         'blocks_per_tile': cuda_impl.FWD_SPLIT, 'busiest_tile_ms': fwd_busy_ms},
         entry('softras_thr', 'softras_thr.cu', 'jrender_tpu/ops/softras/pxt_impl.py:584',
               thr_err, thr_ms, thr_plain_ms, some, thr_bound),
-        entry('softras_bwd', 'softras_bwd.cu', 'jrender_tpu/ops/softras/pxt_impl.py:856',
-              bwd_err, bwd_ms, bwd_plain_ms, some, bwd_bound),
+        {**entry('softras_bwd', 'softras_bwd.cu', 'jrender_tpu/ops/softras/pxt_impl.py:856',
+                 bwd_err, bwd_ms, bwd_plain_ms, some, bwd_bound),
+         'blocks_per_tile': cuda_impl.BWD_SPLIT, 'busiest_tile_ms': bwd_busy_ms},
         entry('softras_bwd_reduce', 'softras_bwd.cu',
               'jrender_tpu/ops/softras/pxt_impl.py:1128', red_err, red_ms, red_plain_ms,
               'all rows', red_bound, red_lib_ms),

@@ -8,8 +8,14 @@ rebuilt and a stale library is never loaded.  ``-Xptxas -v`` is on: the
 compiler's register, shared-memory and spill report of each build is kept
 beside the library (``<lib>.log``).
 
-Nothing here runs at import: the CPU tests import every module, and this
-machine has no ``nvcc``.
+A build may set preprocessor macros (``defines``, such as
+``(('SOFTRAS_FWD_SPLIT', 8),)``): a variant of a kernel with another
+compile-time constant, built beside the default one under its own name,
+for a tool that times the alternatives.  The package itself loads the
+default builds only.
+
+Nothing here runs at import: the CPU tests import every module, and a
+machine without a card may have no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ BUILD_DIR = PACKAGE_DIR / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3', '-std=c++17',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -42,33 +48,38 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
+def _flags(defines=()) -> list[str]:
+    return [*NVCC_FLAGS, *(f'-D{k}={v}' for k, v in defines)]
+
+
+def library_path(name: str, defines=()) -> Path:
     """Where ``csrc/<name>.cu`` builds to; the digest covers the source,
-    every header in csrc/ and the flags."""
-    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    every header in csrc/ and the flags, macros included."""
+    h = hashlib.sha256(' '.join(_flags(defines)).encode())
     for src in sorted(CSRC.glob('*.cuh')) + [CSRC / f'{name}.cu']:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f'lib{name}-{h.hexdigest()[:16]}.so'
 
 
-def build(names) -> dict[str, Path]:
+def build(names) -> dict:
     """Build the named sources that are not built yet, one nvcc process
-    each, all started together.  Raises with the compiler's output if any
-    build fails."""
+    each, all started together.  A name may be a pair (name, defines) to
+    build with macros of its own.  Returns each (name, defines)'s library.
+    Raises with the compiler's output if any build fails."""
     BUILD_DIR.mkdir(exist_ok=True)
+    specs = [n if isinstance(n, tuple) else (n, ()) for n in names]
     procs = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
+    for name, defs in specs:
+        out = library_path(name, defs)
+        if out.exists() or out in procs:
             continue
         tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
-        cmd = [nvcc_path(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+        cmd = [nvcc_path(), *_flags(defs), '-o', str(tmp), str(CSRC / f'{name}.cu')]
+        procs[out] = (name, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True), tmp)
     failed = []
-    for name, (proc, tmp, out) in procs.items():
+    for out, (name, proc, tmp) in procs.items():
         log, _ = proc.communicate()
         Path(f'{out}.log').write_text(log)
         if proc.returncode != 0:
@@ -77,19 +88,21 @@ def build(names) -> dict[str, Path]:
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     if failed:
         raise RuntimeError('kernel build failed:\n' + '\n'.join(failed))
-    return {name: library_path(name) for name in names}
+    return {spec: library_path(*spec) for spec in specs}
 
 
-def build_log(name: str) -> str:
+def build_log(name: str, defines=()) -> str:
     """The compiler's output for the current build of ``name``."""
-    log = Path(f'{library_path(name)}.log')
+    log = Path(f'{library_path(name, defines)}.log')
     return log.read_text() if log.exists() else ''
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of ``csrc/<name>.cu``, built on first use."""
-    lib = _loaded.get(name)
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The ctypes handle of ``csrc/<name>.cu`` (built with ``defines``),
+    built on first use."""
+    key = (name, tuple(defines))
+    lib = _loaded.get(key)
     if lib is None:
-        path = build([name])[name]
-        lib = _loaded[name] = ctypes.CDLL(str(path))
+        path = build([key])[key]
+        lib = _loaded[key] = ctypes.CDLL(str(path))
     return lib

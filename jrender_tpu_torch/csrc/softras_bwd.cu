@@ -10,23 +10,41 @@
 // The per-pair terms are those of pxt_impl.py:913-1038 (pair_grad in
 // softras_grad.cuh, which the dir backward shares).
 //
+// What bounds it.  The pair math of the pairs in a face's bbox, and the
+// gradient terms of the candidates within the threshold (chip_smoke.py
+// counts both from its run).  What bounded the first design, one block of
+// 8 warps per tile, was the busiest tile: at 1024^2 on the 39,474-face
+// sphere it holds 1,158 faces against a mean of 127, its 8 warps walked
+// some 145 faces each in series, and that block alone took 1.05 of the
+// kernel's 1.67 ms.  The rest is bulk: a warp walks a face's bbox pixels
+// 32 at a time, and a small face's bbox inside a tile has fewer than 32,
+// so lanes idle (left for a later design).
+//
 // Design.  Three kernels, two entry points.
 //
-//  softras_bwd_kernel: one block of 8 warps per (screen tile, batch
-//    element), as the forward is tiled; it stages the tile's pixel maps
-//    (image 4, aggrs 2, incoming gradient 4, threshold 1) and chunks of
-//    face rows in shared memory.  Unlike the forward it gives each staged
-//    face to one WARP, which walks the pixels of the face's inflated bbox
-//    inside the tile, 32 at a time.  So the sum over a tile's pixels of one
-//    face stays inside a warp: each lane adds its pixels in ascending
-//    order, one xor-butterfly of shuffles adds the lanes, and no block
-//    barrier or shared-memory atomic is needed per face; pixels outside
-//    the bbox (three quarters of a tile list's pairs on the bench sphere)
-//    are never visited.  Surface texels: a pair adds 3 values to the texel
-//    its clipped barycentrics select, so a warp keeps 3T sums in shared
-//    memory and its lanes add to them one after the other in lane order.
-//    The warp writes one row of gslots [B, L, 9 + tex] per (tile, face),
-//    at the pair's position in the binning's sorted run.
+//  softras_bwd_kernel: kSplit blocks of 8 warps per (screen tile, batch
+//    element); rank r takes chunks r, r + kSplit, ... of the tile's sorted
+//    run, so the busiest tile's run is walked by kSplit blocks at once.  A
+//    rank without a chunk returns before it reads anything more; the
+//    others stage the tile's pixel maps (image 4, aggrs 2, incoming
+//    gradient 4, threshold 1) in shared memory.  Unlike the forward it
+//    gives each staged face to one WARP, which walks the pixels of the
+//    face's inflated bbox inside the tile, 32 at a time.  So the sum over a
+//    tile's pixels of one face stays inside a warp: each lane adds its
+//    pixels in ascending order, one xor-butterfly of shuffles adds the
+//    lanes, and no block barrier or shared-memory atomic is needed per
+//    face; pixels outside the bbox (three quarters of a tile list's pairs
+//    on the bench sphere) are never visited.  Face rows are staged with
+//    cp.async, double-buffered: warp w copies the rows of faces w, w + 8,
+//    ... of a chunk, which it then walks itself, so the next chunk's rows
+//    are in flight while it walks and only warp barriers order the
+//    buffers.  Surface texels: a pair adds 3 values to the texel its
+//    clipped barycentrics select, so a warp keeps 3T sums in shared memory
+//    and its lanes add to them one after the other in lane order.  The
+//    warp writes one row of gslots [B, L, 9 + tex] per (tile, face), at
+//    the pair's position in the binning's sorted run: one warp per row,
+//    over the same pixels in the same order whichever rank and warp it is,
+//    so the rows do not depend on kSplit or the chunk size.
 //  softras_bwd_big_kernel: the faces of the big-face list span more tiles
 //    than the binning emits pairs for and have no slots.  One block per
 //    big face walks the face's whole bbox, 256 pixels at a time, and
@@ -53,11 +71,19 @@
 // lists, 11 floats per pixel, one gradient row per face out.  The slot
 // rows, written here and read by the reduction, are this two-pass
 // design's cost on top of that, not the function's; they count only in
-// the reduction's own bound, as its input.  On the bench sphere bytes are
-// the larger by a little (chip_smoke.py computes both from its run).
+// the reduction's own bound, as its input.  Counted over the pixels with a
+// candidate, operations bind on the bench sphere (chip_smoke.py computes
+// both from its run).
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "softras_grad.cuh"
+
+// The blocks that share one tile's run, a compile-time constant (PERF.md
+// has the times of 2, 4 and 8).
+#ifndef SOFTRAS_BWD_SPLIT
+#define SOFTRAS_BWD_SPLIT 8
+#endif
 
 namespace softras {
 
@@ -65,6 +91,13 @@ constexpr int kTile = 16;
 constexpr int kThreads = kTile * kTile;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPix = 11;  // per-pixel inputs: out 4, aggrs 2, grad 4, thr 1
+constexpr int kMaxChunk = 64;                 // faces of a staged chunk, at most
+constexpr int kPerWarp = kMaxChunk / kWarps;  // faces a warp stages per chunk
+constexpr int kSplit = SOFTRAS_BWD_SPLIT;
+// blocks an SM holds at once: the register cap (80 a thread) lets 3 blocks
+// share an SM where 128 registers let 2
+constexpr int kMinBlocks = 3;
+static_assert(kSplit >= 1, "a tile needs a block");
 
 struct BwdArgs {
   const float* rows;         // [B, F, row]
@@ -98,29 +131,69 @@ struct ReduceArgs {
   int B, F, L, mt, GC;
 };
 
+// Lane q < kPerWarp of warp w: the id of face w + kWarps * q of chunk c of
+// the tile's run (which starts at `run`), or -1 past the chunk's n faces.
+__device__ __forceinline__ int chunk_ids(const int* run, int chunk, int c, int n, int warp,
+                                         int lane) {
+  const int j = warp + kWarps * lane;
+  return (lane < kPerWarp && j < n) ? run[c * chunk + j] : -1;
+}
+
+// Warp w copies the rows of faces w, w + kWarps, ... of a chunk of n faces
+// (ids from chunk_ids) into srow / sid with cp.async and commits them as
+// one group: the faces the warp will walk itself.
+__device__ __forceinline__ void stage(const float* rows_b, int row, float* srow, int* sid,
+                                      int n, int ids, int warp, int lane) {
+#pragma unroll
+  for (int q = 0; q < kPerWarp; ++q) {
+    const int j = warp + kWarps * q;
+    const int id = __shfl_sync(0xffffffffu, ids, q);
+    if (j < n) {
+      if (lane == 0) sid[j] = id;
+      const float* src = rows_b + (size_t)id * row;
+      float* dst = srow + j * row;
+      for (int k = lane; k < row; k += 32) __pipeline_memcpy_async(dst + k, src + k, 4);
+    }
+  }
+  __pipeline_commit();
+}
+
 template <int DIST>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     softras_bwd_kernel(const BwdArgs a) {
   extern __shared__ float smem[];
   const GradCfg cfg = grad_cfg(a);
   const int T3 = a.GC - 9;
-  float* srow = smem;                                          // [chunk, row]
-  int* sid = reinterpret_cast<int*>(smem + a.chunk * a.row);   // [chunk]
-  float* spx = smem + a.chunk * (a.row + 1);                   // [kPix, 256]
-  float* swtex = spx + kPix * kThreads;                        // [kWarps, T3]
+  const int chunk = a.chunk, row = a.row;
+  float* srows = smem;                                                 // [2, chunk, row]
+  int* sids = reinterpret_cast<int*>(smem + 2 * chunk * row);          // [2, chunk]
+  float* spx = smem + 2 * chunk * (row + 1);                           // [kPix, 256]
+  float* swtex = spx + kPix * kThreads;                                // [kWarps, T3]
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
-  const int tile_x = blockIdx.x, tile_y = blockIdx.y, b = blockIdx.z;
+  const int rank = blockIdx.x % kSplit;
+  const int tile_x = blockIdx.x / kSplit, tile_y = blockIdx.y, b = blockIdx.z;
   const int is = a.image_size;
   const float isf = (float)is;
   const int NT = a.tiles_x * a.tiles_y;
   const int tile = tile_y * a.tiles_x + tile_x;
   const int run = a.run_counts[b * NT + tile];
-  if (run == 0) return;
+  const int nch = (run + chunk - 1) / chunk;
+  // this rank's chunks are rank, rank + kSplit, ...; without one it returns
+  // before it reads the tile's maps
+  if (rank >= nch) return;
   const int start = a.starts[b * NT + tile];
-  const float* rows_b = a.rows + (size_t)b * a.F * a.row;
+  const int* run_ids = a.faces_sorted + (size_t)b * a.L + start;
+  const float* rows_b = a.rows + (size_t)b * a.F * row;
   const size_t HW = (size_t)is * is;
+
+  // the first chunk's rows are in flight while the maps are read
+  stage(rows_b, row, srows, sids, min(chunk, run - rank * chunk),
+        chunk_ids(run_ids, chunk, rank, min(chunk, run - rank * chunk), warp, lane), warp, lane);
+  int c_next = rank + kSplit;
+  int ids_next = c_next < nch ? chunk_ids(run_ids, chunk, c_next,
+                                          min(chunk, run - c_next * chunk), warp, lane) : -1;
 
   // the tile's pixel maps, pixel (ly, lx) at ly * 16 + lx
   {
@@ -139,42 +212,51 @@ __global__ void __launch_bounds__(kThreads)
   float* wtex = swtex + warp * T3;
   if (a.s.texture_type == 0)
     for (int i = lane; i < T3; i += 32) wtex[i] = 0.0f;
+  __syncthreads();  // the maps are in
 
   const int tc0 = tile_x * kTile, tr0 = tile_y * kTile;
   const int tc1 = min(tc0 + kTile - 1, is - 1), tr1 = min(tr0 + kTile - 1, is - 1);
 
-  for (int base = 0; base < run; base += a.chunk) {
-    const int n = min(a.chunk, run - base);
-    __syncthreads();  // the previous chunk has been consumed
-    if (tid < n) sid[tid] = a.faces_sorted[(size_t)b * a.L + start + base + tid];
-    __syncthreads();
-    for (int i = tid; i < n * a.row; i += kThreads) {
-      const int j = i / a.row;
-      srow[i] = rows_b[(size_t)sid[j] * a.row + (i - j * a.row)];
+  // a warp walks the faces it staged itself, so only warp barriers order
+  // the buffers
+  for (int k = 0, c = rank; c < nch; ++k, c += kSplit) {
+    const int cur = k & 1;
+    const int n = min(chunk, run - c * chunk);
+    const float* srow = srows + cur * chunk * row;
+    const int* sid = sids + cur * chunk;
+    if (c_next < nch) {
+      stage(rows_b, row, srows + (cur ^ 1) * chunk * row, sids + (cur ^ 1) * chunk,
+            min(chunk, run - c_next * chunk), ids_next, warp, lane);
+      c_next += kSplit;
+      ids_next = c_next < nch ? chunk_ids(run_ids, chunk, c_next,
+                                          min(chunk, run - c_next * chunk), warp, lane) : -1;
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
     }
-    __syncthreads();
+    __syncwarp();  // chunk c's rows of this warp's faces are in
 
     for (int j = warp; j < n; j += kWarps) {
-      const float* r = srow + j * a.row;
+      const float* r = srow + j * row;
       const int fid = sid[j];
       float acc[9], tacc[9];
 #pragma unroll
-      for (int c = 0; c < 9; ++c) acc[c] = tacc[c] = 0.0f;
+      for (int q = 0; q < 9; ++q) acc[q] = tacc[q] = 0.0f;
       int c0, c1, r0, r1;
       if (pixel_range(r, a.s.sq, isf, tc0, tc1, tr0, tr1, &c0, &c1, &r0, &r1)) {
         const int w = c1 - c0 + 1;
         const int np = w * (r1 - r0 + 1);
         for (int k0 = 0; k0 < np; k0 += 32) {
-          const int k = k0 + lane;
-          const bool active = k < np;
-          const int col = c0 + (active ? k % w : 0);
-          const int rowp = r0 + (active ? k / w : 0);
+          const int kp = k0 + lane;
+          const bool active = kp < np;
+          const int col = c0 + (active ? kp % w : 0);
+          const int rowp = r0 + (active ? kp / w : 0);
           const int lp = (rowp - tr0) * kTile + (col - tc0);
           PixelIn px;
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            px.o[c] = spx[c * kThreads + lp];
-            px.g[c] = spx[(6 + c) * kThreads + lp];
+          for (int q = 0; q < 4; ++q) {
+            px.o[q] = spx[q * kThreads + lp];
+            px.g[q] = spx[(6 + q) * kThreads + lp];
           }
           px.ag0 = spx[4 * kThreads + lp];
           px.ag1 = spx[5 * kThreads + lp];
@@ -185,19 +267,19 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
       // the warp's sums into the pair's slot row
-      float* slot = a.gslots + ((size_t)b * a.L + start + base + j) * a.GC;
+      float* slot = a.gslots + ((size_t)b * a.L + start + c * chunk + j) * a.GC;
       float mine = 0.0f, mine_t = 0.0f;
 #pragma unroll
-      for (int c = 0; c < 9; ++c) {
-        const float v = warp_sum(acc[c]);
-        if (lane == c) mine = v;
+      for (int q = 0; q < 9; ++q) {
+        const float v = warp_sum(acc[q]);
+        if (lane == q) mine = v;
       }
       if (lane < 9) slot[lane] = mine;
       if (a.s.texture_type != 0) {
 #pragma unroll
-        for (int c = 0; c < 9; ++c) {
-          const float v = warp_sum(tacc[c]);
-          if (lane == c) mine_t = v;
+        for (int q = 0; q < 9; ++q) {
+          const float v = warp_sum(tacc[q]);
+          if (lane == q) mine_t = v;
         }
         if (lane < 9) slot[9 + lane] = mine_t;
       } else {
@@ -209,6 +291,7 @@ __global__ void __launch_bounds__(kThreads)
         __syncwarp();
       }
     }
+    __syncwarp();  // this warp is done with buffer `cur`, which chunk c + 2 * kSplit takes
   }
 }
 
@@ -318,11 +401,16 @@ __global__ void __launch_bounds__(kThreads)
 template <int DIST>
 cudaError_t launch(const BwdArgs& a, cudaStream_t stream) {
   const int T3 = a.s.texture_type == 0 ? a.GC - 9 : 0;
-  const size_t smem = ((size_t)a.chunk * (a.row + 1) + kPix * kThreads +
+  const size_t smem = (2 * (size_t)a.chunk * (a.row + 1) + kPix * kThreads +
                        (size_t)kWarps * T3) * sizeof(float);
-  softras_bwd_kernel<DIST><<<dim3(a.tiles_x, a.tiles_y, a.B), kThreads, smem,
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)  // a face row of many texels: the kernel asks for more
+    err = cudaFuncSetAttribute(softras_bwd_kernel<DIST>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  softras_bwd_kernel<DIST><<<dim3(a.tiles_x * kSplit, a.tiles_y, a.B), kThreads, smem,
                              stream>>>(a);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t smem_big = ((size_t)a.row + kWarps * 18 + (size_t)kWarps * T3) *
                           sizeof(float);
@@ -334,6 +422,7 @@ cudaError_t launch(const BwdArgs& a, cudaStream_t stream) {
 
 extern "C" int softras_bwd(const softras::BwdArgs* args, void* stream) {
   using namespace softras;
+  if (args->chunk < 1 || args->chunk > kMaxChunk) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (args->dist_func) {
@@ -358,3 +447,5 @@ extern "C" int softras_bwd_args_size() { return (int)sizeof(softras::BwdArgs); }
 extern "C" int softras_bwd_reduce_args_size() {
   return (int)sizeof(softras::ReduceArgs);
 }
+
+extern "C" int softras_bwd_split() { return softras::kSplit; }

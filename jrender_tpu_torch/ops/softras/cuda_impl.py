@@ -13,6 +13,11 @@ Kernels and wrappers (each wrapper counts its launches in ``.launches``):
                                            and per big face
   ``launch_reduce``  csrc/softras_bwd.cu   the rows summed per face
 
+The forward splits each tile's face list over a cluster of FWD_SPLIT blocks
+and merges their partial states in rank order; ``fwd_split_plain`` is the
+plain version of that split and merge.  The backward splits each tile's
+run over BWD_SPLIT blocks, whose gradient rows need no merge.
+
 ``soft_rasterize_fwd``, ``topk_threshold`` and ``soft_rasterize_bwd`` go
 by the device of their input: a CPU tensor takes the plain version
 (``torch_impl``), a CUDA tensor the kernels.  There is no fallback: a
@@ -34,7 +39,10 @@ from .params import SoftRasParams
 TILE = 16                     # screen tile = one block of TILE x TILE threads
 MAX_CHUNK = 64                # faces staged in shared memory at once
 SMEM_BYTES = 48 * 1024        # a block's static shared-memory budget
+SMEM_MAX_BYTES = 227 * 1024   # the most shared memory an H100 block can ask for
 ROW_BASE = 31                 # face 9, inv 9, sym 9, obt 3, front 1
+FWD_SPLIT = 8                 # blocks sharing a tile's list (kSplit of softras_fwd.cu)
+BWD_SPLIT = 8                 # blocks sharing a tile's run (kSplit of softras_bwd.cu)
 
 
 class _Scalars(ctypes.Structure):
@@ -113,14 +121,34 @@ def chunk_for(row: int, reserved_bytes: int = 0) -> int:
 
 
 def chunk_for_bwd(row: int, tex_sums: int) -> int:
-    """Faces per chunk of the backward kernel, whose block also holds the
+    """Faces per chunk of a backward kernel, whose block also holds the
     tile's pixel maps (11 floats per pixel) and, for surface textures, 3T
     texel sums per warp (``tex_sums`` floats, 0 for vertex colours)."""
-    left = SMEM_BYTES - 4 * (11 * TILE * TILE + (TILE * TILE // 32) * tex_sums)
+    left = SMEM_BYTES - bwd_reserved_bytes(tex_sums)
     if left < 4 * row + 4:
         raise ValueError(f'a face row of {row} floats does not fit the backward '
                          f"kernel's shared memory")
     return min(MAX_CHUNK, left // (4 * row + 4))
+
+
+def bwd_reserved_bytes(tex_sums: int) -> int:
+    """Shared memory a backward block holds besides its face rows: the
+    tile's pixel maps (11 floats per pixel) and, for surface textures, 3T
+    texel sums per warp (``tex_sums`` floats, 0 for vertex colours)."""
+    return 4 * (11 * TILE * TILE + (TILE * TILE // 32) * tex_sums)
+
+
+def staged_chunk(row: int, reserved_bytes: int = 0) -> int:
+    """Faces per chunk of a kernel that stages two chunks of rows of
+    ``row`` floats and one int per face at once (the binned forward and
+    backward) besides ``reserved_bytes`` of its own: as many as fit
+    SMEM_BYTES, at most MAX_CHUNK, at least one.  A block whose one face
+    does not fit SMEM_BYTES asks the card for more (the launchers raise the
+    kernel's limit); past a block's SMEM_MAX_BYTES this raises."""
+    per_face = 2 * (4 * row + 4)
+    if reserved_bytes + per_face > SMEM_MAX_BYTES:
+        raise ValueError(f'a face row of {row} floats does not fit a block\'s shared memory')
+    return max(1, min(MAX_CHUNK, (SMEM_BYTES - reserved_bytes) // per_face))
 
 
 def prepare(face_vertices: torch.Tensor, textures: torch.Tensor,
@@ -155,29 +183,40 @@ def _check(t: torch.Tensor, what: str, dtype, shape, device) -> None:
         raise ValueError(f'{what} must be contiguous')
 
 
-def _entry(source: str, name: str, args_type):
-    """The C entry point ``name`` of ``csrc/<source>.cu``, built on first
-    use; raises if its argument struct is laid out otherwise than here."""
-    lib = _build.load(source)
+def _c_int(lib, name: str) -> int:
+    fn = getattr(lib, name)
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    return fn()
+
+
+def _entry(source: str, name: str, args_type, split: int | None = None, lib=None):
+    """The C entry point ``name`` of ``csrc/<source>.cu`` (of ``lib``,
+    else built on first use); raises if its argument struct is laid out
+    otherwise than here, or if the blocks it splits a tile over (its
+    ``<name>_split``) are not ``split``."""
+    lib = lib or _build.load(source)
     fn = getattr(lib, name)
     fn.argtypes = [ctypes.POINTER(args_type), ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    size = getattr(lib, f'{name}_args_size')
-    size.argtypes = []
-    size.restype = ctypes.c_int
-    if size() != ctypes.sizeof(args_type):
+    if _c_int(lib, f'{name}_args_size') != ctypes.sizeof(args_type):
         raise RuntimeError(f'{args_type.__name__[1:]} layout differs between '
                            f'Python and CUDA')
+    if split is not None and _c_int(lib, f'{name}_split') != split:
+        raise RuntimeError(f'{name} splits a tile over {_c_int(lib, f"{name}_split")} '
+                           f'blocks, the wrapper over {split}')
     return fn
 
 
 def _run(fn, name: str, args, dev) -> None:
     """Call a kernel's entry point on the current stream; raise on a
-    refused launch."""
+    refused launch (-1: the forward's cluster cannot be resident)."""
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(ctypes.byref(args), ctypes.c_void_p(stream))
     if err != 0:
-        raise RuntimeError(f'{name} kernel launch failed: CUDA error {err}')
+        why = ("a cluster of the kernel's blocks cannot be resident on one GPC"
+               if err == -1 else f'CUDA error {err}')
+        raise RuntimeError(f'{name} kernel launch failed: {why}')
 
 
 def _scalars(p: SoftRasParams, R: int) -> _Scalars:
@@ -220,32 +259,99 @@ def _check_inputs(inputs: FwdInputs, p: SoftRasParams):
     return dev, B, F, row, L, tiles
 
 
-def launch(inputs: FwdInputs, p: SoftRasParams):
-    """Launch the CUDA forward kernel on the current stream.
-
-    Returns (images [B,4,H,W], aggrs [B,2,H,W], counts [B,H,W] int32).
-    ``launch.launches`` counts the launches.
-    """
+def fwd_args(inputs: FwdInputs, p: SoftRasParams):
+    """The forward kernel's checked arguments and its outputs (images
+    [B,4,H,W], aggrs [B,2,H,W], counts [B,H,W] int32), allocated on the
+    inputs' card: what ``launch`` hands to the kernel."""
     dev, B, F, row, L, tiles = _check_inputs(inputs, p)
     rows, cl, R = inputs
     is_ = p.image_size
     images = torch.empty((B, 4, is_, is_), dtype=torch.float32, device=dev)
     aggrs = torch.empty((B, 2, is_, is_), dtype=torch.float32, device=dev)
     counts = torch.empty((B, is_, is_), dtype=torch.int32, device=dev)
-
-    fn = _entry('softras_fwd', 'softras_fwd', _FwdArgs)
     args = _FwdArgs(
         rows.data_ptr(), cl.faces_sorted.data_ptr(), cl.starts.data_ptr(),
         cl.run_counts.data_ptr(), cl.glist.data_ptr(), cl.gcount.data_ptr(),
         cl.ranges.data_ptr(), images.data_ptr(), aggrs.data_ptr(),
-        counts.data_ptr(), B, F, L, row, is_, tiles, tiles, chunk_for(row),
+        counts.data_ptr(), B, F, L, row, is_, tiles, tiles, staged_chunk(row),
         p.dist_func_id, p.rgb_func_id, p.alpha_func_id, _scalars(p, R))
-    _run(fn, 'softras_fwd', args, dev)
+    return args, (images, aggrs, counts)
+
+
+def launch(inputs: FwdInputs, p: SoftRasParams):
+    """Launch the CUDA forward kernel on the current stream.
+
+    Returns (images [B,4,H,W], aggrs [B,2,H,W], counts [B,H,W] int32).
+    ``launch.launches`` counts the launches.
+    """
+    args, out = fwd_args(inputs, p)
+    fn = _entry('softras_fwd', 'softras_fwd', _FwdArgs, FWD_SPLIT)
+    _run(fn, 'softras_fwd', args, inputs.rows.device)
     launch.launches += 1
-    return images, aggrs, counts
+    return out
 
 
 launch.launches = 0
+
+
+def split_variant(name: str, split: int):
+    """The entry point of ``softras_fwd`` or ``softras_bwd`` built with
+    another number of blocks per tile (the kernel's SOFTRAS_FWD_SPLIT or
+    SOFTRAS_BWD_SPLIT), to time the alternatives to FWD_SPLIT and
+    BWD_SPLIT; call it with ``fwd_args`` or ``bwd_args`` through ``_run``.
+    The wrappers launch the default build only."""
+    macro = {'softras_fwd': 'SOFTRAS_FWD_SPLIT', 'softras_bwd': 'SOFTRAS_BWD_SPLIT'}[name]
+    args_type = _FwdArgs if name == 'softras_fwd' else _BwdArgs
+    return _entry(name, name, args_type, split, _build.load(name, ((macro, split),)))
+
+
+def rank_shares(total: int, split: int):
+    """The shares [lo, hi) of a tile's sequence of ``total`` face ids (its
+    big faces, then its run) that the forward kernel's ranks walk: rank r
+    takes [r * per, (r + 1) * per) with per = ceil(total / split); ranks
+    past the end take none."""
+    per = -(-total // split)
+    return [(r * per, min(total, (r + 1) * per)) for r in range(split) if r * per < total]
+
+
+def fwd_split_plain(inputs: FwdInputs, p: SoftRasParams, split: int = FWD_SPLIT):
+    """The plain version of the forward kernel's split and merge: each
+    tile's sequence cut into the ranks' shares (``rank_shares``), each share
+    aggregated without the background by the pxg partials' plain version,
+    the shares merged in rank order by the pxg combine's plain version
+    (``pxg_impl.fwd_partials_plain``, ``combine_plain``).  A big face whose
+    tile range misses the tile is skipped, as the kernel skips it; a share
+    left without a face adds nothing to the merge and is dropped.  Returns
+    what ``launch`` returns."""
+    from . import pxg_impl           # pxg_impl imports this module
+    rows, cl, R = inputs
+    B, F = rows.shape[:2]
+    tiles = -(-p.image_size // TILE)
+    NT = tiles * tiles
+    entries, items, item_off = [], [], [0]
+    for b in range(B):
+        big = cl.glist[b, :int(cl.gcount[b])].tolist()
+        rg = cl.ranges[b].tolist()
+        for t in range(NT):
+            ty, tx = divmod(t, tiles)
+            start, run = int(cl.starts[b, t]), int(cl.run_counts[b, t])
+            seq = [g if rg[g][0] <= ty <= rg[g][1] and rg[g][2] <= tx <= rg[g][3] else -1
+                   for g in big] + cl.faces_sorted[b, start:start + run].tolist()
+            for lo, hi in rank_shares(len(seq), split):
+                ids = [f for f in seq[lo:hi] if f >= 0]
+                if ids:
+                    items.append((b * NT + t, len(entries), len(entries) + len(ids)))
+                    entries += ids
+            item_off.append(len(items))
+    dev = rows.device
+
+    def i32(x, shape=(-1,)):
+        return torch.tensor(x, dtype=torch.int32, device=dev).reshape(shape)
+
+    pin = pxg_impl.PxgInputs(rows, i32(entries), None, i32(items, (-1, 3)), i32(item_off),
+                             None, None, R)
+    parts, _ = pxg_impl.fwd_partials_plain(pin, p, with_thr=False)
+    return pxg_impl.combine_plain(pin, parts, p)
 
 
 def launch_thr(inputs: FwdInputs, counts: torch.Tensor, p: SoftRasParams):
@@ -282,13 +388,9 @@ def _grad_columns(p: SoftRasParams, R: int) -> int:
     return 9 + (3 * R * R if p.texture_type_id == 0 else 9)
 
 
-def launch_bwd(inputs: FwdInputs, images, aggrs, thr, grad_images,
-               p: SoftRasParams) -> GradRows:
-    """Launch the backward kernels on the current stream: the per-tile
-    kernel writes one gradient row per sorted (tile, face) pair, the
-    big-face kernel one row per face of the big-face list.  ``thr`` is the
-    threshold map or None (no truncation).  ``launch_bwd.launches`` counts
-    the calls."""
+def bwd_args(inputs: FwdInputs, images, aggrs, thr, grad_images, p: SoftRasParams):
+    """The backward kernels' checked arguments and their output rows,
+    allocated on the inputs' card: what ``launch_bwd`` hands to them."""
     dev, B, F, row, L, tiles = _check_inputs(inputs, p)
     rows, cl, R = inputs
     is_ = p.image_size
@@ -301,17 +403,27 @@ def launch_bwd(inputs: FwdInputs, images, aggrs, thr, grad_images,
     tex_sums = GC - 9 if p.texture_type_id == 0 else 0
     out = GradRows(torch.empty((B, L, GC), dtype=torch.float32, device=dev),
                    torch.empty((B, F, GC), dtype=torch.float32, device=dev))
-
-    fn = _entry('softras_bwd', 'softras_bwd', _BwdArgs)
     args = _BwdArgs(
         rows.data_ptr(), cl.faces_sorted.data_ptr(), cl.starts.data_ptr(),
         cl.run_counts.data_ptr(), cl.glist.data_ptr(), cl.gcount.data_ptr(),
         images.data_ptr(), aggrs.data_ptr(), grad_images.data_ptr(),
         None if thr is None else thr.data_ptr(), out.gslots.data_ptr(),
         out.gbig.data_ptr(), B, F, L, row, is_, tiles, tiles,
-        chunk_for_bwd(row, tex_sums), GC,
+        staged_chunk(row, bwd_reserved_bytes(tex_sums)), GC,
         p.dist_func_id, p.rgb_func_id, p.alpha_func_id, _scalars(p, R))
-    _run(fn, 'softras_bwd', args, dev)
+    return args, out
+
+
+def launch_bwd(inputs: FwdInputs, images, aggrs, thr, grad_images,
+               p: SoftRasParams) -> GradRows:
+    """Launch the backward kernels on the current stream: the per-tile
+    kernel writes one gradient row per sorted (tile, face) pair, the
+    big-face kernel one row per face of the big-face list.  ``thr`` is the
+    threshold map or None (no truncation).  ``launch_bwd.launches`` counts
+    the calls."""
+    args, out = bwd_args(inputs, images, aggrs, thr, grad_images, p)
+    fn = _entry('softras_bwd', 'softras_bwd', _BwdArgs, BWD_SPLIT)
+    _run(fn, 'softras_bwd', args, inputs.rows.device)
     launch_bwd.launches += 1
     return out
 

@@ -63,10 +63,10 @@ GRAD_FRAC = 0.001     # share of gradient entries allowed beyond the tolerance
 THR_FRAC = 0.001      # share of pixels whose threshold may differ
 
 
-def soup(seed, F, B=1, T=25, radius=(0.03, 0.3)):
+def soup(seed, F, B=1, T=25, radius=(0.03, 0.3), centre=(-0.8, 0.8)):
     """Random well-shaped triangles in front of the camera."""
     rng = np.random.RandomState(seed)
-    c = rng.uniform(-0.8, 0.8, (B, F, 1, 2))
+    c = rng.uniform(*centre, (B, F, 1, 2))
     r = rng.uniform(*radius, (B, F, 1, 1))
     ang = rng.uniform(0, 2 * np.pi, (B, F, 1)) + np.arange(3) * 2 * np.pi / 3 \
         + rng.uniform(-0.3, 0.3, (B, F, 3))
@@ -270,6 +270,226 @@ def test_softras_bwd_wrappers_check_their_inputs():
         cuda_impl.launch_reduce(cuda_impl.prepare(x, t, p), rows, p)
     with pytest.raises(ValueError):
         cuda_impl.launch_reduce(inputs, rows._replace(gbig=rows.gbig[:, :5]), p)
+
+
+# ---- the split of a tile's list over blocks (K1: a cluster, K2: ranks) ---------
+#
+# The binned forward splits each tile's sequence of faces (big faces, then
+# its run) over a cluster of cuda_impl.FWD_SPLIT blocks and merges their
+# partial states in rank order; the binned backward splits each tile's run
+# over cuda_impl.BWD_SPLIT blocks.  Counts and hard winners are held to the
+# plain version exactly, images at the forward tolerance, gradients at the
+# backward's; every output is bit-equal twice.
+
+def dense_soup(seed, F, B=1, T=4):
+    """Small faces crowded into the middle of the screen: at 128 px the
+    busiest tile's list holds over a thousand faces, many chunks per rank."""
+    return soup(seed, F=F, B=B, T=T, radius=(0.02, 0.08), centre=(-0.3, 0.3))
+
+
+def lists_with_cap(x, p, mt, for_grad=False):
+    """The binning with an emit cap of ``mt`` tiles: wider faces go to the
+    big-face list."""
+    return binning.build_tile_lists_compact(x, p.image_size, cuda_impl.TILE, cuda_impl.TILE,
+                                            p.threshold, mt, with_inverse=for_grad)
+
+
+def fwd_split_check(x, t, p, mt=None, ranks_busy=True):
+    """The forward kernel twice and against the plain version; returns its
+    outputs and the inputs."""
+    inputs = cuda_impl.prepare(x, t, p)
+    if mt is not None:
+        inputs = inputs._replace(lists=lists_with_cap(x, p, mt))
+    cl = inputs.lists
+    longest = int(cl.gcount.max()) + int(cl.run_counts.max())
+    if ranks_busy:
+        # every rank of the busiest tile walks more than one chunk
+        chunk = cuda_impl.staged_chunk(inputs.rows.shape[-1])
+        assert longest > cuda_impl.FWD_SPLIT * chunk, longest
+    out = cuda_impl.launch(inputs, p)
+    again = cuda_impl.launch(inputs, p)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    img, ag, cnt = out
+    want, ag_w, cnt_w = torch_impl.soft_rasterize_fwd_plain(x, t, p)
+    mostly_close(img[:, :3], want[:, :3], 1e-4)
+    mostly_close(img[:, 3], want[:, 3], 1e-4)
+    assert torch.equal(cnt, cnt_w)
+    if p.aggr_func_rgb == 'hard':
+        assert torch.equal(ag[:, 1], ag_w[:, 1])          # the winners' ids
+        mostly_close(ag[:, 0], ag_w[:, 0], 1e-4)
+    return out, inputs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('alpha', ['hard', 'sum', 'prod'])
+@pytest.mark.parametrize('rgb', ['hard', 'softmax'])
+@pytest.mark.parametrize('dist', ['hard', 'barycentric', 'euclidean'])
+def test_softras_fwd_split_long_lists(dist, rgb, alpha):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    x, t = dense_soup(11, F=3000)
+    fwd_split_check(x, t, make_params(image_size=128, dist_func=dist, aggr_func_rgb=rgb,
+                                      aggr_func_alpha=alpha, sigma_val=1e-4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('rgb', ['hard', 'softmax'])
+def test_softras_fwd_split_rank_zero_alone(rgb):
+    """A sparse soup: most tiles' lists hold one face or none, which rank 0
+    walks and writes without a merge."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    x, t = soup(12, F=24, B=2, radius=(0.01, 0.03))
+    _, inputs = fwd_split_check(x, t, make_params(image_size=128, aggr_func_rgb=rgb),
+                                ranks_busy=False)
+    runs = inputs.lists.run_counts
+    assert int(inputs.lists.gcount.max()) == 0 and ((runs == 1).sum() > (runs > 1).sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('rgb', ['hard', 'softmax'])
+def test_softras_fwd_split_big_faces_cross_ranks(rgb):
+    """An emit cap of 2 tiles: most faces are big, and the big-face prefix
+    of a tile's sequence spans several ranks' shares (a big face whose tile
+    range misses the tile is skipped by whichever rank holds it)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    x, t = dense_soup(13, F=3000)
+    p = make_params(image_size=128, aggr_func_rgb=rgb, sigma_val=1e-4)
+    _, inputs = fwd_split_check(x, t, p, mt=2)
+    cl = inputs.lists
+    per = -(-(int(cl.gcount.max()) + int(cl.run_counts.max())) // cuda_impl.FWD_SPLIT)
+    assert int(cl.gcount.max()) > 2 * per
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('mt', [None, 2])
+def test_softras_fwd_split_ties_go_to_the_lowest_id(mt):
+    """Faces F..2F-1 repeat faces 0..F-1 with other colours, so every pixel
+    a face wins ties it with its twin at the same depth; the twins lie in
+    different ranks' shares of the long sequences, as run faces or (emit cap
+    2) big faces.  The winner must be the lower id."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    x, t = dense_soup(14, F=1500)
+    x2, t2 = torch.cat([x, x], dim=1), torch.cat([t, t.flip(-1)], dim=1)
+    p = make_params(image_size=128, aggr_func_rgb='hard', sigma_val=1e-4)
+    (img, ag, _), _ = fwd_split_check(x2, t2, p, mt=mt)
+    won = ag[:, 1]
+    assert (won >= 0).sum() > 1000 and not (won >= 1500).any()
+
+
+@pytest.mark.gpu
+def test_softras_fwd_split_variants_agree():
+    """The forward built with 1 and 8 blocks per tile against the default
+    build: the same counts and winners, sums within rounding."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    x, t = dense_soup(15, F=3000)
+    for rgb in ('hard', 'softmax'):
+        p = make_params(image_size=128, aggr_func_rgb=rgb, sigma_val=1e-4)
+        inputs = cuda_impl.prepare(x, t, p)
+        img, ag, cnt = cuda_impl.launch(inputs, p)
+        for split in (1, 8):
+            args, (img_v, ag_v, cnt_v) = cuda_impl.fwd_args(inputs, p)
+            cuda_impl._run(cuda_impl.split_variant('softras_fwd', split), 'softras_fwd', args,
+                           x.device)
+            torch.cuda.synchronize()
+            assert torch.equal(cnt, cnt_v)
+            torch.testing.assert_close(img_v, img, atol=1e-5, rtol=0)
+            if rgb == 'hard':
+                assert torch.equal(ag, ag_v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('T', [324, 2500])
+def test_softras_split_kernels_rows_past_48_kb(T):
+    """Many texels a face: at 18 x 18 the backward's two staged chunks and
+    its texel sums pass 48 KB of shared memory, at 50 x 50 the forward's
+    two chunks of one face do (and the backward's texel sums pass a block's
+    most, which its wrapper refuses); the kernels ask the card for what
+    they need."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    x, t = soup(17, F=60, T=T)
+    t = tie_symmetric(t)
+    p = make_params(image_size=64, sigma_val=1e-3, gamma_val=1e-3)
+    row = cuda_impl.ROW_BASE + 3 * T
+    reserved = cuda_impl.bwd_reserved_bytes(3 * T)
+    (img, ag, counts), _ = fwd_split_check(x, t, p, ranks_busy=False)
+    inputs = cuda_impl.prepare(x, t, p, for_grad=True)
+    thr = cuda_impl.topk_threshold(x, p, inputs, counts)
+    g = torch.randn(img.shape, generator=torch.Generator(device='cuda').manual_seed(7),
+                    device='cuda')
+    if T == 2500:
+        assert 8 * cuda_impl.staged_chunk(row) * (row + 1) > cuda_impl.SMEM_BYTES
+        with pytest.raises(ValueError):
+            cuda_impl.soft_rasterize_bwd(x, t, img, ag, thr, g, p, inputs)
+        return
+    assert 8 * cuda_impl.staged_chunk(row, reserved) * (row + 1) + reserved > cuda_impl.SMEM_BYTES
+    gf, gt = cuda_impl.soft_rasterize_bwd(x, t, img, ag, thr, g, p, inputs)
+    wf, wt = torch_impl.soft_rasterize_bwd_plain(x, t, img, ag,
+                                                 torch_impl.topk_threshold_plain(x, p), g, p)
+    grad_close(gf, wf)
+    grad_close(fold_ties(gt), fold_ties(wt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kw', [
+    dict(),
+    dict(dist_func='barycentric', aggr_func_alpha='sum'),
+    dict(dist_func='hard', aggr_func_rgb='hard', aggr_func_alpha='hard'),
+    dict(texture_type='vertex', gamma_val=0.1),
+    dict(grad_mode='full'),
+], ids=['default', 'bary-sum', 'hard', 'vertex', 'full'])
+def test_softras_bwd_split_long_runs(kw):
+    """Runs of over a thousand faces, many chunks per rank, and with an emit
+    cap of 2 tiles most faces big: against the plain version, bit-equal
+    twice, and the slot rows bit-equal to those of the backward built with
+    one block and with 8 blocks per tile (a row is one warp's walk,
+    whichever block)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    vertex = kw.get('texture_type') == 'vertex'
+    x, t = dense_soup(16, F=3000, T=3 if vertex else 4)
+    t = t.reshape(1, 3000, 3, 3) if vertex else tie_symmetric(t)
+    p = make_params(image_size=128, **{'sigma_val': 1e-4, 'gamma_val': 1e-3, **kw})
+    for mt in (None, 2):
+        inputs = cuda_impl.prepare(x, t, p, for_grad=True)
+        if mt is not None:
+            inputs = inputs._replace(lists=lists_with_cap(x, p, mt, for_grad=True))
+        cl = inputs.lists
+        GC = 9 + (9 if vertex else 3 * 4)
+        chunk = cuda_impl.staged_chunk(inputs.rows.shape[-1],
+                                       cuda_impl.bwd_reserved_bytes(0 if vertex else GC - 9))
+        if mt is None:
+            assert int(cl.run_counts.max()) > cuda_impl.BWD_SPLIT * chunk
+        else:
+            assert int(cl.gcount.max()) > 1000
+        img, ag, counts = cuda_impl.launch(inputs, p)
+        thr = cuda_impl.topk_threshold(x, p, inputs, counts)
+        g = torch.randn(img.shape, generator=torch.Generator(device='cuda').manual_seed(6),
+                        device='cuda')
+        rows = cuda_impl.launch_bwd(inputs, img, ag, thr, g, p)
+        gf, gt = cuda_impl.launch_reduce(inputs, rows, p)
+        gf2, gt2 = cuda_impl.soft_rasterize_bwd(x, t, img, ag, thr, g, p, inputs)
+        torch.cuda.synchronize()
+        assert torch.equal(gf, gf2) and torch.equal(gt, gt2.reshape(gt.shape))
+        n = int(cl.run_counts.sum())                      # the rows the runs fill
+        for split in (1, 8):
+            args, rows_v = cuda_impl.bwd_args(inputs, img, ag, thr, g, p)
+            cuda_impl._run(cuda_impl.split_variant('softras_bwd', split), 'softras_bwd', args,
+                           x.device)
+            torch.cuda.synchronize()
+            assert torch.equal(rows.gslots[:, :n], rows_v.gslots[:, :n])
+        thr_plain = None if thr is None else torch_impl.topk_threshold_plain(x, p)
+        wf, wt = torch_impl.soft_rasterize_bwd_plain(x, t, img, ag, thr_plain, g, p)
+        wt = wt.reshape(gt.shape)
+        if not vertex:
+            gt, wt = fold_ties(gt), fold_ties(wt)
+        grad_close(gf, wf)
+        grad_close(gt, wt)
 
 
 # ---- N3MR: the z-buffer, the texture gradient, the edge gradient ------------

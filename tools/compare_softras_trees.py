@@ -1,0 +1,252 @@
+#!/usr/bin/env python3
+"""Hold two trees of the port's binned SoftRas kernels against each other
+on one CUDA card: their outputs bit for bit and their times in turns.
+
+    python3 tools/compare_softras_trees.py --parent PATH
+
+PATH is another checkout of the port (for example ``git archive`` of the
+parent commit unpacked into a git-ignored directory).  On the 39,474-face
+``uv_sphere(130, 153)`` at 1024 px, demo 1's camera at 45 degrees, 5x5
+texels per face, the renderer's defaults (K = 16), this tree first makes
+the inputs: the rasterizer's face vertices and textures, its forward
+outputs, threshold map and a seeded incoming gradient.  Then each tree, in
+a process of its own that imports only that tree's ``jrender_tpu_torch``,
+in the turns parent, change, change, parent:
+
+  * runs the forward kernel (``cuda_impl.launch``) on the inputs' faces;
+  * runs the backward kernels and the face reduction (``launch_bwd``,
+    ``launch_reduce``) on the common forward outputs, threshold and
+    gradient, so that both trees' backwards read the same bits;
+  * times the forward, threshold, backward and reduction kernels alone and
+    the forward and backward on the busiest tile's faces alone (CUDA
+    events, the median of 5 rounds of 20 launches after a warm-up);
+  * times the steps that run them: ``soft_rasterize(...).sum().backward()``
+    (CUDA events), and ``Renderer.render_mesh`` frames and forward +
+    backward steps (host clock around work that ends in a synchronize;
+    the median of 5 rounds of 10), and the device time of each step
+    (torch.profiler over 4 steps: the kernels' summed device time).
+
+It prints one JSON line: the card's name and power limit, each turn's
+times, and whether the trees agree: the forward's candidate counts and
+softmax maximum M bit for bit, the largest image difference and relative
+difference of the softmax sum S, the backward's slot rows (the rows the
+tile runs fill, and the big faces' rows) and reduced gradients bit for
+bit, and each tree's two turns bit for bit.
+
+Needs a card (exits 2 without one) and nvcc.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def scene(torch, dev):
+    """The sphere and renderer of the comparison: demo 1's camera at 45
+    degrees, seeded textures."""
+    from jrender_tpu_torch import Mesh, Renderer
+    from jrender_tpu_torch.utils.primitives import uv_sphere
+    v, f = uv_sphere(130, 153)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tex = torch.rand((1, f.shape[0], 25, 3), generator=gen, device=dev)
+    renderer = Renderer(image_size=1024)
+    renderer.transform.set_eyes_from_angles(2.732, 30, 45)
+    return v, f, tex, renderer, gen
+
+
+def step_times(torch, np, fv, tex, timed):
+    """The steps' times in ms: soft_rasterize's (CUDA events), render_mesh's
+    frame and step (host clock), and the device time of each step."""
+    import time
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from jrender_tpu_torch import Mesh
+    from jrender_tpu_torch.ops.softras import soft_rasterize
+    dev = fv.device
+    v, f, tex_m, renderer, _ = scene(torch, dev)
+    fv_leaf = fv.detach().clone().requires_grad_(True)
+    tex_leaf = tex.detach().clone().requires_grad_(True)
+    mesh = Mesh(v, f, textures=tex_m, texture_res=5)
+    v_leaf = torch.tensor(v, device=dev).requires_grad_(True)
+    t_leaf = tex_m.clone().requires_grad_(True)
+    mesh_g = Mesh(v_leaf, f, textures=t_leaf, texture_res=5)
+
+    def raster_step():
+        fv_leaf.grad = tex_leaf.grad = None
+        soft_rasterize(fv_leaf, tex_leaf, image_size=1024).sum().backward()
+
+    def frame():
+        mesh.reset_()
+        with torch.no_grad():
+            renderer.render_mesh(mesh, mode='rgb')
+
+    def render_step():
+        v_leaf.grad = t_leaf.grad = None
+        mesh_g.reset_()
+        alpha, rgb = renderer.render_mesh(mesh_g, mode=None)
+        (alpha.sum() + rgb.sum()).backward()
+
+    def wall(fn, reps=10, rounds=5):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / reps)
+        return float(np.median(times))
+
+    def device(fn, reps=4):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e3 / reps
+
+    return {'soft_rasterize_step_ms': timed(raster_step, reps=10),
+            'render_mesh_frame_ms': wall(frame), 'render_mesh_step_ms': wall(render_step),
+            'soft_rasterize_step_device_ms': device(raster_step),
+            'render_mesh_frame_device_ms': device(frame),
+            'render_mesh_step_device_ms': device(render_step)}
+
+
+def worker(repo: str, inputs: str, out: str, make: bool) -> int:
+    """One tree's run, in a process that imports that tree only."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(Path(repo).resolve()))
+    from jrender_tpu_torch import Mesh
+    from jrender_tpu_torch.ops.softras import binning, cuda_impl, make_params
+
+    dev = torch.device('cuda')
+    p = make_params(image_size=1024)
+    if make:
+        v, f, tex, renderer, gen = scene(torch, dev)
+        mesh = Mesh(v, f, textures=tex, texture_res=5)
+        with torch.no_grad():
+            lit = renderer.transform(renderer.lighting(mesh, renderer.transform.eyes))
+        fv = lit.face_vertices.reshape(1, -1, 9).contiguous()
+        tex = lit.face_textures.contiguous()
+        inp = cuda_impl.prepare(fv, tex, p, for_grad=True)
+        img, ag, cnt = cuda_impl.launch(inp, p)
+        thr = cuda_impl.launch_thr(inp, cnt, p)
+        g = torch.randn(img.shape, generator=gen, device=dev)
+        torch.save({'fv': fv, 'tex': tex, 'img': img, 'ag': ag, 'cnt': cnt, 'thr': thr,
+                    'g': g}, inputs)
+        return 0
+
+    d = torch.load(inputs, map_location=dev)
+    fv, tex = d['fv'], d['tex']
+    inp = cuda_impl.prepare(fv, tex, p, for_grad=True)
+    img, ag, cnt = cuda_impl.launch(inp, p)
+    rows = cuda_impl.launch_bwd(inp, d['img'], d['ag'], d['thr'], d['g'], p)
+    gf, gt = cuda_impl.launch_reduce(inp, rows, p)
+    torch.cuda.synchronize()
+    n = int(inp.lists.run_counts.sum())
+    nb = int(inp.lists.gcount.sum())
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def timed(fn, reps=20, rounds=5):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(rounds):
+            ev[0].record()
+            for _ in range(reps):
+                fn()
+            ev[1].record()
+            torch.cuda.synchronize()
+            times.append(ev[0].elapsed_time(ev[1]) / reps)
+        return float(np.median(times))
+
+    ones = torch.ones_like(img)
+    times = {'fwd_ms': timed(lambda: cuda_impl.launch(inp, p)),
+             'thr_ms': timed(lambda: cuda_impl.launch_thr(inp, cnt, p)),
+             'bwd_ms': timed(lambda: cuda_impl.launch_bwd(inp, img, ag, d['thr'], ones, p)),
+             'reduce_ms': timed(lambda: cuda_impl.launch_reduce(inp, rows, p))}
+    busiest = int(inp.lists.counts[0].argmax())
+    ids = binning.tile_list(inp.lists, 0, busiest, -(-1024 // cuda_impl.TILE)).long()
+    sub = cuda_impl.prepare(fv[:, ids].contiguous(), tex[:, ids].contiguous(), p, for_grad=True)
+    img_s, ag_s, cnt_s = cuda_impl.launch(sub, p)
+    thr_s = cuda_impl.launch_thr(sub, cnt_s, p)
+    times['fwd_busiest_tile_alone_ms'] = timed(lambda: cuda_impl.launch(sub, p))
+    times['bwd_busiest_tile_alone_ms'] = timed(
+        lambda: cuda_impl.launch_bwd(sub, img_s, ag_s, thr_s, torch.ones_like(img_s), p))
+    times.update(step_times(torch, np, fv, tex, timed))
+    torch.save({'img': img, 'ag': ag, 'cnt': cnt, 'times': times, 'busiest_faces': ids.numel(),
+                'slot_rows': digest(rows.gslots[:, :n], rows.gbig[:, :nb]),
+                'reduced': digest(gf, gt)}, out)
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--parent', help='the other tree of the port')
+    ap.add_argument('--worker', help=argparse.SUPPRESS)
+    ap.add_argument('--inputs', help=argparse.SUPPRESS)
+    ap.add_argument('--out', help=argparse.SUPPRESS)
+    ap.add_argument('--make', action='store_true', help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print('compare_softras_trees: no CUDA device', file=sys.stderr)
+        return 2
+    if args.worker:
+        return worker(args.worker, args.inputs, args.out, args.make)
+    if not args.parent:
+        ap.error('--parent is required')
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout.strip().splitlines()[0]
+    trees = {'parent': str(Path(args.parent).resolve()), 'change': str(REPO)}
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = f'{tmp}/inputs.pt'
+
+        def run(tree, out, make=False):
+            cmd = [sys.executable, __file__, '--worker', trees[tree], '--inputs', inputs,
+                   '--out', out] + (['--make'] if make else [])
+            subprocess.run(cmd, check=True)
+
+        run('change', '', make=True)
+        turns = []
+        for i, tree in enumerate(('parent', 'change', 'change', 'parent')):
+            run(tree, f'{tmp}/{i}.pt')
+            turns.append((tree, torch.load(f'{tmp}/{i}.pt')))
+    first = {tree: r for tree, r in reversed(turns)}
+    par, chg = first['parent'], first['change']
+    same = {
+        'fwd_counts_equal': torch.equal(par['cnt'], chg['cnt']),
+        'fwd_softmax_max_equal': torch.equal(par['ag'][:, 1], chg['ag'][:, 1]),
+        'fwd_image_max_abs_diff': (par['img'] - chg['img']).abs().max().item(),
+        'fwd_aggr_S_max_rel_diff': ((par['ag'][:, 0] - chg['ag'][:, 0]).abs()
+                                    / par['ag'][:, 0].abs()).max().item(),
+        'bwd_slot_rows_equal': par['slot_rows'] == chg['slot_rows'],
+        'bwd_reduced_equal': par['reduced'] == chg['reduced'],
+        'each_tree_twice_equal': all(r['slot_rows'] == first[t]['slot_rows']
+                                     and torch.equal(r['img'], first[t]['img'])
+                                     for t, r in turns)}
+    print(json.dumps({'device': smi, 'busiest_tile_faces': int(chg['busiest_faces']),
+                      'agree': same,
+                      'turns': [{'tree': t, **r['times']} for t, r in turns]}), flush=True)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())
