@@ -17,7 +17,11 @@ of which raises on failure:
      chunks a rank over distance x rgb x alpha, big faces spanning ranks,
      lists of one face, twins at equal depth in different ranks (the lower
      id wins), rows past 48 KB of shared memory, counts and winners exact
-     there; the top-K threshold over the same meshes, K = 1, 4, 16 and 40;
+     there; the top-K threshold over the same meshes, K = 1, 4, 16 and 40
+     over the three distances on lists of many chunks a rank, big faces
+     spanning ranks, twins (each depth counts twice), lists of one face, a
+     ragged edge and the busiest tile's faces alone, each map bit-equal
+     twice and at 2, 4 and 8 blocks per tile;
      the backward and its face reduction at 128 px over distance x rgb x
      alpha, texture sizes, vertex colours, batches, a ragged size,
      ``grad_mode='full'``, big faces, rows past 48 KB and runs of many
@@ -32,9 +36,10 @@ of which raises on failure:
      ``mesh.textures``, at 1024 px on the same sphere; one launch of each
      kernel per step; the gradient of 4,096 random pixels is held against
      the plain backward on those pixels; every kernel is timed alone and
-     bounded from this run's pair counts; the forward and backward also on
-     the busiest tile's faces alone and built with 2, 4 and 8 blocks per
-     tile;
+     bounded from this run's pair counts; the forward, threshold and
+     backward also on the busiest tile's faces alone and built with 2, 4
+     and 8 blocks per tile (the threshold's maps bit-equal across them),
+     the threshold also at K = 40 (its bisection);
   6. dense: 256 px on the same sphere, where the JAX package's per-tile
      cap of 2,048 faces binds; 4,096 pixels against the plain version;
   7. a trainer: 20 steps of demo 2's optimisation (120 views at 64 px of
@@ -46,17 +51,21 @@ of which raises on failure:
   8. every N3MR kernel against its plain version on whole images of 64
      to 128 px: soups and a sphere, texture sizes 1, 2, 4 and 8, batches of 1
      and 2, ``fill_back``, a ragged size, a zero-area face, a NaN face and
-     a face that spans most of the screen; the edge gradient with rgb,
-     alpha and both; each backward run twice for bit equality;
+     a face that spans most of the screen, and triangles whose long edges
+     take the edge gradient's global list; the edge gradient with rgb,
+     alpha and both, its band keys equal to the plain version's; each
+     backward run twice for bit equality;
   9. the N3MR path at full width: ``Renderer(dr_type='n3mr',
      image_size=1024).render_mesh`` renders 8 frames of the 39,474-face
      sphere with 2x2x2 texels per face (rgb, then silhouettes and depth);
      8 steps of ``rasterize(...).sum().backward()`` (what ``bench.py``'s
      ``n3mr_row`` times), one launch of each wrapper per step; the maps of
      4,096 random pixels, the whole texture gradient and the edge gradient
-     of 48 faces are held against the plain versions; two steps with
-     anti-aliasing (2048 px inside); every kernel is timed alone and
-     bounded from this run's counts;
+     of 48 faces are held against the plain versions, and the edge
+     gradient on 2,048-px maps (the anti-aliased step's size); two steps
+     with anti-aliasing (2048 px inside); every kernel is timed alone and
+     bounded from this run's counts, the edge kernels also at 2048 px; the
+     band keys at 1024 px equal the plain version's, bit for bit;
  10. a trainer: 20 Adam steps of demo 4's texture fit (256 px, texture
      size 4, orthographic camera at a random azimuth per step, ambient
      light only) on a 1,300-face sphere towards images the port renders
@@ -128,7 +137,7 @@ of which raises on failure:
         1024 px, K = 16, one launch of each px_f wrapper per step; 4,096
         pixels and their gradient against the plain versions; each kernel
         timed alone and bounded; the steps on both routes in turns;
- 15. one JSON line of the kernels (18 of them); the last line is the device
+ 15. one JSON line of the kernels (19 of them); the last line is the device
      JSON.
 
 The meshes, textures, cameras and pixel samples come from fixed seeds.
@@ -208,7 +217,11 @@ the won pixels only; the per-face rows are the bbox walk's input, not the
 function's) and the cells of the edge scans (``n3mr_edgebwd``,
 ``torch_impl.edge_scan_census``: the difference on every scanned cell, the
 distances only where it is positive); each input is read once and each
-output written once.
+output written once.  Beside it the edge kernel's line gives
+``band_bytes_ms``: the bytes of the band design (each band's rows of both
+views read once, the keys, their order, the items and the slots) at the
+HBM rate; ``n3mr_edge_bands`` is bounded by pp read and its keys and items
+written.
 """
 from __future__ import annotations
 
@@ -226,7 +239,7 @@ FRAMES = 8
 STEPS = 8
 TRAIN_STEPS = 20
 SAMPLES = 4096
-SPLITS = (2, 4, 8)   # blocks per tile of the binned forward and backward, timed in phase 5
+SPLITS = (2, 4, 8)   # blocks per tile of the binned forward, threshold and backward (phase 5)
 # published peaks of one H100 SXM: fp32 on the CUDA cores, HBM3 bandwidth
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -413,9 +426,12 @@ def main() -> int:
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.time()
-    # with the binned forward and backward built at the other blocks per tile
+    # with the binned forward, threshold and backward built at the other
+    # blocks per tile
+    from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda
     variants = [(k, ((m, S),)) for k, m, chosen in (
         ('softras_fwd', 'SOFTRAS_FWD_SPLIT', cuda_impl.FWD_SPLIT),
+        ('softras_thr', 'SOFTRAS_FWD_SPLIT', cuda_impl.FWD_SPLIT),
         ('softras_bwd', 'SOFTRAS_BWD_SPLIT', cuda_impl.BWD_SPLIT)) for S in SPLITS if S != chosen]
     _build.build(kernels_src + variants)
     log(f'build: {kernels_src} and {len(variants)} variants in {time.time() - t0:.1f} s')
@@ -501,20 +517,39 @@ def main() -> int:
             f'big), bit-equal twice')
         return max(e_rgb, e_a), out
 
-    def compare_thr(tag, fv, tex, p):
-        """The threshold kernel against topk_threshold, whole image."""
+    def compare_thr(tag, fv, tex, p, mt=None):
+        """The threshold kernel twice (bit-equal), against topk_threshold on
+        the whole image, and built with the other blocks per tile of SPLITS
+        (the same map, bit for bit: the merge is exact); ``mt``: the
+        binning's emit cap."""
         inputs = cuda_impl.prepare(fv, tex, p)
+        if mt is not None:
+            inputs = inputs._replace(lists=binning.build_tile_lists_compact(
+                fv, p.image_size, cuda_impl.TILE, cuda_impl.TILE, p.threshold, mt))
         _, _, cnt = cuda_impl.launch(inputs, p)
         thr = cuda_impl.launch_thr(inputs, cnt, p)
+        again = cuda_impl.launch_thr(inputs, cnt, p)
+        for S in SPLITS:
+            if S != cuda_impl.FWD_SPLIT:
+                args, thr_s = cuda_impl.thr_args(inputs, cnt, p)
+                cuda_impl._run(cuda_impl.split_variant('softras_thr', S), 'softras_thr', args, dev)
+                torch.cuda.synchronize()
+                if not torch.equal(thr, thr_s):
+                    raise AssertionError(f'{tag}: the threshold at {S} blocks per tile differs')
         torch.cuda.synchronize()
+        if not torch.equal(thr, again):
+            raise AssertionError(f'{tag}: two runs of the threshold differ in their bits')
         want = torch_impl.topk_threshold_plain(fv, p, chunk_pairs=1 << 24)
         bad = (thr - want).abs() > THR_RTOL * want.abs()
         check(f'{tag} threshold', bad.float().mean().item(), THR_FRAC)
         K = p.max_faces_id
         if not (thr[cnt <= K] == p.far).all():
             raise AssertionError(f'{tag}: a pixel with at most K candidates has a threshold')
+        cl = inputs.lists
         log(f'  {tag}: K={K}, {(cnt > K).float().mean().item():.3f} of pixels over K, '
-            f'{bad.float().mean().item():.6f} beyond (max {(thr - want).abs().max().item():.3g})')
+            f'{bad.float().mean().item():.6f} beyond (max {(thr - want).abs().max().item():.3g}); '
+            f'longest list {int(cl.gcount.max()) + int(cl.run_counts.max())} '
+            f'({int(cl.gcount.max())} big); bit-equal twice and at {SPLITS} blocks per tile')
         return (thr - want).abs().max().item()
 
     def compare_bwd(tag, fv, tex, p, mt=None):
@@ -642,6 +677,37 @@ def main() -> int:
     thr_err = max(thr_err, compare_thr('dense soup 128, bisection', fv_dense, tex_dense,
                                        make_params(image_size=128, sigma_val=1e-4,
                                                    max_faces_per_pixel_for_grad=40)))
+    # the split of a tile's list over the cluster's FWD_SPLIT blocks: lists of
+    # many chunks a rank (K = 40: the ranks' bisection counts summed), big
+    # faces whose prefix of the list spans several ranks (emit cap 2), twins
+    # at equal depth in different shares (each depth counts twice), a sparse
+    # soup whose lists rank 0 walks alone, the busiest tile's faces alone
+    for K in (1, 4, 16, 40):
+        for dist in ('hard', 'barycentric', 'euclidean'):
+            thr_err = max(thr_err, compare_thr(
+                f'long lists 128 {dist}', fv_long, tex_long,
+                make_params(image_size=128, dist_func=dist, sigma_val=1e-4,
+                            max_faces_per_pixel_for_grad=K)))
+    for K in (4, 40):
+        thr_err = max(thr_err, compare_thr(
+            'long lists 128, big faces (emit cap 2)', fv_long, tex_long,
+            make_params(image_size=128, sigma_val=1e-4, max_faces_per_pixel_for_grad=K), mt=2))
+    fv, tex = soup(1500, 1, 4, SEED + 12, radius=(0.02, 0.08), centre=(-0.3, 0.3))
+    for K in (1, 3):
+        thr_err = max(thr_err, compare_thr(
+            f'twins 128, equal depths', torch.cat([fv, fv], 1), torch.cat([tex, tex], 1),
+            make_params(image_size=128, sigma_val=1e-4, max_faces_per_pixel_for_grad=K)))
+    fv, tex = soup(60, 2, 1, SEED + 11, radius=(0.01, 0.2))
+    thr_err = max(thr_err, compare_thr('sparse soup 128, lists of one face', fv, tex,
+                                       make_params(image_size=128,
+                                                   max_faces_per_pixel_for_grad=1)))
+    cl_long = cuda_impl.prepare(fv_long, tex_long, make_params(image_size=128)).lists
+    ids_long = binning.tile_list(cl_long, 0, int(cl_long.counts[0].argmax()),
+                                 -(-128 // cuda_impl.TILE)).long()
+    thr_err = max(thr_err, compare_thr(
+        f'the busiest tile of the long lists alone ({ids_long.numel()} faces)',
+        fv_long[:, ids_long].contiguous(), tex_long[:, ids_long].contiguous(),
+        make_params(image_size=128, sigma_val=1e-4)))
 
     log('phase 3c: backward kernels vs plain, whole images')
     bwd_err = red_err = 0.0
@@ -963,27 +1029,47 @@ def main() -> int:
                                 p_full, for_grad=True)
     img_b, ag_b, cnt_b = cuda_impl.launch(in_busy, p_full)
     thr_b = cuda_impl.launch_thr(in_busy, cnt_b, p_full)
-    cases = {'frame': (inputs, img_f, ag_f, thr_f, g_ones),
-             'busiest tile': (in_busy, img_b, ag_b, thr_b, torch.ones_like(img_b))}
+    cases = {'frame': (inputs, img_f, ag_f, thr_f, g_ones, counts_full),
+             'busiest tile': (in_busy, img_b, ag_b, thr_b, torch.ones_like(img_b), cnt_b)}
     split_ms = {}
-    for kernel, chosen in (('softras_fwd', cuda_impl.FWD_SPLIT),
-                           ('softras_bwd', cuda_impl.BWD_SPLIT)):
+    split_kernels = (('softras_fwd', cuda_impl.FWD_SPLIT), ('softras_thr', cuda_impl.FWD_SPLIT),
+                     ('softras_bwd', cuda_impl.BWD_SPLIT))
+    for kernel, chosen in split_kernels:
         for S in SPLITS:
             fn = None if S == chosen else cuda_impl.split_variant(kernel, S)
-            for which, (inp, im, ag_, th, g_) in cases.items():
+            for which, (inp, im, ag_, th, g_, cn) in cases.items():
                 if kernel == 'softras_fwd':
                     args = cuda_impl.fwd_args(inp, p_full)[0]
                     run = (lambda: cuda_impl.launch(inp, p_full)) if fn is None else \
                         (lambda: cuda_impl._run(fn, kernel, args, dev))
+                elif kernel == 'softras_thr':
+                    args, th_s = cuda_impl.thr_args(inp, cn, p_full)
+                    run = (lambda: cuda_impl.launch_thr(inp, cn, p_full)) if fn is None else \
+                        (lambda: cuda_impl._run(fn, kernel, args, dev))
+                    if fn is not None:
+                        run()
+                        torch.cuda.synchronize()
+                        if not torch.equal(th_s, th):
+                            raise AssertionError(f'1024 px {which}: the threshold at {S} blocks '
+                                                 'per tile differs')
                 else:
                     args = cuda_impl.bwd_args(inp, im, ag_, th, g_, p_full)[0]
                     run = (lambda: cuda_impl.launch_bwd(inp, im, ag_, th, g_, p_full)) \
                         if fn is None else (lambda: cuda_impl._run(fn, kernel, args, dev))
                 split_ms[kernel, S, which] = timed(run, reps=30)
     fwd_busy_ms = split_ms['softras_fwd', cuda_impl.FWD_SPLIT, 'busiest tile']
+    thr_busy_ms = split_ms['softras_thr', cuda_impl.FWD_SPLIT, 'busiest tile']
     bwd_busy_ms = split_ms['softras_bwd', cuda_impl.BWD_SPLIT, 'busiest tile']
-    for kernel, chosen in (('softras_fwd', cuda_impl.FWD_SPLIT),
-                           ('softras_bwd', cuda_impl.BWD_SPLIT)):
+    # the threshold alone, on the inputs of the bench step, and its busiest
+    # tile alone, with the chosen build; and at K = 40, past the per-thread
+    # list: the bisection's 32 walks (the count map does not depend on K)
+    p_k40 = make_params(image_size=1024, max_faces_per_pixel_for_grad=40)
+    thr_k40_ms = timed(lambda: cuda_impl.launch_thr(inputs, counts_full, p_k40), reps=3, warm=1)
+    log(f'  threshold: frame {thr_ms:.4f} ms, busiest tile ({ids_b.numel()} faces) alone '
+        f'{thr_busy_ms:.4f} ms; maps at {SPLITS} blocks per tile bit-equal; at K = 40 '
+        f'(bisection) {thr_k40_ms:.4f} ms, {(counts_full > 40).float().mean().item():.4f} of '
+        f'pixels over K  [{smi}]')
+    for kernel, chosen in split_kernels:
         log(f'  {kernel}, blocks per tile (chosen {chosen}): ' + '; '.join(
             f'{S}: frame {split_ms[kernel, S, "frame"]:.4f} ms, busiest tile '
             f'({ids_b.numel()} faces) alone {split_ms[kernel, S, "busiest tile"]:.4f} ms'
@@ -993,9 +1079,13 @@ def main() -> int:
     reserved_b = cuda_impl.bwd_reserved_bytes(GC - 9)
     chunk_f = cuda_impl.staged_chunk(row)
     chunk_b = cuda_impl.staged_chunk(row, reserved_b)
+    chunk_t = cuda_impl.thr_chunk(p_full.max_faces_id)
     log(f'  shared memory a block: softras_fwd {max(8 * chunk_f * (row + 1), 4 * 7 * 256):,} '
-        f'bytes ({chunk_f} faces a chunk, 2 buffers), softras_bwd '
-        f'{8 * chunk_b * (row + 1) + reserved_b:,} bytes ({chunk_b} faces a chunk, 2 buffers)')
+        f'bytes ({chunk_f} faces a chunk, 2 buffers), softras_thr '
+        f'{8 * chunk_t * (cuda_impl.ROW_BASE + 1) + 4 * (p_full.max_faces_id + 1) * 256:,} bytes '
+        f'({chunk_t} faces a chunk, 2 buffers, K = {p_full.max_faces_id} depths a pixel), '
+        f'softras_bwd {8 * chunk_b * (row + 1) + reserved_b:,} bytes ({chunk_b} faces a chunk, '
+        '2 buffers)')
 
     # ---- 6. dense: the JAX per-tile cap binds ---------------------------
     log('phase 6: 256 px, 39,474 faces')
@@ -1079,11 +1169,12 @@ def main() -> int:
 
     # ---- 8. N3MR kernels vs plain, whole images ----------------------------
     log('phase 8: N3MR kernels vs plain, whole images')
-    from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda, torch_impl as nplain, rasterize
+    from jrender_tpu_torch.ops.n3mr import torch_impl as nplain, rasterize
     from jrender_tpu_torch.ops.n3mr.api import fill_back_faces, fill_back_textures
     from jrender_tpu_torch.utils.checks import (N3MR_SUM_TOL, n3mr_maps_beyond,
                                                 n3mr_special_faces, scaled_err)
     n_wrappers = {'n3mr_maps': ncuda.launch_maps, 'n3mr_texbwd': ncuda.launch_texbwd,
+                  'n3mr_edge_bands': ncuda.launch_edge_bands,
                   'n3mr_edgebwd': ncuda.launch_edgebwd}
     n_err = dict.fromkeys(n_wrappers, 0.0)
 
@@ -1110,6 +1201,24 @@ def main() -> int:
             raise AssertionError(f'{tag}: two runs differ in their bits')
         return a
 
+    def band_keys_check(tag, pp, is_):
+        """The band-key kernel against its plain version on pp: keys and
+        items must be equal; the largest difference goes to n_err."""
+        keys, items = ncuda.launch_edge_bands(pp, is_)
+        keys_w, items_w = ncuda.band_keys_plain(pp, is_)
+        torch.cuda.synchronize()
+        if keys.dtype != keys_w.dtype or keys.shape != keys_w.shape \
+                or items.shape != items_w.shape:
+            raise AssertionError(f'{tag}: the band keys differ from the plain version\'s in '
+                                 'type or shape')
+        e = max((keys - keys_w).abs().max().item() if keys.numel() else 0,
+                (items - items_w).abs().max().item() if items.numel() else 0)
+        n_err['n3mr_edge_bands'] = max(n_err['n3mr_edge_bands'], float(e))
+        if e != 0:
+            raise AssertionError(f'{tag}: the band keys differ from the plain version\'s '
+                                 f'by up to {e}')
+        return keys, items
+
     def n3mr_compare(tag, face, tex, is_, eps=1e-3):
         """The three kernels against their plain versions on whole images:
         the z-buffer's maps and rgb, then both gradients on the kernel's
@@ -1127,6 +1236,9 @@ def main() -> int:
         e_tex = scaled_err(g_tex, nplain.backward_textures(tex.shape, fi, wt, dp, zc, gr, eps))
         check(f'{tag} texture gradient', e_tex, N3MR_SUM_TOL)
         e_edge = 0.0
+        # the band keys: the kernel's equal the plain version's, bit for bit
+        pp = ncuda.edge_inputs(face, fi, rgb, alpha, gr, ga, is_, True, True)[0]
+        nb = band_keys_check(tag, pp, is_)[1][:, 2]
         for rr, ra in ((True, True), (True, False), (False, True)):
             args = (face, fi, rgb, alpha, gr, ga, is_, eps, rr, ra)
             g_face = twice(f'{tag} edge gradient', lambda: ncuda.backward_pixel_map(*args))
@@ -1139,7 +1251,9 @@ def main() -> int:
             n_err[name] = max(n_err[name], e)
         log(f'  {tag}: {share:.6f} of pixels with another winner, maps max {e_maps:.2g}; '
             f'texture grad {e_tex:.2g} of scale, edge grad {e_edge:.2g}; '
-            f'covered {alpha.mean().item():.3f}; bit-equal twice')
+            f'covered {alpha.mean().item():.3f}; edge items in bands {int((nb > 0).sum())}, '
+            f'global {int((nb < 0).sum())}, band keys equal; bit-equal twice')
+        return int((nb < 0).sum())
 
     for ts in (1, 2, 4):
         fv, _ = soup(300, 1, 1, SEED + 10 + ts)
@@ -1159,6 +1273,12 @@ def main() -> int:
     fv_sp = n3mr_special_faces(fv_n2)
     n3mr_compare('soup 128 big, zero-area and NaN faces', fv_sp,
                  n3mr_texture(2, 300, 4, SEED + 23), 128)
+    # triangles over most of the screen: long silhouette edges, which span
+    # more than EDGE_SPAN bands, take the global list
+    fv_lg, _ = soup(40, 2, 1, SEED + 25, radius=(0.4, 0.9), centre=(-0.3, 0.3))
+    if n3mr_compare('soup 128 long silhouette edges', fv_lg, n3mr_texture(2, 40, 2, SEED + 26),
+                    128) < 20:
+        raise AssertionError('long silhouette edges: too few edge items in the global list')
     # with an emit cap of 4 tiles most faces go through the big-face list:
     # the same maps, bit for bit
     rows_sp, *maps_sp = ncuda.forward_maps(fv_sp, None, 128, 0.1, 100.0, 1e-3)
@@ -1192,7 +1312,8 @@ def main() -> int:
         n_frames = [n3mr_frame(i, mode) for i, mode in enumerate(modes)]
     torch.cuda.synchronize()
     n_render_counts = n_read_counts()
-    if n_render_counts != {'n3mr_maps': FRAMES, 'n3mr_texbwd': 0, 'n3mr_edgebwd': 0}:
+    if n_render_counts != {'n3mr_maps': FRAMES, 'n3mr_texbwd': 0, 'n3mr_edge_bands': 0,
+                           'n3mr_edgebwd': 0}:
         raise AssertionError(f'N3MR launches of {FRAMES} plain frames: {n_render_counts}')
     for mode, img in zip(modes, n_frames):
         want_shape = (1, 3, 1024, 1024) if mode == 'rgb' else (1, 1024, 1024)
@@ -1300,6 +1421,29 @@ def main() -> int:
     edgebwd_ms = timed(lambda: ncuda.launch_edgebwd(*edge_in, EPS_N, True, False))
     edge_prep_ms = timed(lambda: ncuda.edge_inputs(fv_n, fi_n, rgb_n, alpha_n, gr_n, alpha_n,
                                                    1024, True, False))
+    # the band keys alone (kernel, and with their sort), held against their
+    # plain version on the same inputs, bit for bit
+    keys_n, items_n = band_keys_check('1024 px', edge_in[0], 1024)
+    nb_n, key_bytes = items_n[:, 2], keys_n.element_size()
+    bands_ms = timed(lambda: ncuda.launch_edge_bands(edge_in[0], 1024))
+    bands_sort_ms = timed(lambda: ncuda.edge_bands(edge_in[0], 1024))
+    bands_plain_ms = timed(lambda: ncuda.band_keys_plain(edge_in[0], 1024))
+    # the anti-aliased step's edge gradient: the maps at 2048 px
+    rows_aa = nplain.face_rows(fv_n, 2048)
+    maps_aa = ncuda.launch_maps(rows_aa, ncuda.tile_lists(fv_n, 2048), tex_n, 2048, 0.1, 100.0,
+                                EPS_N)
+    fi_aa, rgb_aa = maps_aa[0], maps_aa[5]
+    gen.manual_seed(SEED + 9)
+    gr_aa = torch.randn(rgb_aa.shape, generator=gen, device=dev)
+    alpha_aa = (fi_aa >= 0).float()
+    edge_aa = ncuda.edge_inputs(fv_n, fi_aa, rgb_aa, alpha_aa, gr_aa, alpha_aa, 2048, True, False)
+    g_face_aa = twice('2048 px edge gradient', lambda: ncuda.launch_edgebwd(
+        *edge_aa, EPS_N, True, False))
+    e_aa = scaled_err(g_face_aa[:, ids_n], nplain.backward_pixel_map(
+        fv_n, fi_aa, rgb_aa, alpha_aa, gr_aa, alpha_aa, 2048, EPS_N, True, False, faces=ids_n))
+    check('2048 px edge gradient of the sampled faces', e_aa, N3MR_SUM_TOL)
+    n_err['n3mr_edgebwd'] = max(n_err['n3mr_edgebwd'], e_aa)
+    edgebwd_aa_ms = timed(lambda: ncuda.launch_edgebwd(*edge_aa, EPS_N, True, False))
     n_bin_ms = timed(lambda: ncuda.tile_lists(fv_n, 1024), reps=5)
     maps_plain_ms = timed(plain_maps_sample, reps=2, warm=1)
     texbwd_plain_ms = timed(plain_texbwd, reps=5, warm=1)
@@ -1347,6 +1491,23 @@ def main() -> int:
     edgebwd_bound = bound(
         (out_cells + in_cells) * 3 * N_OPS_CHANNEL + pos_cells * N_OPS_CELL + e_rows * 40,
         4 * (F_n * 6 + 7 * HW_n + F_n * 9))
+    # the band design's bytes: each band's rows of both views (face index and
+    # 6 channels) read once, pp, the sorted keys, their order and the items
+    # read once (a key of key_bytes, its order of 8), the slots written and
+    # read once, the gradient written
+    n_items = 6 * F_n
+    slot_bytes = 4 * 2 * int(nb_n.clamp_min(0).sum() + (nb_n < 0).sum())
+    band_bytes = 4 * 2 * 7 * HW_n + 4 * 7 * F_n + (key_bytes + 8) * n_items * ncuda.EDGE_SPAN \
+        + 12 * n_items + 2 * slot_bytes + 4 * 9 * F_n
+    band_bytes_ms = band_bytes / PEAK_BYTES * 1e3
+    # the band keys: pp in, the keys and items out
+    bands_bound = bound(n_items * (ncuda.EDGE_SPAN * 6 + 12),
+                        4 * 7 * F_n + key_bytes * n_items * ncuda.EDGE_SPAN + 12 * n_items)
+    e_rows_aa, out_aa, in_aa, longest_aa, pos_aa = nplain.edge_scan_census(
+        fv_n, fi_aa, 2048, [[(rgb_aa[0, ..., k], gr_aa[0, ..., k]) for k in range(3)]])
+    edgebwd_aa_bound = bound(
+        (out_aa + in_aa) * 3 * N_OPS_CHANNEL + pos_aa * N_OPS_CELL + e_rows_aa * 40,
+        4 * (F_n * 6 + 7 * 4 * HW_n + F_n * 9))
     log(f'  counts: {int(front_n.sum().item())} front faces, {won.numel()} drawn; tile-list '
         f'pairs with a front face {front_pairs:,}, inside {inside_pairs:,}, drawn pixels '
         f'{drawn:,}; busiest tile {int(lists_n.counts.max().item())} faces; edge scans: '
@@ -1355,10 +1516,18 @@ def main() -> int:
         f'({longest / max(out_cells + in_cells, 1):.2e} of all, mean item '
         f'{(out_cells + in_cells) / max(int(front_n.sum().item()) * 6, 1):,.0f})')
     for name, b in (('n3mr_maps', maps_bound), ('n3mr_texbwd', texbwd_bound),
-                    ('n3mr_edgebwd', edgebwd_bound)):
+                    ('n3mr_edge_bands', bands_bound), ('n3mr_edgebwd', edgebwd_bound),
+                    ('n3mr_edgebwd at 2048 px', edgebwd_aa_bound)):
         log(f'  bound {name}: {b[0]:.6f} ms by {b[1]}: {b[2]}')
+    log(f'  edge items: {int((nb_n > 0).sum()):,} in bands of {ncuda.EDGE_BAND} rows, '
+        f'{int((nb_n < 0).sum()):,} global, {int(nb_n.clamp_min(0).sum()):,} (item, band) '
+        f'slots; the band design moves {band_bytes:,} bytes ({band_bytes_ms:.6f} ms at the '
+        f'HBM rate); at 2048 px: {e_rows_aa:,} rows, {out_aa:,} cells outwards, {in_aa:,} '
+        f'inwards, {pos_aa:,} positive, longest item {longest_aa:,}')
     log(f'  kernels alone: z-buffer {maps_ms:.4f} ms, texture gradient {texbwd_ms:.4f} ms, '
-        f'edge gradient {edgebwd_ms:.4f} ms (its inputs, plain torch: {edge_prep_ms:.4f} ms); '
+        f'edge gradient {edgebwd_ms:.4f} ms with its band keys and their sort (the keys '
+        f'{bands_ms:.4f} ms, with the sort {bands_sort_ms:.4f} ms, plain {bands_plain_ms:.4f} ms; '
+        f'its inputs, plain torch: {edge_prep_ms:.4f} ms); at 2048 px {edgebwd_aa_ms:.4f} ms; '
         f'binning {n_bin_ms:.3f} ms  [{smi}]')
     log(f'  plain versions: z-buffer on {SAMPLES} pixels {maps_plain_ms:.1f} ms, texture '
         f'gradient (whole frame) {texbwd_plain_ms:.3f} ms, index_add_ of its rows '
@@ -1394,7 +1563,7 @@ def main() -> int:
     # a step renders the goal and the fit; only textures ask for a gradient,
     # so the edge kernel is not launched
     if fit_counts != {'n3mr_maps': 2 * N_TRAIN_STEPS, 'n3mr_texbwd': N_TRAIN_STEPS,
-                      'n3mr_edgebwd': 0}:
+                      'n3mr_edge_bands': 0, 'n3mr_edgebwd': 0}:
         raise AssertionError(f'N3MR launches of {N_TRAIN_STEPS} fitting steps: {fit_counts}')
     first, last = np.mean(fit_losses[:3]), np.mean(fit_losses[-3:])
     if not (np.isfinite(fit_losses).all() and last < first
@@ -2681,8 +2850,10 @@ def main() -> int:
         {**entry('softras_fwd', 'softras_fwd.cu', 'jrender_tpu/ops/softras/pxt_impl.py:370',
                  fwd_err, fwd_ms, fwd_plain_ms, some, fwd_bound),
          'blocks_per_tile': cuda_impl.FWD_SPLIT, 'busiest_tile_ms': fwd_busy_ms},
-        entry('softras_thr', 'softras_thr.cu', 'jrender_tpu/ops/softras/pxt_impl.py:584',
-              thr_err, thr_ms, thr_plain_ms, some, thr_bound),
+        {**entry('softras_thr', 'softras_thr.cu', 'jrender_tpu/ops/softras/pxt_impl.py:584',
+                 thr_err, thr_ms, thr_plain_ms, some, thr_bound),
+         'blocks_per_tile': cuda_impl.FWD_SPLIT, 'busiest_tile_ms': thr_busy_ms,
+         'ms_k40': thr_k40_ms},
         {**entry('softras_bwd', 'softras_bwd.cu', 'jrender_tpu/ops/softras/pxt_impl.py:856',
                  bwd_err, bwd_ms, bwd_plain_ms, some, bwd_bound),
          'blocks_per_tile': cuda_impl.BWD_SPLIT, 'busiest_tile_ms': bwd_busy_ms},
@@ -2695,9 +2866,13 @@ def main() -> int:
         entry('n3mr_texbwd', 'n3mr_texbwd.cu', 'jrender_tpu/ops/n3mr/pallas_impl.py:347',
               n_err['n3mr_texbwd'], texbwd_ms, texbwd_plain_ms, 'the whole frame',
               texbwd_bound, texbwd_lib_ms),
-        entry('n3mr_edgebwd', 'n3mr_edgebwd.cu', 'jrender_tpu/ops/n3mr/banded_bwd.py:347',
-              n_err['n3mr_edgebwd'], edgebwd_ms, edge_plain_ms,
-              f'{ids_n.numel()} of {F_n} faces', edgebwd_bound),
+        entry('n3mr_edge_bands', 'n3mr_edgebwd.cu', 'jrender_tpu/ops/n3mr/banded_bwd.py:56',
+              n_err['n3mr_edge_bands'], bands_ms, bands_plain_ms, 'all items', bands_bound),
+        {**entry('n3mr_edgebwd', 'n3mr_edgebwd.cu', 'jrender_tpu/ops/n3mr/banded_bwd.py:347',
+                 n_err['n3mr_edgebwd'], edgebwd_ms, edge_plain_ms,
+                 f'{ids_n.numel()} of {F_n} faces', edgebwd_bound),
+         'band_rows': ncuda.EDGE_BAND, 'band_bytes_ms': band_bytes_ms,
+         'ms_2048': edgebwd_aa_ms, 'bound_ms_2048': edgebwd_aa_bound[0]},
         entry('softras_dir_fwd', 'softras_dir_fwd.cu', 'jrender_tpu/ops/softras/dir_impl.py:202',
               max(d_err['fwd'], small['fwd_err']), small['fwd_ms'],
               small['fwd_plain_ms'], small['plain_on'], small['fwd_bound']),

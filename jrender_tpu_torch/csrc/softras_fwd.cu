@@ -414,8 +414,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   a.counts[(size_t)b * HW + px] = cm;
 }
 
+// static: its `checked` must be this library's own, not one shared with a
+// variant build (a static local of a function with external linkage is one
+// symbol across every library loaded)
 template <int DIST, int RGB>
-int launch(const FwdArgs& a, cudaStream_t stream) {
+static int launch(const FwdArgs& a, cudaStream_t stream) {
   const auto kernel = softras_fwd_kernel<DIST, RGB>;
   const size_t stage_bytes = 2 * (size_t)a.chunk * (a.row + 1) * sizeof(float);
   const size_t state_bytes = (size_t)kState * kThreads * sizeof(float);

@@ -4,13 +4,23 @@ by their input's device.
 Counterpart of ``jrender_tpu/ops/n3mr/pallas_impl.py``
 (``forward_sel_pallas`` :240, ``backward_textures_pallas`` :390) and
 ``banded_bwd.py`` (``backward_pixel_map_banded`` :636), without the TPU's
-work items, band lists and caps: every face and every edge is processed.
+work items and caps: every face and every edge is processed.
 
 Kernels and wrappers (each wrapper counts its launches in ``.launches``):
-  ``launch_maps``     csrc/n3mr_maps.cu     the z-buffer's maps and, with
-                                            textures, the sampled rgb
-  ``launch_texbwd``   csrc/n3mr_texbwd.cu   the texture gradient
-  ``launch_edgebwd``  csrc/n3mr_edgebwd.cu  the NMR edge gradient
+  ``launch_maps``        csrc/n3mr_maps.cu     the z-buffer's maps and, with
+                                               textures, the sampled rgb
+  ``launch_texbwd``      csrc/n3mr_texbwd.cu   the texture gradient
+  ``launch_edge_bands``  csrc/n3mr_edgebwd.cu  the edge items' band keys
+  ``launch_edgebwd``     csrc/n3mr_edgebwd.cu  the NMR edge gradient, on the
+                                               bands of EDGE_BAND rows that
+                                               ``edge_bands`` lists
+
+The edge gradient's items (face, edge, axis) are listed by the bands of
+d0 rows their edges span, as ``banded_bwd.build_band_lists`` (:56) lists
+them, without its caps: an item over more than EDGE_SPAN bands goes to a
+global list.  ``edgebwd_bands_plain`` is the plain version of that
+decomposition: partial sums per (item, band) from the lists, added in
+ascending band order.
 
 ``forward_maps``, ``backward_textures`` and ``backward_pixel_map`` go by
 the device of their input: a CPU tensor takes the plain version
@@ -20,16 +30,21 @@ input launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
+from ... import _build
 from ..softras import binning
-from ..softras.cuda_impl import _check, _entry, _run
+from ..softras.cuda_impl import _c_int, _check, _entry, _run
 from . import torch_impl
 from .torch_impl import ROW
 
 TILE = 16                     # screen tile = one block of TILE x TILE threads
 MAPS_CHUNK = 128              # face rows staged in shared memory at once
+EDGE_BAND = 4                 # d0 rows of an edge band (kBand of csrc/n3mr_edgebwd.cu)
+EDGE_SPAN = 8                 # bands an edge item is listed in, at most (kSpan)
+EDGE_SMEM_BYTES = 112 * 1024  # a band's staged rows: two blocks an SM
 
 
 class _MapsArgs(ctypes.Structure):
@@ -50,13 +65,31 @@ class _TexBwdArgs(ctypes.Structure):
         [('eps', ctypes.c_float)]
 
 
+class _EdgeBandArgs(ctypes.Structure):
+    """Mirror of ``n3mr::EdgeBandArgs`` in csrc/n3mr_edgebwd.cu."""
+    _fields_ = [(n, ctypes.c_void_p) for n in ('pp', 'keys', 'items')] + \
+        [(n, ctypes.c_int) for n in ('B', 'F', 'image_size', 'key_bytes')]
+
+
 class _EdgeBwdArgs(ctypes.Structure):
     """Mirror of ``n3mr::EdgeBwdArgs`` in csrc/n3mr_edgebwd.cu."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
-        'pp', 'fi2', 'planes', 'grad_face')] + \
+        'pp', 'fi2', 'planes', 'keys', 'order', 'items', 'slots', 'grad_face')] + \
         [(n, ctypes.c_int) for n in (
-            'B', 'F', 'image_size', 'nch', 'return_rgb', 'return_alpha')] + \
+            'B', 'F', 'image_size', 'nch', 'return_rgb', 'return_alpha', 'seg_w',
+            'n_seg', 'key_bytes')] + \
         [('eps', ctypes.c_float)]
+
+
+class EdgeBands(NamedTuple):
+    """The edge items listed by band.  Item ((axis * B + b) * F + f) * 3 + e
+    is edge e of face f of batch element b, walked along axis ``axis``."""
+    keys: torch.Tensor    # [N * EDGE_SPAN] sort keys, sorted (see band_keys_plain):
+    #                       int32 where they fit (key_dtype), else int64
+    order: torch.Tensor   # [N * EDGE_SPAN] int64: each key's item * EDGE_SPAN + j, its
+    #                       j-th band from the item's first
+    items: torch.Tensor   # [N, 3] int32: first and last d0 row, bands listed (-1:
+    #                       the global list, 0: none)
 
 
 def _device_of(t: torch.Tensor) -> torch.device:
@@ -178,11 +211,142 @@ def edge_inputs(face, face_index, rgb_map, alpha_map, grad_rgb, grad_alpha,
             torch.stack([planes.transpose(2, 3), planes]).contiguous())
 
 
-def launch_edgebwd(pp, fi2, planes, eps: float, return_rgb: bool, return_alpha: bool):
-    """Launch the edge-gradient kernel on the current stream: grad_face
-    [B,F,9] (x and y columns; z is 0) from ``edge_inputs``.  Deterministic:
-    no atomics, every sum in a fixed order.  ``launch_edgebwd.launches``
-    counts the launches."""
+class KeyLayout(NamedTuple):
+    """Where the band keys fall (``band_count``, ``group_keys`` and
+    ``gbase`` of csrc/n3mr_edgebwd.cu): group g = (axis * B + b) * n_bands
+    + band lists the keys [g * group, (g + 1) * group); the global items'
+    keys start at gbase; every key lies below top."""
+    n_bands: int
+    group: int
+    gbase: int
+    top: int
+
+
+def key_layout(B: int, F: int, is_: int, band: int = EDGE_BAND) -> KeyLayout:
+    n_bands = -(-is_ // band)
+    group = band * 3 * F
+    gbase = 2 * B * n_bands * group
+    return KeyLayout(n_bands, group, gbase, gbase + 6 * B * F * (1 + EDGE_SPAN))
+
+
+def key_dtype(B: int, F: int, is_: int, band: int = EDGE_BAND) -> torch.dtype:
+    """The band keys' type: int32 where the largest key fits (sorting it
+    takes half the passes of int64), else int64."""
+    return torch.int32 if key_layout(B, F, is_, band).top < 2 ** 31 else torch.int64
+
+
+def band_keys_plain(pp: torch.Tensor, is_: int, band: int = EDGE_BAND):
+    """The plain version of the band-key kernel: (keys [N * EDGE_SPAN] of
+    ``key_dtype``, unsorted, items [N, 3] int32) for pp [B, F, 7]
+    (``edge_inputs``).
+
+    An item's d0 rows are ``torch_impl._edge_rows``' (a back face, a NaN
+    corner or an empty range: none); it spans bands first // band to
+    last // band.  Over at most EDGE_SPAN bands, its j-th band gets the key
+    ((axis * B + b) * n_bands + band) * (band * 3F) + row0 * 3F + f * 3 + e
+    (row0: the item's first row in the band), so a band's list is sorted by
+    first row, face and edge; over more, its first key is gbase + item
+    (the global list, gbase = 2 B n_bands band 3F), and every other key is
+    gbase + N + item * EDGE_SPAN + j, which no list reads."""
+    B, F = pp.shape[:2]
+    dev = pp.device
+    e = torch.arange(3, device=dev)
+    p0 = torch.stack([pp[..., 2 * e + axis] for axis in (0, 1)])               # [2,B,F,3]
+    p1 = torch.stack([pp[..., 2 * ((e + 1) % 3) + axis] for axis in (0, 1)])
+    d0_from = torch.minimum(p0, p1).ceil().clamp_min(0.0)
+    d0_to = torch.maximum(p0, p1).clamp_max(is_ - 1.0)
+    ok = (pp[..., 6] > 0.5)[None, :, :, None] & (d0_from <= d0_to)
+    first = torch.where(ok, d0_from, 0.0).long()
+    last = torch.where(ok, d0_to.floor(), -1.0).long()
+    bfrom = first // band
+    nb = torch.where(ok, last // band - bfrom + 1, 0)
+    glob = nb > EDGE_SPAN
+    items = torch.stack([first, last, torch.where(glob, -1, nb)], -1).reshape(-1, 3).int()
+
+    N = 6 * B * F
+    n_bands, gk, gbase, _ = key_layout(B, F, is_, band)
+    it = torch.arange(N, device=dev).reshape(2, B, F, 3)
+    ab = torch.arange(2 * B, device=dev).reshape(2, B, 1, 1)
+    fe = (torch.arange(F, device=dev)[:, None] * 3 + e)                        # [F,3]
+    j = torch.arange(EDGE_SPAN, device=dev)
+    band_j = bfrom[..., None] + j
+    row0 = (first[..., None] - band_j * band).clamp_min(0)
+    listed = ((ab[..., None] * n_bands + band_j) * gk + row0 * 3 * F + fe[..., None])
+    key = gbase + N + it[..., None] * EDGE_SPAN + j
+    key = torch.where(~glob[..., None] & (j < nb[..., None]), listed, key)
+    key = torch.where(glob[..., None] & (j == 0), gbase + it[..., None], key)
+    return key.reshape(-1).to(key_dtype(B, F, is_, band)), items
+
+
+def _edge_lib(band: int):
+    """The edge kernels' library built with bands of ``band`` rows (the
+    default build for EDGE_BAND)."""
+    lib = _build.load('n3mr_edgebwd', () if band == EDGE_BAND else (('N3MR_EDGE_BAND', band),))
+    if _c_int(lib, 'n3mr_edgebwd_band') != band or _c_int(lib, 'n3mr_edgebwd_span') != EDGE_SPAN:
+        raise RuntimeError(f'n3mr_edgebwd takes bands of {_c_int(lib, "n3mr_edgebwd_band")} rows '
+                           f'and {_c_int(lib, "n3mr_edgebwd_span")} bands an item, the wrapper '
+                           f'{band} and {EDGE_SPAN}')
+    return lib
+
+
+def _band_keys(pp: torch.Tensor, is_: int, lib):
+    dev = _device_of(pp)
+    if pp.dim() != 3:
+        raise ValueError(f'pp must be [B, F, 7], got {tuple(pp.shape)}')
+    B, F = pp.shape[:2]
+    _check(pp, 'pp', torch.float32, (B, F, 7), dev)
+    band = _c_int(lib, 'n3mr_edgebwd_band')
+    gbase = lib.n3mr_edge_gbase
+    gbase.argtypes, gbase.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    if gbase(B, F, is_) != key_layout(B, F, is_, band).gbase:
+        raise RuntimeError(f'n3mr_edge_bands puts the global keys at {gbase(B, F, is_)}, '
+                           f'key_layout at {key_layout(B, F, is_, band).gbase}')
+    dtype = key_dtype(B, F, is_, band)
+    keys = torch.empty((6 * B * F * EDGE_SPAN,), dtype=dtype, device=dev)
+    items = torch.empty((6 * B * F, 3), dtype=torch.int32, device=dev)
+    fn = _entry('n3mr_edgebwd', 'n3mr_edge_bands', _EdgeBandArgs, lib=lib)
+    _run(fn, 'n3mr_edge_bands', _EdgeBandArgs(pp.data_ptr(), keys.data_ptr(), items.data_ptr(),
+                                              B, F, is_, keys.element_size()), dev)
+    return keys, items
+
+
+def launch_edge_bands(pp: torch.Tensor, is_: int):
+    """Launch the band-key kernel on the current stream: what
+    ``band_keys_plain`` returns.  ``launch_edge_bands.launches`` counts the
+    launches."""
+    _device_of(pp)
+    out = _band_keys(pp, is_, _edge_lib(EDGE_BAND))
+    launch_edge_bands.launches += 1
+    return out
+
+
+launch_edge_bands.launches = 0
+
+
+def edge_bands(pp: torch.Tensor, is_: int, band: int = EDGE_BAND, lib=None) -> EdgeBands:
+    """The edge items listed by band, keys sorted (``torch.sort``: the keys
+    are distinct, so the order is fixed); the card's keys from the kernel
+    (``lib``: a band variant's, uncounted), the CPU's from the plain
+    version.  No host synchronisation."""
+    if _by_device(pp):
+        keys, items = launch_edge_bands(pp, is_) if lib is None else _band_keys(pp, is_, lib)
+    else:
+        keys, items = band_keys_plain(pp, is_, band)
+    skeys, order = torch.sort(keys)
+    return EdgeBands(skeys, order, items)
+
+
+def edge_segment_width(is_: int, nch: int, band: int = EDGE_BAND) -> int:
+    """Columns of a band block: the whole row where ``band`` rows of the
+    face index and the ``nch`` channels fit EDGE_SMEM_BYTES, else the most
+    that fit, a multiple of 32."""
+    per_col = 4 * band * (1 + nch)
+    if per_col * is_ <= EDGE_SMEM_BYTES:
+        return is_
+    return max(32, EDGE_SMEM_BYTES // per_col // 32 * 32)
+
+
+def _edgebwd(pp, fi2, planes, eps, return_rgb, return_alpha, bands: EdgeBands, lib, band):
     dev = _device_of(pp)
     if not (return_rgb or return_alpha):
         raise ValueError('the edge gradient needs return_rgb or return_alpha')
@@ -192,21 +356,111 @@ def launch_edgebwd(pp, fi2, planes, eps: float, return_rgb: bool, return_alpha: 
     B, F = pp.shape[:2]
     is_ = fi2.shape[-1]
     nch = (2 if return_alpha else 0) + (6 if return_rgb else 0)
+    N = 6 * B * F
     _check(pp, 'pp', torch.float32, (B, F, 7), dev)
     _check(fi2, 'fi2', torch.int32, (2, B, is_, is_), dev)
     _check(planes, 'planes', torch.float32, (2, B, nch, is_, is_), dev)
+    _check(bands.keys, 'keys', key_dtype(B, F, is_, band), (N * EDGE_SPAN,), dev)
+    _check(bands.order, 'order', torch.int64, (N * EDGE_SPAN,), dev)
+    _check(bands.items, 'items', torch.int32, (N, 3), dev)
+    seg_w = edge_segment_width(is_, nch, band)
+    n_seg = -(-is_ // seg_w)
+    slots = torch.empty((N * EDGE_SPAN, n_seg, 2), dtype=torch.float32, device=dev)
     grad_face = torch.empty((B, F, 9), dtype=torch.float32, device=dev)
-
-    fn = _entry('n3mr_edgebwd', 'n3mr_edgebwd', _EdgeBwdArgs)
-    args = _EdgeBwdArgs(pp.data_ptr(), fi2.data_ptr(), planes.data_ptr(),
-                        grad_face.data_ptr(), B, F, is_, nch,
-                        int(return_rgb), int(return_alpha), eps)
+    fn = _entry('n3mr_edgebwd', 'n3mr_edgebwd', _EdgeBwdArgs, lib=lib)
+    args = _EdgeBwdArgs(pp.data_ptr(), fi2.data_ptr(), planes.data_ptr(), bands.keys.data_ptr(),
+                        bands.order.data_ptr(), bands.items.data_ptr(), slots.data_ptr(),
+                        grad_face.data_ptr(), B, F, is_, nch, int(return_rgb),
+                        int(return_alpha), seg_w, n_seg, bands.keys.element_size(), eps)
     _run(fn, 'n3mr_edgebwd', args, dev)
+    return grad_face
+
+
+def launch_edgebwd(pp, fi2, planes, eps: float, return_rgb: bool, return_alpha: bool):
+    """Launch the edge-gradient kernels on the current stream: grad_face
+    [B,F,9] (x and y columns; z is 0) from ``edge_inputs``, on the bands
+    that ``edge_bands`` lists (its band-key kernel counts in
+    ``launch_edge_bands``).  Deterministic: no float atomics, every sum in a
+    fixed order.  ``launch_edgebwd.launches`` counts the launches."""
+    _device_of(pp)
+    bands = edge_bands(pp, fi2.shape[-1])
+    grad_face = _edgebwd(pp, fi2, planes, eps, return_rgb, return_alpha, bands,
+                         _edge_lib(EDGE_BAND), EDGE_BAND)
     launch_edgebwd.launches += 1
     return grad_face
 
 
 launch_edgebwd.launches = 0
+
+
+def edgebwd_variant(band: int):
+    """``launch_edgebwd`` built with bands of ``band`` rows (the kernel's
+    N3MR_EDGE_BAND), uncounted: for a tool that times the alternatives to
+    EDGE_BAND.  The wrappers launch the default build only."""
+    lib = _edge_lib(band)
+
+    def run(pp, fi2, planes, eps, return_rgb, return_alpha):
+        bands = edge_bands(pp, fi2.shape[-1], band, lib)
+        return _edgebwd(pp, fi2, planes, eps, return_rgb, return_alpha, bands, lib, band)
+
+    return run
+
+
+def edgebwd_bands_plain(face, face_index, rgb_map, alpha_map, grad_rgb, grad_alpha, is_: int,
+                        eps: float, return_rgb: bool, return_alpha: bool,
+                        band: int = EDGE_BAND):
+    """The plain version of the edge kernels' decomposition: the items
+    listed by ``band_keys_plain``; each listed (item, band) the sum of the
+    item's cell terms on the band's rows (``torch_impl._edge_cells``), each
+    global item the sum over all its rows; each item's partials added in
+    ascending band order; the nine entries formed as the kernel forms them.
+    Returns grad_face [B, F, 9]."""
+    B, F = face.shape[:2]
+    dev, dt = face.device, face.dtype
+    pp = edge_inputs(face, face_index, rgb_map, alpha_map, grad_rgb, grad_alpha, is_,
+                     return_rgb, return_alpha)[0]
+    keys, items = band_keys_plain(pp, is_, band)
+    keys, order = torch.sort(keys)
+    N = 6 * B * F
+    n_bands, gk, gbase, _ = key_layout(B, F, is_, band)
+    # the cell terms of every item, summed per band: [2, B, F, 3, n_bands, 2]
+    per_band = torch.zeros((2, B, F, 3, n_bands, 2), dtype=dt, device=dev)
+    pad = n_bands * band - is_
+    for b in range(B):
+        pp_b = pp[b, :, :6].reshape(F, 3, 2)
+        front = pp[b, :, 6] > 0.5
+        fids = torch.arange(F, device=dev)
+        for e in range(3):
+            for axis in range(2):
+                r = torch_impl._edge_rows(pp_b, front, fids, face_index[b].reshape(-1).long(),
+                                          is_, e, axis)
+                cells = torch_impl._edge_cells(r, fids, axis, face_index[b].long(), alpha_map[b],
+                                               grad_alpha[b], rgb_map[b], grad_rgb[b], is_, eps,
+                                               return_rgb, return_alpha)
+                for k in range(2):       # the endpoints pi[0] (c1) and pi[1] (c2)
+                    rows = sum(c[k].sum(dim=2) for c in cells)                  # [F, is]
+                    rows = torch.nn.functional.pad(rows, (0, pad))
+                    per_band[axis, b, :, e, :, k] = rows.reshape(F, n_bands, band).sum(-1)
+    per_band = per_band.reshape(N, n_bands, 2)
+    slots = torch.zeros((N * EDGE_SPAN, 2), dtype=dt, device=dev)
+    it, j = order // EDGE_SPAN, order % EDGE_SPAN
+    listed = keys < gbase
+    group = keys[listed] // gk
+    slots[order[listed]] = per_band[it[listed], group % n_bands]
+    glob = (keys >= gbase) & (keys < gbase + N)
+    slots[order[glob]] = per_band[it[glob]].sum(dim=1)
+    slots = slots.reshape(N, EDGE_SPAN, 2)
+    nb = items[:, 2].long()
+    c = torch.where((nb < 0)[:, None], slots[:, 0], 0.0)
+    for jj in range(EDGE_SPAN):            # ascending band order
+        c = c + torch.where((jj < nb)[:, None], slots[:, jj], 0.0)
+    c = c.reshape(2, B, F, 3, 2)          # [axis, b, f, e, (c1, c2)]
+    out = torch.zeros((B, F, 3, 3), dtype=dt, device=dev)
+    for v in range(3):
+        for col in range(2):
+            ax = 1 - col
+            out[:, :, v, col] = -c[ax, :, :, v, 0] - c[ax, :, :, (v + 2) % 3, 1]
+    return out.reshape(B, F, 9)
 
 
 def tile_lists(face: torch.Tensor, is_: int) -> binning.CompactLists:

@@ -357,66 +357,78 @@ def _edge_rows(pp, front, fids, fi_flat, is_, edge_num, axis) -> _EdgeRows:
         hi_in=torch.maximum(d1_in, lim_in).clamp_max(is_ - 1))
 
 
+def _edge_cells(r: _EdgeRows, fids, axis, fi_map, alpha_map, ga_map, rgb_map, gr_map,
+                is_, eps, return_rgb, return_alpha):
+    """The terms diff / dist of every (d0, d1) cell of one (edge, axis)
+    case (``r``, from ``_edge_rows``) for the edge's two endpoints r.pi[0]
+    and r.pi[1], 0 where a cell adds nothing: [(OUT scan's two [Fc, is,
+    is] grids), (IN scan's two)]."""
+    Fc = r.p00.shape[0]
+    dev, dt = r.p00.device, r.p00.dtype
+    d0v = torch.arange(is_, dtype=dt, device=dev)
+    d1v = d0v
+    d1_ints = torch.arange(is_, device=dev)[None, None, :]
+
+    # maps viewed so that M[d0, d1] is the cell (axis 0: transposed)
+    def cells(m):
+        return m.transpose(0, 1) if axis == 0 else m
+
+    ddiff = d1v[None, None, :] - r.d1_cross[:, :, None]      # [Fc,is,is]
+    base = (r.p10 - r.p00)[:, None, None] * ddiff * 2.0 / is_
+    den1 = (r.p10[:, None] - d0v)[..., None]                 # [Fc,is,1]
+    den2 = (d0v - r.p00[:, None])[..., None]
+
+    def dist_terms(diff_grad, active):
+        """diff/dist for the edge's two endpoints."""
+        m = active & (diff_grad > 0)
+        out = []
+        for den in (den1, den2):
+            ok = m & (den.abs() > 0)
+            dist = base / torch.where(ok, den, 1.0)
+            dist = torch.where(dist > 0, dist + eps, dist - eps)
+            out.append(torch.where(ok, diff_grad / dist, 0.0))
+        return out
+
+    def diff_against(idx):
+        """sum over channels of (map - map at the crossing pixel) * grad."""
+        diff = torch.zeros((Fc, is_, is_), dtype=dt, device=dev)
+        if return_alpha:
+            a_x = alpha_map.reshape(-1)[idx]                 # [Fc,is]
+            diff = diff + (cells(alpha_map) - a_x[:, :, None]) * cells(ga_map)
+        if return_rgb:
+            r_x = rgb_map.reshape(-1, 3)[idx]                # [Fc,is,3]
+            t = [(cells(rgb_map[..., k]) - r_x[:, :, None, k]) * cells(gr_map[..., k])
+                 for k in range(3)]
+            diff = diff + (t[0] + t[1] + t[2])
+        return diff
+
+    in_range_out = (d1_ints >= r.lo_out[:, :, None]) & \
+        (d1_ints <= r.hi_out[:, :, None]) & r.out_ok[:, :, None]
+    own = cells(fi_map)[None] == fids[:, None, None]
+    in_range_in = (d1_ints >= r.lo_in[:, :, None]) & \
+        (d1_ints <= r.hi_in[:, :, None]) & r.in_ok[:, :, None] & own
+    return [dist_terms(diff_against(r.idx_in), in_range_out),
+            dist_terms(diff_against(r.idx_out), in_range_in)]
+
+
 def _edge_grads(pp, front, fids, fi_map, alpha_map, ga_map, rgb_map, gr_map,
                 is_, eps, return_rgb, return_alpha):
     """Edge gradients [Fc, 3, 3] of a chunk of faces of one batch element:
     pp [Fc,3,2] pixel-space xy, front [Fc], fids [Fc] the faces' ids."""
     Fc = pp.shape[0]
-    dev, dt = pp.device, pp.dtype
-    grad = torch.zeros((Fc, 3, 3), dtype=dt, device=dev)
-    d0v = torch.arange(is_, dtype=dt, device=dev)
-    d1v = d0v
-    d1_ints = torch.arange(is_, device=dev)[None, None, :]
+    grad = torch.zeros((Fc, 3, 3), dtype=pp.dtype, device=pp.device)
     fi_flat = fi_map.reshape(-1)
 
     for edge_num in range(3):
         for axis in range(2):
             r = _edge_rows(pp, front, fids, fi_flat, is_, edge_num, axis)
-
-            # maps viewed so that M[d0, d1] is the cell (axis 0: transposed)
-            def cells(m):
-                return m.transpose(0, 1) if axis == 0 else m
-
-            ddiff = d1v[None, None, :] - r.d1_cross[:, :, None]      # [Fc,is,is]
-            base = (r.p10 - r.p00)[:, None, None] * ddiff * 2.0 / is_
-            den1 = (r.p10[:, None] - d0v)[..., None]                 # [Fc,is,1]
-            den2 = (d0v - r.p00[:, None])[..., None]
-
-            def dist_terms(diff_grad, active):
-                """-diff/dist for the edge's two endpoints."""
-                m = active & (diff_grad > 0)
-                out = []
-                for den in (den1, den2):
-                    ok = m & (den.abs() > 0)
-                    dist = base / torch.where(ok, den, 1.0)
-                    dist = torch.where(dist > 0, dist + eps, dist - eps)
-                    out.append(torch.where(ok, diff_grad / dist, 0.0).sum(dim=(1, 2)))
+            # -diff/dist of the OUT scan's cells, then of the IN scan's
+            for t1, t2 in _edge_cells(r, fids, axis, fi_map, alpha_map, ga_map, rgb_map,
+                                      gr_map, is_, eps, return_rgb, return_alpha):
                 upd = torch.zeros_like(grad)
-                upd[:, r.pi[0], 1 - axis] -= out[0]
-                upd[:, r.pi[1], 1 - axis] -= out[1]
-                return upd
-
-            def diff_against(idx):
-                """sum over channels of (map - map at the crossing pixel) * grad."""
-                diff = torch.zeros((Fc, is_, is_), dtype=dt, device=dev)
-                if return_alpha:
-                    a_x = alpha_map.reshape(-1)[idx]                 # [Fc,is]
-                    diff = diff + (cells(alpha_map) - a_x[:, :, None]) * cells(ga_map)
-                if return_rgb:
-                    r_x = rgb_map.reshape(-1, 3)[idx]                # [Fc,is,3]
-                    t = [(cells(rgb_map[..., k]) - r_x[:, :, None, k]) * cells(gr_map[..., k])
-                         for k in range(3)]
-                    diff = diff + (t[0] + t[1] + t[2])
-                return diff
-
-            in_range_out = (d1_ints >= r.lo_out[:, :, None]) & \
-                (d1_ints <= r.hi_out[:, :, None]) & r.out_ok[:, :, None]
-            grad = grad + dist_terms(diff_against(r.idx_in), in_range_out)
-
-            own = cells(fi_map)[None] == fids[:, None, None]
-            in_range_in = (d1_ints >= r.lo_in[:, :, None]) & \
-                (d1_ints <= r.hi_in[:, :, None]) & r.in_ok[:, :, None] & own
-            grad = grad + dist_terms(diff_against(r.idx_out), in_range_in)
+                upd[:, r.pi[0], 1 - axis] -= t1.sum(dim=(1, 2))
+                upd[:, r.pi[1], 1 - axis] -= t2.sum(dim=(1, 2))
+                grad = grad + upd
     return grad
 
 

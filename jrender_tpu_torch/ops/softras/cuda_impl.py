@@ -13,9 +13,11 @@ Kernels and wrappers (each wrapper counts its launches in ``.launches``):
                                            and per big face
   ``launch_reduce``  csrc/softras_bwd.cu   the rows summed per face
 
-The forward splits each tile's face list over a cluster of FWD_SPLIT blocks
-and merges their partial states in rank order; ``fwd_split_plain`` is the
-plain version of that split and merge.  The backward splits each tile's
+The forward and the threshold split each tile's face list over a cluster
+of FWD_SPLIT blocks and merge their partial states (the threshold: the
+ranks' K-smallest lists or bisection counts) in rank order;
+``fwd_split_plain`` and ``thr_split_plain`` are the plain versions of
+those splits and merges.  The backward splits each tile's
 run over BWD_SPLIT blocks, whose gradient rows need no merge.
 
 ``soft_rasterize_fwd``, ``topk_threshold`` and ``soft_rasterize_bwd`` go
@@ -43,6 +45,7 @@ SMEM_MAX_BYTES = 227 * 1024   # the most shared memory an H100 block can ask for
 ROW_BASE = 31                 # face 9, inv 9, sym 9, obt 3, front 1
 FWD_SPLIT = 8                 # blocks sharing a tile's list (kSplit of softras_fwd.cu)
 BWD_SPLIT = 8                 # blocks sharing a tile's run (kSplit of softras_bwd.cu)
+THR_LIST_MAX = 32             # K the threshold kernel keeps a list for (kListMax); past it, bisects
 
 
 class _Scalars(ctypes.Structure):
@@ -295,13 +298,15 @@ launch.launches = 0
 
 
 def split_variant(name: str, split: int):
-    """The entry point of ``softras_fwd`` or ``softras_bwd`` built with
-    another number of blocks per tile (the kernel's SOFTRAS_FWD_SPLIT or
+    """The entry point of ``softras_fwd``, ``softras_thr`` or
+    ``softras_bwd`` built with another number of blocks per tile (the
+    kernel's SOFTRAS_FWD_SPLIT, which the threshold shares, or
     SOFTRAS_BWD_SPLIT), to time the alternatives to FWD_SPLIT and
-    BWD_SPLIT; call it with ``fwd_args`` or ``bwd_args`` through ``_run``.
-    The wrappers launch the default build only."""
-    macro = {'softras_fwd': 'SOFTRAS_FWD_SPLIT', 'softras_bwd': 'SOFTRAS_BWD_SPLIT'}[name]
-    args_type = _FwdArgs if name == 'softras_fwd' else _BwdArgs
+    BWD_SPLIT; call it with ``fwd_args``, ``thr_args`` or ``bwd_args``
+    through ``_run``.  The wrappers launch the default build only."""
+    macro, args_type = {'softras_fwd': ('SOFTRAS_FWD_SPLIT', _FwdArgs),
+                        'softras_thr': ('SOFTRAS_FWD_SPLIT', _ThrArgs),
+                        'softras_bwd': ('SOFTRAS_BWD_SPLIT', _BwdArgs)}[name]
     return _entry(name, name, args_type, split, _build.load(name, ((macro, split),)))
 
 
@@ -314,15 +319,11 @@ def rank_shares(total: int, split: int):
     return [(r * per, min(total, (r + 1) * per)) for r in range(split) if r * per < total]
 
 
-def fwd_split_plain(inputs: FwdInputs, p: SoftRasParams, split: int = FWD_SPLIT):
-    """The plain version of the forward kernel's split and merge: each
-    tile's sequence cut into the ranks' shares (``rank_shares``), each share
-    aggregated without the background by the pxg partials' plain version,
-    the shares merged in rank order by the pxg combine's plain version
-    (``pxg_impl.fwd_partials_plain``, ``combine_plain``).  A big face whose
-    tile range misses the tile is skipped, as the kernel skips it; a share
-    left without a face adds nothing to the merge and is dropped.  Returns
-    what ``launch`` returns."""
+def _share_items(inputs: FwdInputs, p: SoftRasParams, split: int):
+    """The ranks' shares of every tile's sequence as pxg work items: each
+    tile's sequence cut by ``rank_shares``, a big face whose tile range
+    misses the tile skipped (as the kernels skip it), a share left without
+    a face dropped.  Returns ``pxg_impl.PxgInputs`` (no face entries)."""
     from . import pxg_impl           # pxg_impl imports this module
     rows, cl, R = inputs
     B, F = rows.shape[:2]
@@ -348,18 +349,51 @@ def fwd_split_plain(inputs: FwdInputs, p: SoftRasParams, split: int = FWD_SPLIT)
     def i32(x, shape=(-1,)):
         return torch.tensor(x, dtype=torch.int32, device=dev).reshape(shape)
 
-    pin = pxg_impl.PxgInputs(rows, i32(entries), None, i32(items, (-1, 3)), i32(item_off),
-                             None, None, R)
+    return pxg_impl.PxgInputs(rows, i32(entries), None, i32(items, (-1, 3)), i32(item_off),
+                              None, None, R)
+
+
+def fwd_split_plain(inputs: FwdInputs, p: SoftRasParams, split: int = FWD_SPLIT):
+    """The plain version of the forward kernel's split and merge: each
+    tile's sequence cut into the ranks' shares (``_share_items``), each
+    share aggregated without the background by the pxg partials' plain
+    version, the shares merged in rank order by the pxg combine's plain
+    version (``pxg_impl.fwd_partials_plain``, ``combine_plain``).  Returns
+    what ``launch`` returns."""
+    from . import pxg_impl
+    pin = _share_items(inputs, p, split)
     parts, _ = pxg_impl.fwd_partials_plain(pin, p, with_thr=False)
     return pxg_impl.combine_plain(pin, parts, p)
 
 
-def launch_thr(inputs: FwdInputs, counts: torch.Tensor, p: SoftRasParams):
-    """Launch the top-K threshold kernel on the current stream: thr
-    [B,H,W], the K-th smallest candidate depth of each pixel (K =
-    ``p.max_faces_id``) and ``far`` where ``counts`` (the forward's
-    candidate count map) is at most K.  ``launch_thr.launches`` counts the
-    launches."""
+def thr_split_plain(inputs: FwdInputs, counts: torch.Tensor, p: SoftRasParams,
+                    split: int = FWD_SPLIT):
+    """The plain version of the threshold kernel's split and merge: each
+    tile's sequence cut into the ranks' shares (``_share_items``), each
+    share's K smallest candidate depths per pixel (the pxg partials' plain
+    version), the K-th smallest of their union where ``counts`` (the
+    forward's count map) is over K, else ``far`` (``pxg_impl.thr_plain``:
+    the K smallest of a union lie among the K smallest of each part).
+    Returns what ``launch_thr`` returns."""
+    from . import pxg_impl
+    pin = _share_items(inputs, p, split)
+    _, depths = pxg_impl.fwd_partials_plain(pin, p, with_thr=True)
+    return pxg_impl.thr_plain(pin, depths, counts, p)
+
+
+def thr_chunk(K: int) -> int:
+    """Faces per staged chunk of the threshold kernel: two chunks of 31
+    floats and an id per face beside the block's K-smallest lists
+    ((K + 1) x 256 values, K <= 32) or its two count buffers, within
+    SMEM_BYTES."""
+    own = 4 * (K + 1) * TILE * TILE if K <= THR_LIST_MAX else 8 * TILE * TILE
+    return min(MAX_CHUNK, (SMEM_BYTES - own) // (2 * 4 * (ROW_BASE + 1)))
+
+
+def thr_args(inputs: FwdInputs, counts: torch.Tensor, p: SoftRasParams):
+    """The threshold kernel's checked arguments and its output thr
+    [B,H,W], allocated on the inputs' card: what ``launch_thr`` hands to
+    the kernel."""
     dev, B, F, row, L, tiles = _check_inputs(inputs, p)
     rows, cl, R = inputs
     is_ = p.image_size
@@ -367,15 +401,26 @@ def launch_thr(inputs: FwdInputs, counts: torch.Tensor, p: SoftRasParams):
         raise ValueError(f'K must be at least 1, got {p.max_faces_id}')
     _check(counts, 'counts', torch.int32, (B, is_, is_), dev)
     thr = torch.empty((B, is_, is_), dtype=torch.float32, device=dev)
-
-    fn = _entry('softras_thr', 'softras_thr', _ThrArgs)
     args = _ThrArgs(
         rows.data_ptr(), cl.faces_sorted.data_ptr(), cl.starts.data_ptr(),
         cl.run_counts.data_ptr(), cl.glist.data_ptr(), cl.gcount.data_ptr(),
         cl.ranges.data_ptr(), counts.data_ptr(), thr.data_ptr(),
-        B, F, L, row, is_, tiles, tiles, chunk_for(ROW_BASE),
+        B, F, L, row, is_, tiles, tiles, thr_chunk(p.max_faces_id),
         p.dist_func_id, p.max_faces_id, _scalars(p, R))
-    _run(fn, 'softras_thr', args, dev)
+    return args, thr
+
+
+def launch_thr(inputs: FwdInputs, counts: torch.Tensor, p: SoftRasParams):
+    """Launch the top-K threshold kernel on the current stream: thr
+    [B,H,W], the K-th smallest candidate depth of each pixel (K =
+    ``p.max_faces_id``) and ``far`` where ``counts`` (the forward's
+    candidate count map) is at most K.  Like the forward it splits each
+    tile's list over a cluster of FWD_SPLIT blocks; ``thr_split_plain`` is
+    the plain version of that split and merge.  ``launch_thr.launches``
+    counts the launches."""
+    args, thr = thr_args(inputs, counts, p)
+    fn = _entry('softras_thr', 'softras_thr', _ThrArgs, FWD_SPLIT)
+    _run(fn, 'softras_thr', args, inputs.rows.device)
     launch_thr.launches += 1
     return thr
 

@@ -112,16 +112,29 @@ def check_pixel_inside(w):
     return ((w <= 1) & (w >= 0)).all(dim=-1)
 
 
+def sum3(x):
+    """x[..., 0] + x[..., 1] + x[..., 2], added left to right as the CUDA
+    kernels add (``__fadd_rn``); a reduction over the last axis is free to
+    add in another order, which can move the last bit."""
+    return (x[..., 0] + x[..., 1]) + x[..., 2]
+
+
+def dot3(a, b):
+    """sum3(a * b): each product rounded on its own, then added left to
+    right, as ``dot3_rn`` of csrc/softras_pair.cuh does."""
+    return sum3(a * b)
+
+
 def barycentric_clip(w):
     wc = w.clamp(0.0, 1.0)
-    w_sum = wc.sum(-1, keepdim=True).clamp_min(1e-5)
+    w_sum = sum3(wc)[..., None].clamp_min(1e-5)
     return wc / w_sum
 
 
 def perspective_depth(w_clip, face):
     """zp = 1 / sum(w_i / z_i)  (perspective-correct depth)."""
     zs = face[..., 2::3]
-    return 1.0 / (w_clip / zs).sum(-1)
+    return 1.0 / sum3(w_clip / zs)
 
 
 def barycentric_distance(w):
@@ -139,7 +152,7 @@ def _edge_projection(w, face_sym, v0: int, clamp: bool):
     v1 = (v0 + 1) % 3
     sym = face_sym.reshape(face_sym.shape[:-1] + (3, 3))
     a0 = sym[..., v0, :] - sym[..., v1, :]                        # [...,3]
-    num = (w * a0).sum(-1) - a0[..., v1]
+    num = dot3(w, a0) - a0[..., v1]
     den = a0[..., v0] - a0[..., v1]
     t_v0 = _safe_div(num, den)
     if clamp:
@@ -168,8 +181,8 @@ def euclidean_p2f_distance(w, face, face_sym, face_obt, xp, yp):
     ts, diss, dxs, dys = [], [], [], []
     for k in range(3):
         t_k = _edge_projection(w, face_sym, k, clamp=False)
-        dx = (t_k * fx).sum(-1)
-        dy = (t_k * fy).sum(-1)
+        dx = dot3(t_k, fx)
+        dy = dot3(t_k, fy)
         ts.append(t_k)
         dxs.append(dx)
         dys.append(dy)
@@ -215,8 +228,8 @@ def euclidean_p2f_distance(w, face, face_sym, face_obt, xp, yp):
                           for k in range(3)], dim=-2)
     t_out = torch.gather(t_opts, -2,
                          v0_sel[..., None, None].expand(v0_sel.shape + (1, 3)))[..., 0, :]
-    dx_out = (t_out * fx).sum(-1)
-    dy_out = (t_out * fy).sum(-1)
+    dx_out = dot3(t_out, fx)
+    dy_out = dot3(t_out, fy)
 
     sign = torch.where(inside, 1.0, -1.0).to(w.dtype)
     dis_x = torch.where(inside, dx_in, dx_out)

@@ -402,6 +402,107 @@ def test_softras_fwd_split_variants_agree():
                 assert torch.equal(ag, ag_v)
 
 
+def thr_split_check(x, t, p, mt=None):
+    """The threshold kernel twice (bit-equal) and against the plain
+    version, on the forward kernel's counts; returns (thr, counts, inputs)."""
+    inputs = cuda_impl.prepare(x, t, p)
+    if mt is not None:
+        inputs = inputs._replace(lists=lists_with_cap(x, p, mt))
+    _, _, counts = cuda_impl.launch(inputs, p)
+    thr = cuda_impl.launch_thr(inputs, counts, p)
+    again = cuda_impl.launch_thr(inputs, counts, p)
+    torch.cuda.synchronize()
+    assert torch.equal(thr, again)
+    K = p.max_faces_id
+    assert (counts > K).any()
+    want = torch_impl.topk_threshold_plain(x, p)
+    bad = (thr - want).abs() > 1e-6 * want.abs()
+    assert bad.float().mean().item() <= THR_FRAC, bad.float().mean().item()
+    assert (thr[counts <= K] == p.far).all()
+    return thr, counts, inputs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('K', [1, 4, 16, 40])
+@pytest.mark.parametrize('dist', ['hard', 'barycentric', 'euclidean'])
+def test_softras_thr_split_long_lists(dist, K):
+    """Lists of many chunks for each of the cluster's ranks; K = 40 takes
+    the bisection, whose counts are summed across the ranks."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    x, t = dense_soup(16, F=3000, T=1)
+    _, _, inputs = thr_split_check(x, t, make_params(
+        image_size=128, dist_func=dist, sigma_val=1e-4, max_faces_per_pixel_for_grad=K))
+    cl = inputs.lists
+    assert int(cl.gcount.max()) + int(cl.run_counts.max()) > \
+        cuda_impl.FWD_SPLIT * cuda_impl.thr_chunk(K)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('K', [4, 40])
+def test_softras_thr_split_big_faces_cross_ranks(K):
+    """An emit cap of 2 tiles: the big-face prefix of a tile's sequence
+    spans several ranks' shares."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    x, t = dense_soup(17, F=3000, T=1)
+    p = make_params(image_size=128, sigma_val=1e-4, max_faces_per_pixel_for_grad=K)
+    _, _, inputs = thr_split_check(x, t, p, mt=2)
+    cl = inputs.lists
+    per = -(-(int(cl.gcount.max()) + int(cl.run_counts.max())) // cuda_impl.FWD_SPLIT)
+    assert int(cl.gcount.max()) > 2 * per
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('K', [1, 2, 3])
+def test_softras_thr_split_twins_keep_multiplicity(K):
+    """Faces F..2F-1 repeat faces 0..F-1: each depth comes twice, from
+    shares of different ranks, and counts twice towards K."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    x, t = dense_soup(18, F=1500, T=1)
+    x2, t2 = torch.cat([x, x], dim=1), torch.cat([t, t], dim=1)
+    p = make_params(image_size=128, sigma_val=1e-4, max_faces_per_pixel_for_grad=K)
+    thr, counts, _ = thr_split_check(x2, t2, p)
+    p1 = make_params(image_size=128, sigma_val=1e-4, max_faces_per_pixel_for_grad=(K + 1) // 2)
+    once = cuda_impl.prepare(x, t, p1)
+    _, _, c1 = cuda_impl.launch(once, p1)
+    thr1 = cuda_impl.launch_thr(once, c1, p1)
+    # the K-th smallest of every depth twice is the ceil(K/2)-th of each once
+    both = (counts > K) & (c1 > (K + 1) // 2)
+    assert both.any() and torch.equal(thr[both], thr1[both])
+
+
+@pytest.mark.gpu
+def test_softras_thr_split_lone_faces():
+    """A sparse soup: most tiles' lists hold one face or none; the tiles
+    with no pixel over K leave at once, every rank alike."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    x, t = soup(12, F=60, B=2, radius=(0.01, 0.2))
+    thr_split_check(x, t, make_params(image_size=128, max_faces_per_pixel_for_grad=1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('K', [16, 40])
+def test_softras_thr_split_variants_agree(K):
+    """The threshold built with 1, 2 and 4 blocks per tile against the
+    default build: the same map, bit for bit (the merge is exact)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    x, t = dense_soup(19, F=3000, T=1)
+    p = make_params(image_size=128, sigma_val=1e-4, max_faces_per_pixel_for_grad=K)
+    inputs = cuda_impl.prepare(x, t, p)
+    _, _, counts = cuda_impl.launch(inputs, p)
+    thr = cuda_impl.launch_thr(inputs, counts, p)
+    for split in (1, 2, 4):
+        args, thr_v = cuda_impl.thr_args(inputs, counts, p)
+        cuda_impl._run(cuda_impl.split_variant('softras_thr', split), 'softras_thr', args,
+                       x.device)
+        torch.cuda.synchronize()
+        assert torch.equal(thr, thr_v), split
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize('T', [324, 2500])
 def test_softras_split_kernels_rows_past_48_kb(T):
@@ -594,6 +695,99 @@ def test_n3mr_edgebwd_kernel_matches_plain(rr, ra, is_):
     want = nplain.backward_pixel_map(*args)
     assert scaled_err(got, want) <= N3MR_SUM_TOL
     assert (got[..., 2::3] == 0).all() and got.abs().max() > 0
+
+
+def n3mr_edge_case(face, is_, rr, ra, seed=6):
+    """The maps of ``face`` at ``is_`` px and seeded incoming gradients:
+    the edge gradient's arguments."""
+    from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda
+    B, F = face.shape[:2]
+    tex = n3mr_textures(seed, B, F, 2)
+    rows, fi, wt, dp, finv, zc, rgb = ncuda.forward_maps(face, tex, is_, 0.1, 100.0, 1e-3)
+    alpha = (fi >= 0).float()
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    gr = torch.randn(rgb.shape, generator=gen, device='cuda')
+    ga = torch.randn(alpha.shape, generator=gen, device='cuda')
+    return (face, fi, rgb, alpha, gr, ga, is_, 1e-3, rr, ra)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('is_', [64, 72, 130])
+def test_n3mr_edge_bands_kernel_matches_plain(is_):
+    """The band-key kernel's keys and items equal the plain version's, bit
+    for bit, with a back face, a NaN corner, a zero-area face and a ragged
+    last band."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda
+    from jrender_tpu_torch.utils.checks import n3mr_special_faces
+    args = n3mr_edge_case(n3mr_special_faces(n3mr_soup(20, 150, B=2)), is_, True, True)
+    pp = ncuda.edge_inputs(*args[:7], True, True)[0]
+    keys, items = ncuda.launch_edge_bands(pp, is_)
+    keys_w, items_w = ncuda.band_keys_plain(pp, is_)
+    torch.cuda.synchronize()
+    assert torch.equal(keys, keys_w) and torch.equal(items, items_w)
+    nb = items[:, 2]
+    assert (nb < 0).any() and (nb > 1).any() and (nb == 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('rr,ra', [(True, True), (True, False), (False, True)])
+def test_n3mr_edgebwd_long_edges_go_global(rr, ra):
+    """Triangles over most of a 128-px screen: many edges span more than
+    EDGE_SPAN bands and take the global list, the others the bands."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda, torch_impl as nplain
+    from jrender_tpu_torch.utils.checks import N3MR_SUM_TOL, scaled_err
+    args = n3mr_edge_case(n3mr_soup(21, 60, B=2), 128, rr, ra)
+    bands = ncuda.edge_bands(ncuda.edge_inputs(*args[:7], rr, ra)[0], 128)
+    nb = bands.items[:, 2]
+    assert (nb < 0).sum() > 10 and (nb > 0).sum() > 10
+    got = ncuda.backward_pixel_map(*args)
+    again = ncuda.backward_pixel_map(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert scaled_err(got, nplain.backward_pixel_map(*args)) <= N3MR_SUM_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('is_,rr,ra', [(1024, True, True), (2048, True, False)])
+def test_n3mr_edgebwd_column_segments(is_, rr, ra):
+    """Rows too wide for a band block's shared memory (rgb and alpha at
+    1024 px, rgb at 2048 px, anti-aliasing's size): the blocks take column
+    segments of the band."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda, torch_impl as nplain
+    from jrender_tpu_torch.utils.checks import N3MR_SUM_TOL, scaled_err
+    nch = (2 if ra else 0) + (6 if rr else 0)
+    assert ncuda.edge_segment_width(is_, nch) < is_
+    args = n3mr_edge_case(n3mr_soup(22, 40, shrink=0.3), is_, rr, ra)
+    got = ncuda.backward_pixel_map(*args)
+    again = ncuda.backward_pixel_map(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert scaled_err(got, nplain.backward_pixel_map(*args)) <= N3MR_SUM_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('band', [1, 2, 8])
+def test_n3mr_edgebwd_band_variants_agree(band):
+    """The edge kernels built with bands of 1, 2 and 8 rows against the
+    plain version and the default build (their partial sums differ, so
+    within the same tolerance, not bit for bit)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda, torch_impl as nplain
+    from jrender_tpu_torch.utils.checks import N3MR_SUM_TOL, scaled_err
+    args = n3mr_edge_case(n3mr_soup(23, 120, B=2, shrink=0.5), 96, True, True)
+    inputs = ncuda.edge_inputs(*args[:7], True, True)
+    got = ncuda.edgebwd_variant(band)(*inputs, 1e-3, True, True)
+    torch.cuda.synchronize()
+    want = nplain.backward_pixel_map(*args)
+    assert scaled_err(got, want) <= N3MR_SUM_TOL
+    assert scaled_err(got, ncuda.backward_pixel_map(*args)) <= N3MR_SUM_TOL
 
 
 @pytest.mark.gpu

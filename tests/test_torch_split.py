@@ -181,3 +181,125 @@ def test_staged_chunk_fits_the_block(T):
         assert chunk == 1 or chunk * per_face + reserved <= cuda_impl.SMEM_BYTES
         assert (chunk + 1) * per_face + reserved > cuda_impl.SMEM_BYTES \
             or chunk == cuda_impl.MAX_CHUNK
+
+
+# --------------------------------------------------------------------------
+# the threshold kernel's split and merge
+# --------------------------------------------------------------------------
+#
+# On the card the threshold kernel (``csrc/softras_thr.cu``) cuts each
+# tile's sequence into the same shares as the forward, keeps each share's K
+# smallest candidate depths per pixel (or, for K > 32, counts each share's
+# candidates at or below a bisection's trial value) and merges the shares.
+# ``cuda_impl.thr_split_plain`` is the plain version of that rule; the K-th
+# smallest of a union is a value of the union, so the merge is exact:
+# the maps must equal the unsplit plain threshold to the bit.
+
+THR_KW = dict(image_size=64, sigma_val=1e-3)
+
+
+def thr_soup(seed, F=300):
+    """Large faces over the whole 64-px image: 36 candidates a pixel on
+    average, up to about 70, so that K = 40 binds, and sequences of up to
+    F faces a tile."""
+    return soup(np.random.RandomState(seed), F=F, T=1, centre=(-0.8, 0.8),
+                radius=(0.3, 0.6))
+
+
+def thr_split_and_unsplit(fv, tex, p, split, mt=None):
+    """(the split-and-merge plain threshold, the unsplit one, the counts,
+    the lists)."""
+    fvt, text = torch.tensor(fv), torch.tensor(tex)
+    inputs = cuda_impl.prepare(fvt, text, p)
+    if mt is not None:
+        inputs = inputs._replace(lists=binning.build_tile_lists_compact(
+            fvt, p.image_size, cuda_impl.TILE, cuda_impl.TILE, p.threshold, mt))
+    _, _, counts = torch_impl.soft_rasterize_fwd_plain(fvt, text, p)
+    return (cuda_impl.thr_split_plain(inputs, counts, p, split),
+            torch_impl.topk_threshold_plain(fvt, p), counts, inputs.lists)
+
+
+@pytest.mark.parametrize('K', [1, 4, 16, 40])
+@pytest.mark.parametrize('split', [1, 2, 4, 8])
+def test_thr_split_matches_unsplit(split, K):
+    fv, tex = thr_soup(5)
+    p = make_params(max_faces_per_pixel_for_grad=K, **THR_KW)
+    got, want, counts, lists = thr_split_and_unsplit(fv, tex, p, split)
+    assert longest_sequence(lists) >= 4 * split    # every rank of the busiest tile works
+    assert (counts > K).float().mean() > 0.2 and (counts <= K).any()
+    assert torch.equal(got, want)
+    assert (got[counts <= K] == p.far).all()
+
+
+@pytest.mark.parametrize('dist', ['hard', 'barycentric'])
+def test_thr_split_other_distances(dist):
+    fv, tex = thr_soup(6)
+    p = make_params(max_faces_per_pixel_for_grad=4, dist_func=dist, **THR_KW)
+    got, want, counts, _ = thr_split_and_unsplit(fv, tex, p, 8)
+    assert (counts > 4).any()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('K', [4, 40])
+def test_thr_split_big_faces_cross_ranks(K):
+    """An emit cap of 2 tiles: most faces are big, and the big-face prefix
+    of a tile's sequence spans several ranks' shares."""
+    fv, tex = thr_soup(7)
+    p = make_params(max_faces_per_pixel_for_grad=K, **THR_KW)
+    got, want, _, lists = thr_split_and_unsplit(fv, tex, p, 8, mt=2)
+    assert int(lists.gcount.max()) > 2 * -(-longest_sequence(lists) // 8)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('K', [1, 2, 3, 4])
+def test_thr_split_twins_count_with_multiplicity(K):
+    """Faces F..2F-1 repeat faces 0..F-1: every depth comes twice, from
+    different shares, and counts twice towards K, so the K-th smallest is
+    the ceil(K/2)-th smallest of the faces once."""
+    fv, tex = thr_soup(8, F=100)
+    fv2 = np.concatenate([fv, fv], axis=1)
+    tex2 = np.concatenate([tex, tex], axis=1)
+    p = make_params(max_faces_per_pixel_for_grad=K, **THR_KW)
+    got, want, counts, _ = thr_split_and_unsplit(fv2, tex2, p, 8)
+    assert torch.equal(got, want)
+    K1 = (K + 1) // 2
+    p1 = make_params(max_faces_per_pixel_for_grad=K1, **THR_KW)
+    once, _, c1, _ = thr_split_and_unsplit(fv, tex, p1, 8)
+    both = (counts > K) & (c1 > K1)
+    assert both.float().mean() > 0.2
+    assert torch.equal(got[both], once[both])
+
+
+def test_thr_split_lone_faces():
+    """One small face in each of a few tiles: no pixel has more than K = 1
+    candidates, so the threshold is `far` everywhere."""
+    centres = [(-0.75, -0.75), (-0.25, 0.25), (0.25, -0.25), (0.75, 0.75)]
+    fv = np.array([[[x - 0.05, y - 0.05, 2.5, x + 0.05, y - 0.05, 2.4, x, y + 0.05, 2.6]
+                    for x, y in centres]], np.float32)
+    tex = np.random.RandomState(4).uniform(size=(1, len(centres), 1, 3)).astype(np.float32)
+    p = make_params(max_faces_per_pixel_for_grad=1, image_size=64)
+    got, want, counts, lists = thr_split_and_unsplit(fv, tex, p, 8)
+    assert longest_sequence(lists) == 1 and int(counts.max()) == 1
+    assert torch.equal(got, want) and (got == p.far).all()
+
+
+@pytest.mark.parametrize('K', [4, 16])
+def test_thr_split_matches_jax_oracle(K):
+    """The threshold is the depth of the oracle's K-th face id
+    (``backend='jax'``'s third forward output) where a pixel has more than
+    K candidates; two roundings of a near tie may order two faces apart at
+    a few pixels, as in ``test_torch_softras.test_topk_threshold_and_face_ids``."""
+    fv, tex = thr_soup(9, F=120)
+    kw = dict(max_faces_per_pixel_for_grad=K, **THR_KW)
+    p = make_params(**kw)
+    got, _, counts, _ = thr_split_and_unsplit(fv, tex, p, 8)
+    _, _, ids_j = jax_impl.soft_rasterize_fwd_jax(jnp.asarray(fv), jnp.asarray(tex),
+                                                  jax_params(**kw))
+    is_ = p.image_size
+    ids_j = torch.tensor(np.asarray(ids_j).reshape(K, -1).T.copy())       # [P, K]
+    xp, yp = torch_impl.pixel_grid(is_)
+    depth = torch_impl._candidate_depths(torch.tensor(fv)[0], p, xp, yp)
+    kth = depth.gather(1, ids_j[:, K - 1:K].long().clamp_min(0))[:, 0]
+    over = counts.reshape(-1) > K
+    assert over.float().mean() > 0.2
+    assert (got.reshape(-1)[over] != kth[over]).float().mean() <= 0.002

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Hold two trees of the port's binned SoftRas kernels against each other
-on one CUDA card: their outputs bit for bit and their times in turns.
+"""Hold two trees of the port's binned SoftRas kernels (and N3MR's edge
+gradient) against each other on one CUDA card: their outputs bit for bit
+and their times in turns.
 
     python3 tools/compare_softras_trees.py --parent PATH
 
@@ -13,13 +14,21 @@ outputs, threshold map and a seeded incoming gradient.  Then each tree, in
 a process of its own that imports only that tree's ``jrender_tpu_torch``,
 in the turns parent, change, change, parent:
 
-  * runs the forward kernel (``cuda_impl.launch``) on the inputs' faces;
+  * runs the forward kernel (``cuda_impl.launch``) on the inputs' faces,
+    and the threshold kernel (``launch_thr``) on them with the common
+    candidate counts, at K = 16 and at K = 40 (past the K-smallest lists:
+    the threshold's bisection);
   * runs the backward kernels and the face reduction (``launch_bwd``,
     ``launch_reduce``) on the common forward outputs, threshold and
     gradient, so that both trees' backwards read the same bits;
-  * times the forward, threshold, backward and reduction kernels alone and
-    the forward and backward on the busiest tile's faces alone (CUDA
-    events, the median of 5 rounds of 20 launches after a warm-up);
+  * times the forward, threshold (K = 16 and 40), backward and reduction
+    kernels alone and
+    the forward, threshold and backward on the busiest tile's faces alone
+    (CUDA events, the median of 5 rounds of 20 launches after a warm-up);
+  * runs and times N3MR's edge gradient (``n3mr.cuda_impl.launch_edgebwd``,
+    what the tree launches for it) on common maps of the same sphere at
+    1024 px (phase 9 of ``chip_smoke.py``: 2x2x2 texels, a seeded incoming
+    rgb gradient, its inputs from ``edge_inputs``);
   * times the steps that run them: ``soft_rasterize(...).sum().backward()``
     (CUDA events), and ``Renderer.render_mesh`` frames and forward +
     backward steps (host clock around work that ends in a synchronize;
@@ -29,9 +38,13 @@ in the turns parent, change, change, parent:
 It prints one JSON line: the card's name and power limit, each turn's
 times, and whether the trees agree: the forward's candidate counts and
 softmax maximum M bit for bit, the largest image difference and relative
-difference of the softmax sum S, the backward's slot rows (the rows the
+difference of the softmax sum S, the threshold maps (K = 16 and 40) bit
+for bit, the
+backward's slot rows (the rows the
 tile runs fill, and the big faces' rows) and reduced gradients bit for
-bit, and each tree's two turns bit for bit.
+bit, each tree's two turns bit for bit, and the largest difference of the
+two trees' edge gradients as a share of its largest entry (they sum in
+another order where the kernel was redesigned).
 
 Needs a card (exits 2 without one) and nvcc.
 """
@@ -120,6 +133,25 @@ def step_times(torch, np, fv, tex, timed):
             'render_mesh_step_device_ms': device(render_step)}
 
 
+N3MR_EPS = 1e-4   # rasterize's default
+
+
+def n3mr_edge_inputs(torch, dev, v, f, gen):
+    """The edge gradient's inputs of chip_smoke.py's phase 9: the sphere in
+    front of the camera at 1024 px, 2x2x2 texels a face, the z-buffer's maps
+    and a seeded incoming rgb gradient, alpha taking none."""
+    from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda
+    from jrender_tpu_torch.structures import face_vertices
+    from jrender_tpu_torch.transform import look_at, perspective
+    vt = perspective(look_at(torch.tensor(v, device=dev)[None], (0.0, 0.0, -2.732)), angle=30)
+    fv = face_vertices(vt, torch.tensor(f, device=dev)[None]).reshape(1, -1, 9)
+    tex = torch.rand((1, fv.shape[1], 2, 2, 2, 3), generator=gen, device=dev)
+    _, fi, _, _, _, _, rgb = ncuda.forward_maps(fv, tex, 1024, 0.1, 100.0, N3MR_EPS)
+    g_rgb = torch.randn(rgb.shape, generator=gen, device=dev)
+    alpha = (fi >= 0).float()
+    return ncuda.edge_inputs(fv, fi, rgb, alpha, g_rgb, alpha, 1024, True, False)
+
+
 def worker(repo: str, inputs: str, out: str, make: bool) -> int:
     """One tree's run, in a process that imports that tree only."""
     import numpy as np
@@ -142,13 +174,16 @@ def worker(repo: str, inputs: str, out: str, make: bool) -> int:
         thr = cuda_impl.launch_thr(inp, cnt, p)
         g = torch.randn(img.shape, generator=gen, device=dev)
         torch.save({'fv': fv, 'tex': tex, 'img': img, 'ag': ag, 'cnt': cnt, 'thr': thr,
-                    'g': g}, inputs)
+                    'g': g, 'edge_in': n3mr_edge_inputs(torch, dev, v, f, gen)}, inputs)
         return 0
 
     d = torch.load(inputs, map_location=dev)
     fv, tex = d['fv'], d['tex']
     inp = cuda_impl.prepare(fv, tex, p, for_grad=True)
     img, ag, cnt = cuda_impl.launch(inp, p)
+    thr = cuda_impl.launch_thr(inp, d['cnt'], p)
+    p40 = make_params(image_size=1024, max_faces_per_pixel_for_grad=40)
+    thr40 = cuda_impl.launch_thr(inp, d['cnt'], p40)
     rows = cuda_impl.launch_bwd(inp, d['img'], d['ag'], d['thr'], d['g'], p)
     gf, gt = cuda_impl.launch_reduce(inp, rows, p)
     torch.cuda.synchronize()
@@ -179,6 +214,7 @@ def worker(repo: str, inputs: str, out: str, make: bool) -> int:
     ones = torch.ones_like(img)
     times = {'fwd_ms': timed(lambda: cuda_impl.launch(inp, p)),
              'thr_ms': timed(lambda: cuda_impl.launch_thr(inp, cnt, p)),
+             'thr_k40_ms': timed(lambda: cuda_impl.launch_thr(inp, cnt, p40), reps=5),
              'bwd_ms': timed(lambda: cuda_impl.launch_bwd(inp, img, ag, d['thr'], ones, p)),
              'reduce_ms': timed(lambda: cuda_impl.launch_reduce(inp, rows, p))}
     busiest = int(inp.lists.counts[0].argmax())
@@ -187,10 +223,17 @@ def worker(repo: str, inputs: str, out: str, make: bool) -> int:
     img_s, ag_s, cnt_s = cuda_impl.launch(sub, p)
     thr_s = cuda_impl.launch_thr(sub, cnt_s, p)
     times['fwd_busiest_tile_alone_ms'] = timed(lambda: cuda_impl.launch(sub, p))
+    times['thr_busiest_tile_alone_ms'] = timed(lambda: cuda_impl.launch_thr(sub, cnt_s, p))
     times['bwd_busiest_tile_alone_ms'] = timed(
         lambda: cuda_impl.launch_bwd(sub, img_s, ag_s, thr_s, torch.ones_like(img_s), p))
+    from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda
+    edge_in = d['edge_in']
+    edge = ncuda.launch_edgebwd(*edge_in, N3MR_EPS, True, False)
+    times['n3mr_edgebwd_ms'] = timed(lambda: ncuda.launch_edgebwd(*edge_in, N3MR_EPS, True, False))
     times.update(step_times(torch, np, fv, tex, timed))
-    torch.save({'img': img, 'ag': ag, 'cnt': cnt, 'times': times, 'busiest_faces': ids.numel(),
+    torch.save({'img': img, 'ag': ag, 'cnt': cnt, 'thr': thr, 'thr40': thr40, 'times': times,
+                'busiest_faces': ids.numel(),
+                'edge': edge,
                 'slot_rows': digest(rows.gslots[:, :n], rows.gbig[:, :nb]),
                 'reduced': digest(gf, gt)}, out)
     return 0
@@ -237,11 +280,18 @@ def main() -> int:
         'fwd_image_max_abs_diff': (par['img'] - chg['img']).abs().max().item(),
         'fwd_aggr_S_max_rel_diff': ((par['ag'][:, 0] - chg['ag'][:, 0]).abs()
                                     / par['ag'][:, 0].abs()).max().item(),
+        'thr_equal': torch.equal(par['thr'], chg['thr']),
+        'thr_k40_equal': torch.equal(par['thr40'], chg['thr40']),
         'bwd_slot_rows_equal': par['slot_rows'] == chg['slot_rows'],
         'bwd_reduced_equal': par['reduced'] == chg['reduced'],
         'each_tree_twice_equal': all(r['slot_rows'] == first[t]['slot_rows']
                                      and torch.equal(r['img'], first[t]['img'])
-                                     for t, r in turns)}
+                                     and torch.equal(r['thr'], first[t]['thr'])
+                                     and torch.equal(r['thr40'], first[t]['thr40'])
+                                     and torch.equal(r['edge'], first[t]['edge'])
+                                     for t, r in turns),
+        'edge_max_diff_of_scale': ((par['edge'] - chg['edge']).abs().max()
+                                   / par['edge'].abs().max()).item()}
     print(json.dumps({'device': smi, 'busiest_tile_faces': int(chg['busiest_faces']),
                       'agree': same,
                       'turns': [{'tree': t, **r['times']} for t, r in turns]}), flush=True)
