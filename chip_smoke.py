@@ -120,23 +120,37 @@ of which raises on failure:
         their plain versions and the binned route on whole images of 32 to
         256 px, phase 11a's sweep, ``grad_mode='full'``; counts equal to the
         binned route's on every pixel; each backward twice, bit-equal; a
-        binding K = 16 step takes the binned route;
+        binding K = 16 step takes the binned route; K3 twice, bit-equal,
+        against the plain version of its split over a cluster's blocks
+        (``tiled.fwd_split_plain``: images within 1e-4, aggregates 1e-3
+        relative, counts and winners equal, on all but 1% of the pixels;
+        the share beyond 1e-5 read),
+        and built with 2 and 4 blocks per tile (counts and winners bit for
+        bit, images within 1e-5);
      b. 8 ``render_mesh`` frames (one K3 launch each) and 8
         ``grad_mode='full'`` steps of ``soft_rasterize`` (one launch of K3,
         K4 and the face sum each) at 1024 px on the 39,474-face sphere, none
         of another route; 4,096 pixels and their gradient against the plain
-        versions; each kernel timed alone and bounded;
+        versions; the whole frame (softmax and hard rgb) against the plain
+        version of the split, as in a; each kernel timed alone and bounded,
+        K3 also on the busiest tile's faces alone and at 2, 4 and 8 blocks
+        per tile; the step on both routes in turns;
  14. the px_f route (``JR_LAYOUT=px_f``):
      a. its forward with the threshold (K5), backward (K6) and face sum
         against their plain versions and the binned route at 24 to 256 px,
         the same sweep, K = 1, 4, 16 and 40 (bisection); counts on every
-        pixel and thresholds on 99.99% equal to the binned route's; 256 px
-        in 4 bands of tile rows: the bands side by side equal the whole
-        image to the bit and their gradients summed the whole gradient;
+        pixel and thresholds on 99.99% equal to the binned route's; K5
+        against the plain version of its split and its other builds as K3
+        in 13a, thresholds too; 256 px in 4 bands of tile rows: the bands
+        side by side equal the whole image to the bit and their gradients
+        summed the whole gradient;
      b. 8 frames, 8 steps of ``soft_rasterize`` and 8 of ``render_mesh`` at
         1024 px, K = 16, one launch of each px_f wrapper per step; 4,096
-        pixels and their gradient against the plain versions; each kernel
-        timed alone and bounded; the steps on both routes in turns;
+        pixels and their gradient against the plain versions; the whole
+        frame against the plain version of the split and in 4 bands of tile
+        rows (bit for bit); each kernel timed alone and bounded, K5 also on
+        the busiest tile alone and at 2, 4 and 8 blocks per tile; the steps
+        on both routes in turns;
  15. one JSON line of the kernels (19 of them); the last line is the device
      JSON.
 
@@ -239,7 +253,7 @@ FRAMES = 8
 STEPS = 8
 TRAIN_STEPS = 20
 SAMPLES = 4096
-SPLITS = (2, 4, 8)   # blocks per tile of the binned forward, threshold and backward (phase 5)
+SPLITS = (2, 4, 8)   # blocks per tile of the split kernels (phases 5, 13b, 14b)
 # published peaks of one H100 SXM: fp32 on the CUDA cores, HBM3 bandwidth
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -261,6 +275,8 @@ OPS_GRAD = 120   # within the threshold, backward: texel, softmax weight,
 OPS_COMBINE = 14  # pxg combine, per (work item, pixel): alpha, count, the
 #                  softmax maximum, the scale's exponential and four sums
 TOL = 1e-4           # forward kernel vs plain
+SPLIT_TOL = 1e-5     # the f_px and px_f forwards vs the plain version of their split
+AGGR_RTOL = 1e-3     # ... their aggregates, relative
 EDGE_FRAC = 0.01     # forward: share of knife-edge pixels allowed beyond
 THR_RTOL = 1e-6
 THR_FRAC = 0.001     # threshold: share of pixels allowed beyond
@@ -432,14 +448,21 @@ def main() -> int:
     variants = [(k, ((m, S),)) for k, m, chosen in (
         ('softras_fwd', 'SOFTRAS_FWD_SPLIT', cuda_impl.FWD_SPLIT),
         ('softras_thr', 'SOFTRAS_FWD_SPLIT', cuda_impl.FWD_SPLIT),
-        ('softras_bwd', 'SOFTRAS_BWD_SPLIT', cuda_impl.BWD_SPLIT)) for S in SPLITS if S != chosen]
+        ('softras_bwd', 'SOFTRAS_BWD_SPLIT', cuda_impl.BWD_SPLIT),
+        ('softras_fpx_fwd', 'SOFTRAS_TILE_SPLIT', tiled.TILE_SPLIT),
+        ('softras_pxf_fwd', 'SOFTRAS_TILE_SPLIT', tiled.TILE_SPLIT)) for S in SPLITS if S != chosen]
     _build.build(kernels_src + variants)
     log(f'build: {kernels_src} and {len(variants)} variants in {time.time() - t0:.1f} s')
-    for name in kernels_src:
+    # the f_px and px_f forwards' variants too (registers and spills per
+    # blocks per tile)
+    for name, defs in [(n, ()) for n in kernels_src] + [
+            v for v in variants if v[0] in ('softras_fpx_fwd', 'softras_pxf_fwd')]:
+        if defs:
+            log(f'  {name} built with {defs}:')
         # ptxas -v: per compiled function, its spills, then its registers
         # and static shared memory (the kernels' shared memory is dynamic)
         fn = spill = ''
-        for line in _build.build_log(name).splitlines():
+        for line in _build.build_log(name, defs).splitlines():
             if 'Compiling entry function' in line:
                 fn = line.split("'")[1]
             elif 'spill stores' in line:
@@ -2403,6 +2426,96 @@ def main() -> int:
         check(f'{tag} vs binned', f_k, GRAD_FRAC)
         return f_w, f_all, e_w, f_k
 
+    def full_split_check(name, tag, pin, p, out):
+        """The full frame's K3 or K5 outputs against the plain version of the
+        split, and with hard rgb (the winners); the readings logged."""
+        with_thr = out[3] is not None
+        r = check_tile_split(name, tag, pin, p, with_thr, out)
+        t_err[f'{name}_fwd'] = max(t_err[f'{name}_fwd'], r['max_err'])
+        kw_h = dict(image_size=1024, aggr_func_rgb='hard')
+        p_h = make_params(grad_mode='full', **kw_h) if name == 'fpx' else make_params(**kw_h)
+        pin_h = fpx_impl.prep_fpx(fv_full, tex_full, p_h) if name == 'fpx' else \
+            pxf_impl.prep_pxf(fv_full, tex_full, p_h)
+        r_h = check_tile_split(name, f'{tag} hard rgb', pin_h, p_h, with_thr,
+                               tile_fwd(name, pin_h, p_h, with_thr))
+        log(f'  {tag} vs the plain version of its split: {r["split_plain"]}; hard rgb: '
+            f'{r_h["split_plain"]}')
+
+    def tile_fwd(name, pin, p, with_thr):
+        """The route's counted forward wrapper (K3 or K5) on ``pin``."""
+        if name == 'fpx':
+            return fpx_impl.launch_fpx_fwd(pin, p)
+        return pxf_impl.launch_pxf_fwd(pin, p, with_thr)
+
+    def tile_variant_run(name, pin, p, with_thr, S):
+        """A call of K3 or K5 built with S blocks per tile, and the outputs
+        it writes (the default build: its wrapper, whose outputs are new
+        at each call, None)."""
+        if S == tiled.TILE_SPLIT:
+            return (lambda: tile_fwd(name, pin, p, with_thr)), None
+        source = f'softras_{name}_fwd'
+        bounds = pxf_impl.thr_bisect_bounds(p.near, p.far) if with_thr else (0, 0, 0)
+        args, out = tiled.fwd_args(pin, p, with_thr, bounds)
+        fn = tiled.split_variant(source, S)
+        return (lambda: cuda_impl._run(fn, source, args, dev)), list(out)
+
+    def check_tile_split(name, tag, pin, p, with_thr, out, chunk_pairs=1 << 24):
+        """K3 or K5 (``out``) twice, bit-equal; against the plain version of
+        its split and merge (``tiled.fwd_split_plain``): images within
+        TOL, aggregates within AGGR_RTOL relative (the shares beyond
+        SPLIT_TOL are read), counts and hard winners equal, each on all but EDGE_FRAC
+        of the pixels, thresholds at phase 3's tolerance; and built
+        with the other blocks per tile of SPLITS: counts, winners and
+        thresholds bit for bit, images within SPLIT_TOL on all but EDGE_FRAC.
+        Returns the largest image difference (max_err) and the readings."""
+        img, ag, cnt, thr = out
+        again = tile_fwd(name, pin, p, with_thr)
+        torch.cuda.synchronize()
+        if not all(a is None and b is None or torch.equal(a, b) for a, b in zip(out, again)):
+            raise AssertionError(f'{tag}: two runs of the forward differ in their bits')
+        want, ag_w, cnt_w, thr_w = tiled.fwd_split_plain(pin, p, with_thr,
+                                                         chunk_pairs=chunk_pairs)
+        f_img, e_img = beyond(img, want, SPLIT_TOL, pixel_dim=1)
+        rel = (ag.double() - ag_w.double()).abs() / ag_w.double().abs().clamp_min(1.0)
+        f_ag, e_ag = (rel > SPLIT_TOL).any(dim=1).float().mean().item(), rel.max().item()
+        f_c = beyond(cnt.float(), cnt_w.float(), 0)[0]
+        # the kernel's own arithmetic (expf, contractions, the online
+        # softmax's rescaling where the plain version exponentiates once;
+        # softras_pair.cuh) moves knife-edge pixels past SPLIT_TOL: images
+        # held at TOL, the softmax sum S at AGGR_RTOL (at gamma = 1e-4 an
+        # ulp of a depth moves a term of S by about 6e-4), the shares beyond
+        # SPLIT_TOL read
+        check(f'{tag} image vs split plain', beyond(img, want, TOL, pixel_dim=1)[0])
+        check(f'{tag} aggregates vs split plain',
+              (rel > AGGR_RTOL).any(dim=1).float().mean().item())
+        check(f'{tag} count vs split plain', f_c)
+        f_id = f_thr = 0.0
+        if p.aggr_func_rgb == 'hard':
+            f_id = beyond(ag[:, 1], ag_w[:, 1], 0)[0]
+            check(f'{tag} face index vs split plain', f_id)
+        if with_thr:
+            f_thr = ((thr - thr_w).abs() > THR_RTOL * thr_w.abs()).float().mean().item()
+            check(f'{tag} threshold vs split plain', f_thr, THR_FRAC)
+        var = {}
+        for S in SPLITS:
+            if S == tiled.TILE_SPLIT:
+                continue
+            run, o = tile_variant_run(name, pin, p, with_thr, S)
+            run()
+            torch.cuda.synchronize()
+            if not torch.equal(o[2], cnt) or (with_thr and not torch.equal(o[3], thr)) or (
+                    p.aggr_func_rgb == 'hard' and not torch.equal(o[1][:, 1], ag[:, 1])):
+                raise AssertionError(f'{tag}: counts, winners or thresholds at {S} blocks per '
+                                     'tile differ')
+            f_v, e_v = beyond(o[0], img, SPLIT_TOL, pixel_dim=1)
+            check(f'{tag} image at {S} blocks per tile', f_v)
+            var[S] = e_v
+        return {'max_err': e_img, 'split_plain': (
+            f'vs split plain: image {f_img:.6f} beyond {SPLIT_TOL} (max {e_img:.3g}), aggregates '
+            f'{f_ag:.6f} (max rel {e_ag:.3g}), counts {f_c:.6f}, winners {f_id:.6f}, threshold '
+            f'{f_thr:.6f}; counts, winners, thresholds bit-equal at {SPLITS} blocks per tile, '
+            f'image max diff {var}; bit-equal twice')}
+
     def compare_tiled(name, tag, fv, tex, p):
         """The f_px ('fpx') or px_f ('pxf') kernels against their plain
         versions and against the binned route on the same inputs, whole
@@ -2420,6 +2533,7 @@ def main() -> int:
             pin = pxf_impl.prep_pxf(fv, tex, p, for_grad=True)
             img, ag, cnt, thr = pxf_impl.launch_pxf_fwd(pin, p, with_thr)
         want, ag_w, cnt_w, thr_w = tiled.fwd_plain(pin, p, with_thr)
+        e_split = check_tile_split(name, tag, pin, p, with_thr, (img, ag, cnt, thr))
         torch.cuda.synchronize()
         f_rgb, e_rgb = beyond(img[:, :3], want[:, :3], TOL, pixel_dim=1)
         f_a, e_a = beyond(img[:, 3], want[:, 3], TOL)
@@ -2431,7 +2545,7 @@ def main() -> int:
         if not torch.isfinite(img).all():
             raise AssertionError(f'{tag}: non-finite output')
         msg = (f'  {tag}: {pin.tile_h}x{pin.tile_w} tiles, {pin.items.shape[0]} items; rgb '
-               f'{f_rgb:.4f} beyond (max {e_rgb:.3g}), alpha {f_a:.4f}')
+               f'{f_rgb:.4f} beyond (max {e_rgb:.3g}), alpha {f_a:.4f}; {e_split["split_plain"]}')
         e_thr = 0.0
         inputs = cuda_impl.prepare(fv, tex, p, for_grad=True)
         b_img, b_ag, b_cnt = cuda_impl.launch(inputs, p)
@@ -2485,7 +2599,7 @@ def main() -> int:
                                                   and p.aggr_func_alpha != 'hard')
         if moves and not gf.abs().max() > 0:
             raise AssertionError(f'{tag}: zero face gradient')
-        for k, e in (('fwd', max(e_rgb, e_a, e_thr)), ('bwd', max(e_f, e_t))):
+        for k, e in (('fwd', max(e_rgb, e_a, e_thr, e_split['max_err'])), ('bwd', max(e_f, e_t))):
             t_err[f'{name}_{k}'] = max(t_err[f'{name}_{k}'], e)
         g_err['sum'] = max(g_err['sum'], e_sf, e_st)
         log(msg + f'; face grad {a_f:.6f} beyond, {f_f:.6f} not the plain version\'s '
@@ -2600,6 +2714,7 @@ def main() -> int:
         img_x, ag_x, cnt_x, _ = fpx_impl.launch_fpx_fwd(pin_x, p_full_f)
         if not torch.equal(cnt_x, counts_full):
             raise AssertionError('f_px 1024 px: counts differ from the binned route\'s')
+        full_split_check('fpx', 'f_px 1024 px', pin_x, p_full_f, (img_x, ag_x, cnt_x, None))
         img_d, _, _ = cuda_impl.launch(inputs, p_full)
         check('f_px 1024 px image vs binned', beyond(img_x, img_d, TOL, pixel_dim=1)[0])
         t_err['fpx_fwd'] = max(t_err['fpx_fwd'], pixels_vs_plain(
@@ -2626,8 +2741,9 @@ def main() -> int:
     def tiled_timing(name, pin_k, p_k, img_k, ag_k, thr_k, census_k, plain_fwd, plain_bwd):
         """Each kernel of the route alone on the full frame's inputs, its plain
         version and, for the face sum, index_add_; the bounds from this
-        frame's pair counts.  Returns (ms, plain ms, plain_on, library ms,
-        bounds)."""
+        frame's pair counts; the forward also on the busiest tile's faces
+        alone and built with the other blocks per tile.  Returns (ms, plain
+        ms, plain_on, library ms, bounds, the forward's extra keys)."""
         impl = fpx_impl if name == 'fpx' else pxf_impl
         if name == 'fpx':
             fwd = lambda: fpx_impl.launch_fpx_fwd(pin_k, p_k)
@@ -2688,7 +2804,33 @@ def main() -> int:
         log(f'  plain versions, ms: ' + ', '.join(f'{k} {v:.3f} on {on[k]}'
                                                   for k, v in plain.items())
             + f'; index_add_: sum {lib["sum"]:.4f}  [{smi}]')
-        return ms, plain, on, lib, bnd
+        # the forward's split: the busiest tile's faces alone (before the
+        # split that tile's blocks were the kernel's tail), and the frame and
+        # that tile at each number of blocks per tile
+        with_thr = name == 'pxf'
+        busy = int(faces_t.argmax())
+        ids_b = pin_k.entries[int(pin_k.tile_off[busy]):int(pin_k.tile_off[busy + 1])].long()
+        sub = (fv_full[:, ids_b].contiguous(), tex_full[:, ids_b].contiguous(), p_k)
+        pin_b = fpx_impl.prep_fpx(*sub) if name == 'fpx' else pxf_impl.prep_pxf(*sub)
+        split_ms = {}
+        for S in SPLITS:
+            for which, pin_s in (('frame', pin_k), ('busiest tile', pin_b)):
+                run, _ = tile_variant_run(name, pin_s, p_k, with_thr, S)
+                split_ms[f'{S} {which}'] = timed(run, reps=30)
+        row = pin_k.rows.shape[-1]
+        own = tiled.fwd_own_bytes(p_k, with_thr)
+        chunk = tiled.fwd_chunk(row, tiled.fwd_threads(pin_k.tile_h, pin_k.tile_w), own)
+        smem = max(8 * chunk * (row + 1), 4 * tiled.FWD_STATE * tiled.FWD_PIX) + own
+        log(f'  softras_{name}_fwd, blocks per tile (chosen {tiled.TILE_SPLIT}): ' + '; '.join(
+            f'{S}: frame {split_ms[f"{S} frame"]:.4f} ms, busiest tile ({ids_b.numel()} faces) '
+            f'alone {split_ms[f"{S} busiest tile"]:.4f} ms' for S in SPLITS)
+            + f'; shared memory a block {smem:,} bytes ({chunk} faces a chunk, 2 buffers, '
+            f'{own:,} bytes of the threshold\'s own), the same at every split  [{smi}]')
+        extra = {'blocks_per_tile': tiled.TILE_SPLIT,
+                 'busiest_tile_ms': split_ms[f'{tiled.TILE_SPLIT} busiest tile'],
+                 'busiest_tile_faces': ids_b.numel(), 'ms_by_blocks_per_tile': split_ms,
+                 'smem_bytes': smem}
+        return ms, plain, on, lib, bnd, extra
 
     with route.with_layout('f_px'):
         fpx_t = tiled_timing(
@@ -2696,6 +2838,21 @@ def main() -> int:
             lambda: torch_impl.forward_pixels(fv_full, tex_full, p_full_f, xk, yk,
                                               chunk_pairs=1 << 24),
             plain_bwd_fpx)
+
+    # the grad_mode='full' step on both routes in turns: binned, f_px, f_px,
+    # binned; CUDA events, then the host clock around steps that end in a
+    # synchronize
+    f_times = {'binned': [], 'f_px': []}
+    for r_name in ('binned', 'f_px', 'f_px', 'binned'):
+        with route.with_layout(r_name if r_name == 'f_px' else 'pxt'):
+            t_r = timed(full_step, reps=STEPS)
+            t0 = time.perf_counter()
+            for i in range(STEPS):
+                full_step(i)
+            torch.cuda.synchronize()
+            f_times[r_name].append((t_r, (time.perf_counter() - t0) * 1e3 / STEPS))
+    log(f"  in turns (binned, f_px, f_px, binned), ms: grad_mode='full' soft_rasterize step, "
+        f'events / host clock: {f_times}  [{smi}]')
 
     # ---- 14. the px_f route ------------------------------------------------
     log('phase 14a: px_f kernels vs plain and vs the binned route, whole images')
@@ -2777,6 +2934,19 @@ def main() -> int:
         img_p, ag_p, cnt_p, thr_p = pxf_impl.launch_pxf_fwd(pin_p, p_full, True)
         if not torch.equal(cnt_p, counts_full):
             raise AssertionError('px_f 1024 px: counts differ from the binned route\'s')
+        full_split_check('pxf', 'px_f 1024 px', pin_p, p_full, (img_p, ag_p, cnt_p, thr_p))
+        # the bands of 8 tile rows side by side equal the whole frame, bit for bit
+        rows_p = pin_p.tiles_y // 4
+        bands_p = [pxf_impl.launch_pxf_fwd(pxf_impl.prep_pxf(fv_full, tex_full, p_full,
+                                                             ty0=k * rows_p, ty_band=rows_p),
+                                           p_full, True) for k in range(4)]
+        torch.cuda.synchronize()
+        for i, full in enumerate((img_p, ag_p, cnt_p, thr_p)):
+            if not torch.equal(torch.cat([o[i] for o in bands_p], dim=-2), full):
+                raise AssertionError(f'px_f 1024 px: output {i} of 4 bands differs from the '
+                                     'whole frame\'s')
+        log(f'  px_f 1024 px in 4 bands of {rows_p} tile rows: image, aggregates, counts and '
+            'thresholds equal to the whole frame\'s, bit for bit')
         same_p = (thr_p == thr_f).float().mean().item()
         check('px_f 1024 px threshold vs binned', 1.0 - same_p, 1e-4)
         img_d, _, _ = cuda_impl.launch(inputs, p_full)
@@ -2891,9 +3061,10 @@ def main() -> int:
         entry('segment_sum', 'segment_sum.cu', 'jrender_tpu/ops/softras/pxg_impl.py:998',
               g_err['sum'], gm['sum'], gm_plain['sum'], gm_on['sum'], gb['sum'],
               gm_lib['sum']),
-        *(entry(f'softras_{r}_{k}', f'softras_{r}_{k}.cu',
-                f'jrender_tpu/ops/softras/pallas_impl.py:{line}',
-                t_err[f'{r}_{k}'], tm[0][k], tm[1][k], tm[2][k], tm[4][k], tm[3].get(k))
+        *({**entry(f'softras_{r}_{k}', f'softras_{r}_{k}.cu',
+                   f'jrender_tpu/ops/softras/pallas_impl.py:{line}',
+                   t_err[f'{r}_{k}'], tm[0][k], tm[1][k], tm[2][k], tm[4][k], tm[3].get(k)),
+           **(tm[5] if k == 'fwd' else {})}
           for r, tm, rows_ in (('fpx', fpx_t, ((313, 'fwd'), (442, 'bwd'))),
                                ('pxf', pxf_t, ((894, 'fwd'), (1161, 'bwd'))))
           for line, k in rows_),

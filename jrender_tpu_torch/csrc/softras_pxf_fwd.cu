@@ -8,31 +8,44 @@
 // tile rows, the image, the aggregates, the candidate count and, when
 // asked, the top-K threshold, the K-th smallest candidate depth (tied
 // depths all pass).  The TPU kernel stores every chunk's candidate depth
-// bits in a VMEM slab and bisects them with MXU-counted ranks; here a
-// thread keeps the K smallest depths of each of its pixels for K <= 32 and
-// the block bisects over the tile's list above that (softras_topk.cuh),
-// as the dir forward does.  A pixel with at most K candidates gets `far`,
+// bits in a VMEM slab and bisects them with MXU-counted ranks; here each
+// rank of a cluster keeps its share's K smallest depths of each pixel in
+// shared memory for K <= 32, merged by rank 0, and above that the ranks
+// bisect on the depth's bits, summing their counts at every step
+// (softras_tile_fwd.cuh).  A pixel with at most K candidates gets `far`,
 // as on the binned route (the TPU kernel's bisection ends at its largest
 // candidate there; both pass every candidate).
 //
-// Design: softras_tile_fwd.cuh, each tile's whole list walked by 2 blocks
-// of 256 threads, 2 pixels a thread (a 32 x 32 tile is 1,024 pixels).  A
-// tile without faces writes the background and the initial aggregates,
-// count 0 and the threshold `far`.
+// Design: softras_tile_fwd.cuh.  A 32 x 32 tile (1,024 pixels) is cut
+// into 2 parts of 256 threads x 2 pixels, and each part's walk of the
+// tile's list is split over a thread-block cluster of kTileSplit blocks
+// (the busiest 32 x 32 tile holds 1,755 faces at 1024 px on the
+// 39,474-face sphere).  A tile without faces writes the background and
+// the initial aggregates, count 0 and the threshold `far`.
 //
 // Bound.  The binned forward's pair work plus the threshold's (a list
 // compare per candidate; K > 32: a walk of the overfull tiles' pairs per
 // bisection step); the face rows once per tile, the lists, and the five
 // output maps written once (chip_smoke.py counts both from its run).
+//
+// Occupancy: 80 registers a thread, 3 blocks an SM (a block holds 59 KB at K = 16):
+// 2.00 ms at 1024 px on the 39,474-face sphere against 2.10 at 4 blocks
+// (64 registers, 68 bytes of spills) and 2.59 at 2 (94)
+// (tools/time_tile_fwd.py, PERF.md).
+#ifndef SOFTRAS_TILE_MIN_BLOCKS
+#define SOFTRAS_TILE_MIN_BLOCKS 3
+#endif
 #include "softras_tile_fwd.cuh"
 
 extern "C" int softras_pxf_fwd(const softras::TileFwdArgs* args, void* stream) {
   using namespace softras;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (args->thr == nullptr) return (int)tile_fwd_dispatch<kThrNone, 2>(*args, st);
+  if (args->thr == nullptr) return tile_fwd_dispatch<kThrNone>(*args, st);
   if (args->K < 1) return (int)cudaErrorInvalidValue;
-  if (args->K <= kListMax) return (int)tile_fwd_dispatch<kThrList, 2>(*args, st);
-  return (int)tile_fwd_dispatch<kThrBisect, 2>(*args, st);
+  if (args->K <= kListMax) return tile_fwd_dispatch<kThrList>(*args, st);
+  return tile_fwd_dispatch<kThrBisect>(*args, st);
 }
 
 extern "C" int softras_pxf_fwd_args_size() { return (int)sizeof(softras::TileFwdArgs); }
+
+extern "C" int softras_pxf_fwd_split() { return softras::kTileSplit; }

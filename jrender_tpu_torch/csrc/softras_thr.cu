@@ -189,39 +189,6 @@ __device__ __forceinline__ void walk_share(const ThrArgs& a, const TileList& tl,
   __syncthreads();  // the staging buffers are free again
 }
 
-// The K smallest depths seen so far, in shared memory: d[i * kThreads] is
-// the thread's i-th, unsorted; the count and the place and value of the
-// maximum live in registers.
-struct SharedSmallestK {
-  float* d;
-  int K, n, imax;
-  float dmax;
-  __device__ __forceinline__ void operator()(float z) {
-    if (n < K) {
-      d[n * kThreads] = z;
-      if (n == 0 || z > dmax) {
-        imax = n;
-        dmax = z;
-      }
-      ++n;
-    } else if (z < dmax) {
-      d[imax * kThreads] = z;
-      int m = 0;
-      float mv = d[0];
-#pragma unroll 8
-      for (int i = 1; i < K; ++i) {
-        const float v = d[i * kThreads];
-        if (v > mv) {
-          mv = v;
-          m = i;
-        }
-      }
-      imax = m;
-      dmax = mv;
-    }
-  }
-};
-
 template <int DIST>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     softras_thr_kernel(const ThrArgs a) {
@@ -277,7 +244,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       return;
     }
     int* const nlist = reinterpret_cast<int*>(own + a.K * kThreads);
-    SharedSmallestK list{own + tid, a.K, 0, 0, 0.0f};
+    SharedSmallestK<kThreads> list{own + tid, a.K, 0, 0, 0.0f};
     walk_share<DIST>(a, tl, lo, len, stage_buf, need, xp, yp, warp, lane, list);
     if (merge) {
       nlist[tid] = list.n;

@@ -1,6 +1,7 @@
 // The top-K depth threshold's pieces as CUDA device code, shared by the
-// binned threshold kernel (softras_thr.cu) and the dir forward
-// (softras_dir_fwd.cu), which finds the threshold in its own walk.
+// binned threshold kernel (softras_thr.cu), the px_f forward
+// (softras_tile_fwd.cuh) and the dir forward (softras_dir_fwd.cu), which
+// find the threshold in their own walks.
 //
 // The threshold of a pixel is the K-th smallest depth among its candidate
 // pairs, counted with multiplicity.  A thread meets its candidates one
@@ -41,6 +42,42 @@ struct SmallestK {
       for (int i = 1; i < K; ++i)
         if (d[i] > d[m]) m = i;
       imax = m;
+    }
+  }
+};
+
+// The K smallest depths seen so far, in shared memory: d[i * STRIDE] is
+// the thread's i-th, unsorted (STRIDE pixels apart, so a warp's lanes sit
+// on distinct banks); the count and the place and value of the maximum
+// live in registers.  A depth below the maximum replaces it, and one scan
+// of K finds the next.
+template <int STRIDE>
+struct SharedSmallestK {
+  float* d;
+  int K, n, imax;
+  float dmax;
+  __device__ __forceinline__ void operator()(float z) {
+    if (n < K) {
+      d[n * STRIDE] = z;
+      if (n == 0 || z > dmax) {
+        imax = n;
+        dmax = z;
+      }
+      ++n;
+    } else if (z < dmax) {
+      d[imax * STRIDE] = z;
+      int m = 0;
+      float mv = d[0];
+#pragma unroll 8
+      for (int i = 1; i < K; ++i) {
+        const float v = d[i * STRIDE];
+        if (v > mv) {
+          mv = v;
+          m = i;
+        }
+      }
+      imax = m;
+      dmax = mv;
     }
   }
 };

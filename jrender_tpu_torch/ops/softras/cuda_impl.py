@@ -312,9 +312,10 @@ def split_variant(name: str, split: int):
 
 def rank_shares(total: int, split: int):
     """The shares [lo, hi) of a tile's sequence of ``total`` face ids (its
-    big faces, then its run) that the forward kernel's ranks walk: rank r
-    takes [r * per, (r + 1) * per) with per = ceil(total / split); ranks
-    past the end take none."""
+    big faces, then its run) that the ranks of a split kernel walk (the
+    binned forward and threshold, the f_px and px_f forwards): rank r takes
+    [r * per, (r + 1) * per) with per = ceil(total / split); ranks past the
+    end take none."""
     per = -(-total // split)
     return [(r * per, min(total, (r + 1) * per)) for r in range(split) if r * per < total]
 

@@ -71,8 +71,8 @@ def _untruncated(with_thr: bool):
 
 
 def launch_fpx_fwd(pin: TiledInputs, p: SoftRasParams, with_thr: bool = False):
-    """Launch the forward kernel on the current stream: a block per tile
-    walks its whole list.  Returns (images [B,4,H,W], aggrs [B,2,H,W],
+    """Launch the forward kernel on the current stream: each tile's list
+    split over a cluster of ``tiled.TILE_SPLIT`` blocks.  Returns (images [B,4,H,W], aggrs [B,2,H,W],
     counts [B,H,W] int32, None).  ``launch_fpx_fwd.launches`` counts the
     launches."""
     _untruncated(with_thr)

@@ -34,7 +34,7 @@ otherwise.
 
 Kernels and wrappers (each wrapper counts its launches in ``.launches``):
   ``launch_pxf_fwd``  csrc/softras_pxf_fwd.cu  image, aggregates, counts,
-                                               threshold (a list per pixel
+                                               threshold (K-smallest lists
                                                for K <= 32, bisection above)
   ``launch_pxf_bwd``  csrc/softras_pxf_bwd.cu  one gradient row per entry
 The face sum after the backward is ``tiled.face_sum`` (the segment sum).
@@ -86,8 +86,8 @@ def prep_pxf(face_vertices, textures, p: SoftRasParams, ty0: int | None = None,
 
 
 def launch_pxf_fwd(pin: TiledInputs, p: SoftRasParams, with_thr: bool):
-    """Launch the forward kernel on the current stream: a block per tile of
-    the band walks its whole list.  Returns (images [B,4,Hb,W], aggrs
+    """Launch the forward kernel on the current stream: each list of the
+    band's tiles split over a cluster of ``tiled.TILE_SPLIT`` blocks.  Returns (images [B,4,Hb,W], aggrs
     [B,2,Hb,W], counts [B,Hb,W] int32, thr [B,Hb,W] or None).
     ``launch_pxf_fwd.launches`` counts the launches."""
     out = tiled.launch_fwd('softras_pxf_fwd', pin, p, with_thr,

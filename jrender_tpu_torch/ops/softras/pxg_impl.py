@@ -148,18 +148,9 @@ def _item_colors(tex, terms, face, p: SoftRasParams, R: int):
 def fwd_partials_plain(pin: PxgInputs, p: SoftRasParams, with_thr: bool,
                        chunk_pairs: int = torch_impl.CHUNK_PAIRS):
     """The plain version of the partials kernel: for every work item and
-    pixel of its tile, the item's faces aggregated without the background.
-    Returns (parts [W, 8, 256], depths [W, K, 256] or None).  Channels:
-      softmax rgb  numerator r, g, b (weights exp((zpn - M)/gamma) * sf), S,
-                   M (the item's largest zpn, -1e30 without a candidate),
-                   alpha, count, 0
-      hard rgb     the winner's r, g, b, its depth (1e7 without one), its
-                   original id (the lowest on a depth tie, -1 without one),
-                   alpha, count, 0
-    alpha is max(sf > 0.5) (hard), the sum of sf (sum) or the product of
-    1 - sf (prod) over the pairs in the distance cut.  With ``with_thr``,
-    ``depths`` holds each pixel's K smallest candidate depths in the item,
-    ascending, +inf padded.  A pixel past the image edge has no pairs."""
+    pixel of its tile, the item's faces aggregated without the background
+    (``item_partials``).  Returns (parts [W, 8, 256], depths [W, K, 256]
+    or None).  A pixel past the image edge has no pairs."""
     B, F, tiles, NT = _shape(pin, p)
     items = pin.items.long()
     W = items.shape[0]
@@ -177,60 +168,87 @@ def fwd_partials_plain(pin: PxgInputs, p: SoftRasParams, with_thr: bool,
         in_item = slot[None] < (it[:, 2] - it[:, 1])[:, None]                 # [n, G]
         fid = pin.entries[(it[:, 1:2] + slot[None]).clamp_max(pin.entries.numel() - 1)].long()
         fid = torch.where(in_item, fid, 0)
-        r = pin.rows[b[:, None], fid]                                          # [n, G, row]
-        face = r[..., :9]
         rr, cc, live = _tile_pixels(it[:, 0], NT, tiles, p.image_size)
         xp, yp = torch_impl.pixel_centers(rr, cc, p.image_size)
-        terms = torch_impl.pair_terms(face[:, None], r[:, None, :, 9:18], r[:, None, :, 18:27],
-                                      r[:, None, :, 27:30], xp[..., None], yp[..., None], p)
-        ok = in_item[:, None, :] & live[..., None]                             # [n, 256, G]
-        alpha_valid = terms['alpha_valid'] & ok
-        tk_valid = terms['tk_valid'] & ok
-        sf, zp = terms['sf'], terms['zp']
-        sf_a = torch.where(alpha_valid, sf, 0.0)
-        if p.alpha_func_id == 0:
-            A = (alpha_valid & (sf > 0.5)).any(-1).to(dt)
-        elif p.alpha_func_id == 1:
-            A = sf_a.sum(-1)
-        else:
-            A = (1.0 - sf_a).prod(-1)
-        cnt = tk_valid.sum(-1).to(dt)
-        side_ok = ((r[..., ROW_BASE - 1] > 0.5) | p.fill_back)[:, None, :]
-        zero = torch.zeros_like(A)
-        if p.rgb_func_id == 1:
-            rgb_valid = tk_valid & side_ok
-            zpn = (p.far - zp) / (p.far - p.near)
-            has = rgb_valid.any(-1)
-            M = torch.where(rgb_valid, zpn, -math.inf).amax(-1)
-            M = torch.where(has, M, NO_MAX)
-            expz = torch.where(rgb_valid, torch.exp((zpn - M[..., None]) / p.gamma_val), 0.0)
-            coef = expz * sf
-            colors = _item_colors(r[..., ROW_BASE:], terms, face, p, pin.tex_res)
-            num = torch.einsum('wpg,wpgc->wpc', coef, torch.where(rgb_valid[..., None], colors, 0.0))
-            chans = [num[..., 0], num[..., 1], num[..., 2], coef.sum(-1), M]
-        elif p.rgb_func_id == 0:
-            hard_valid = tk_valid & G.check_pixel_inside(terms['w']) & side_ok
-            zkey = torch.where(hard_valid, zp, torch_impl.BIG_DEPTH)
-            dmin = zkey.amin(-1)
-            tied = hard_valid & (zkey == dmin[..., None])
-            idk = torch.where(tied, fid[:, None, :], F + 1)
-            win = idk.amin(-1)
-            pick = tied & (idk == win[..., None])
-            colors = _item_colors(r[..., ROW_BASE:], terms, face, p, pin.tex_res)
-            col = torch.where(pick[..., None], colors, 0.0).sum(-2)
-            hit = win <= F
-            chans = [col[..., 0], col[..., 1], col[..., 2], dmin,
-                     torch.where(hit, win, -1).to(dt)]
-        else:
-            chans = [zero] * 5
-        parts[s:s + n] = torch.stack(chans + [A, cnt, zero], dim=1)
+        chans, small = item_partials(pin.rows[b[:, None], fid], fid, in_item, xp, yp, live, p,
+                                     pin.tex_res, F, with_thr)
+        parts[s:s + n] = chans
         if with_thr:
-            cand = torch.where(tk_valid, zp, math.inf)
-            kk = min(K, group)
-            small = torch.topk(cand, kk, dim=-1, largest=False, sorted=True).values
-            small = torch.nn.functional.pad(small, (0, K - kk), value=math.inf)
-            depths[s:s + n] = small.permute(0, 2, 1)
+            depths[s:s + n] = small
     return parts, depths
+
+
+def item_partials(r, fid, in_item, xp, yp, live, p: SoftRasParams, R: int, F: int,
+                  with_thr: bool):
+    """The partial states of n work items over X pixels each: r [n, G,
+    row] the rows of their faces (padded), fid [n, G] the faces' ids,
+    in_item [n, G] the real ones, xp, yp [n, X] the pixel centres, live
+    [n, X] the pixels in the image; F the mesh's face count.  Returns
+    (parts [n, 8, X], depths [n, K, X] or None).  Channels:
+      softmax rgb  numerator r, g, b (weights exp((zpn - M)/gamma) * sf), S,
+                   M (the item's largest zpn, -1e30 without a candidate),
+                   alpha, count, 0
+      hard rgb     the winner's r, g, b, its depth (1e7 without one), its
+                   original id (the lowest on a depth tie, -1 without one),
+                   alpha, count, 0
+    alpha is max(sf > 0.5) (hard), the sum of sf (sum) or the product of
+    1 - sf (prod) over the pairs in the distance cut.  With ``with_thr``,
+    ``depths`` holds each pixel's K smallest candidate depths in the item,
+    ascending, +inf padded."""
+    dt = r.dtype
+    group = r.shape[1]
+    K = p.max_faces_id
+    face = r[..., :9]
+    terms = torch_impl.pair_terms(face[:, None], r[:, None, :, 9:18], r[:, None, :, 18:27],
+                                  r[:, None, :, 27:30], xp[..., None], yp[..., None], p)
+    ok = in_item[:, None, :] & live[..., None]                                 # [n, X, G]
+    alpha_valid = terms['alpha_valid'] & ok
+    tk_valid = terms['tk_valid'] & ok
+    sf, zp = terms['sf'], terms['zp']
+    sf_a = torch.where(alpha_valid, sf, 0.0)
+    if p.alpha_func_id == 0:
+        A = (alpha_valid & (sf > 0.5)).any(-1).to(dt)
+    elif p.alpha_func_id == 1:
+        A = sf_a.sum(-1)
+    else:
+        A = (1.0 - sf_a).prod(-1)
+    cnt = tk_valid.sum(-1).to(dt)
+    side_ok = ((r[..., ROW_BASE - 1] > 0.5) | p.fill_back)[:, None, :]
+    zero = torch.zeros_like(A)
+    if p.rgb_func_id == 1:
+        rgb_valid = tk_valid & side_ok
+        zpn = (p.far - zp) / (p.far - p.near)
+        has = rgb_valid.any(-1)
+        M = torch.where(rgb_valid, zpn, -math.inf).amax(-1)
+        M = torch.where(has, M, NO_MAX)
+        expz = torch.where(rgb_valid, torch.exp((zpn - M[..., None]) / p.gamma_val), 0.0)
+        coef = expz * sf
+        colors = _item_colors(r[..., ROW_BASE:], terms, face, p, R)
+        num = torch.einsum('wpg,wpgc->wpc', coef, torch.where(rgb_valid[..., None], colors, 0.0))
+        chans = [num[..., 0], num[..., 1], num[..., 2], coef.sum(-1), M]
+    elif p.rgb_func_id == 0:
+        hard_valid = tk_valid & G.check_pixel_inside(terms['w']) & side_ok
+        zkey = torch.where(hard_valid, zp, torch_impl.BIG_DEPTH)
+        dmin = zkey.amin(-1)
+        tied = hard_valid & (zkey == dmin[..., None])
+        idk = torch.where(tied, fid[:, None, :], F + 1)
+        win = idk.amin(-1)
+        pick = tied & (idk == win[..., None])
+        colors = _item_colors(r[..., ROW_BASE:], terms, face, p, R)
+        col = torch.where(pick[..., None], colors, 0.0).sum(-2)
+        hit = win <= F
+        chans = [col[..., 0], col[..., 1], col[..., 2], dmin,
+                 torch.where(hit, win, -1).to(dt)]
+    else:
+        chans = [zero] * 5
+    parts = torch.stack(chans + [A, cnt, zero], dim=1)
+    if not with_thr:
+        return parts, None
+    cand = torch.where(tk_valid, zp, math.inf)
+    kk = min(K, group)
+    small = torch.topk(cand, kk, dim=-1, largest=False, sorted=True).values
+    small = torch.nn.functional.pad(small, (0, K - kk), value=math.inf)
+    return parts, small.permute(0, 2, 1)
 
 
 def _by_tile(pin: PxgInputs, x: torch.Tensor, tiles_sel: torch.Tensor):
@@ -257,58 +275,66 @@ def _to_image(rows: torch.Tensor, B: int, tiles: int, is_: int):
 def combine_plain(pin: PxgInputs, parts: torch.Tensor, p: SoftRasParams,
                   chunk: int = 1 << 24):
     """The plain version of the combine kernel (``_combine_pxg`` :449-532
-    and the uncovered tiles' values :738-750): per tile and pixel, the
-    softmax maximum M = max(M_g, eps), each item's sums scaled by
-    exp((M_g - M)/gamma), the background term exp((eps - M)/gamma) once;
-    hard rgb the least depth and the lowest id on it; alpha by max, sum / F
-    or 1 - product; counts summed.  A tile without items gets the
-    background and the initial aggregates.  Returns (images [B,4,H,W],
+    and the uncovered tiles' values :738-750): per tile and pixel, its
+    items' partials merged by ``merge_partials``.  A tile without items
+    gets the background and the initial aggregates.  Returns (images [B,4,H,W],
     aggrs [B,2,H,W], counts [B,H,W] int32)."""
     B, F, tiles, NT = _shape(pin, p)
     dev, dt = parts.device, parts.dtype
-    bg = torch.tensor(p.background_color, dtype=dt, device=dev)[None, :, None]
     out = torch.empty((B * NT, 7, PIXELS), dtype=dt, device=dev)
     off = pin.item_off.long()
     m = max(int((off[1:] - off[:-1]).max()), 1) if B * NT else 1
     step = max(1, chunk // (m * PARTS * PIXELS))
     for s in range(0, B * NT, step):
         sel = torch.arange(s, min(s + step, B * NT), device=dev)
-        P, ok = _by_tile(pin, parts, sel)                            # [n, m, 8, 256]
-        okp = ok[:, :, None]
-        if p.alpha_func_id == 0:
-            A = torch.where(okp, P[:, :, 5], 0.0).amax(1)
-        elif p.alpha_func_id == 1:
-            A = torch.where(okp, P[:, :, 5], 0.0).sum(1) / F
-        else:
-            A = 1.0 - torch.where(okp, P[:, :, 5], 1.0).prod(1)
-        cnt = torch.where(okp, P[:, :, 6], 0.0).sum(1)
-        if p.rgb_func_id == 1:
-            M = torch.where(okp, P[:, :, 4], NO_MAX).amax(1).clamp_min(p.eps)
-            scale = torch.where(okp, torch.exp((P[:, :, 4] - M[:, None]) / p.gamma_val), 0.0)
-            exp_bg = torch.exp((p.eps - M) / p.gamma_val)
-            S = exp_bg + (P[:, :, 3] * scale).sum(1)
-            num = exp_bg[:, None] * bg + (P[:, :, 0:3] * scale[:, :, None]).sum(1)
-            rgb = num / S[:, None]
-            ag = torch.stack([S, M], dim=1)
-        elif p.rgb_func_id == 0:
-            won = okp & (P[:, :, 4] >= 0)
-            d = torch.where(won, P[:, :, 3], torch_impl.BIG_DEPTH)
-            dmin = d.amin(1)
-            on = won & (d == dmin[:, None])
-            idw = torch.where(on, P[:, :, 4], 2.0 ** 30).amin(1)
-            pick = on & (P[:, :, 4] == idw[:, None])
-            col = torch.where(pick[:, :, None], P[:, :, 0:3], 0.0).sum(1)
-            hit = idw < 2.0 ** 29
-            rgb = torch.where(hit[:, None], col, bg)
-            ag = torch.stack([torch.where(hit, dmin, torch_impl.BIG_DEPTH),
-                              torch.where(hit, idw, -1.0)], dim=1)
-        else:
-            rgb = bg.expand(sel.numel(), 3, PIXELS)
-            ag = torch.zeros((sel.numel(), 2, PIXELS), dtype=dt, device=dev)
-        out[s:s + sel.numel()] = torch.cat([rgb, A[:, None], ag, cnt[:, None]], dim=1)
+        out[s:s + sel.numel()] = merge_partials(*_by_tile(pin, parts, sel), p, F)
     img = _to_image(out, B, tiles, p.image_size)
     return (img[:, :4].contiguous(), img[:, 4:6].contiguous(),
             img[:, 6].round().to(torch.int32))
+
+
+def merge_partials(P: torch.Tensor, ok: torch.Tensor, p: SoftRasParams, F: int):
+    """The combine's rule on n tiles' partial states P [n, m, 8, X] (ok [n,
+    m] marks each tile's real items), in item order: the softmax maximum M
+    = max(M_g, eps), each item's sums scaled by exp((M_g - M)/gamma), the
+    background term exp((eps - M)/gamma) once; hard rgb the least depth
+    and the lowest id on it; alpha by max, sum / F or 1 - product; counts
+    summed.  Returns [n, 7, X]: rgb, alpha, the two aggregates, the count."""
+    dev, dt = P.device, P.dtype
+    n, X = P.shape[0], P.shape[-1]
+    bg = torch.tensor(p.background_color, dtype=dt, device=dev)[None, :, None]
+    okp = ok[:, :, None]
+    if p.alpha_func_id == 0:
+        A = torch.where(okp, P[:, :, 5], 0.0).amax(1)
+    elif p.alpha_func_id == 1:
+        A = torch.where(okp, P[:, :, 5], 0.0).sum(1) / F
+    else:
+        A = 1.0 - torch.where(okp, P[:, :, 5], 1.0).prod(1)
+    cnt = torch.where(okp, P[:, :, 6], 0.0).sum(1)
+    if p.rgb_func_id == 1:
+        M = torch.where(okp, P[:, :, 4], NO_MAX).amax(1).clamp_min(p.eps)
+        scale = torch.where(okp, torch.exp((P[:, :, 4] - M[:, None]) / p.gamma_val), 0.0)
+        exp_bg = torch.exp((p.eps - M) / p.gamma_val)
+        S = exp_bg + (P[:, :, 3] * scale).sum(1)
+        num = exp_bg[:, None] * bg + (P[:, :, 0:3] * scale[:, :, None]).sum(1)
+        rgb = num / S[:, None]
+        ag = torch.stack([S, M], dim=1)
+    elif p.rgb_func_id == 0:
+        won = okp & (P[:, :, 4] >= 0)
+        d = torch.where(won, P[:, :, 3], torch_impl.BIG_DEPTH)
+        dmin = d.amin(1)
+        on = won & (d == dmin[:, None])
+        idw = torch.where(on, P[:, :, 4], 2.0 ** 30).amin(1)
+        pick = on & (P[:, :, 4] == idw[:, None])
+        col = torch.where(pick[:, :, None], P[:, :, 0:3], 0.0).sum(1)
+        hit = idw < 2.0 ** 29
+        rgb = torch.where(hit[:, None], col, bg)
+        ag = torch.stack([torch.where(hit, dmin, torch_impl.BIG_DEPTH),
+                          torch.where(hit, idw, -1.0)], dim=1)
+    else:
+        rgb = bg.expand(n, 3, X)
+        ag = torch.zeros((n, 2, X), dtype=dt, device=dev)
+    return torch.cat([rgb, A[:, None], ag, cnt[:, None]], dim=1)
 
 
 def overfull_tiles(pin: PxgInputs, counts: torch.Tensor, p: SoftRasParams) -> torch.Tensor:

@@ -15,9 +15,11 @@ on 16 x min(128, is) tiles in 32-face chunks, px_f on t x t tiles (t = 32,
 16 or 8) in 128-face chunks, with a top-K threshold and a band of tile
 rows.  Here both have the same two kernels:
 
-  forward   csrc/softras_tile_fwd.cuh  a block per tile of the band walks
-            the tile's whole list: image, aggregates, counts and, when
-            asked, the top-K threshold
+  forward   csrc/softras_tile_fwd.cuh  each tile's pixels in parts of at
+            most 32 x 16, each part's walk of the tile's list split over a cluster of
+            TILE_SPLIT blocks (``cuda_impl.rank_shares``) and merged by
+            rank 0: image, aggregates, counts and, when asked, the top-K
+            threshold
   backward  csrc/softras_tile_bwd.cuh  a block per work item (a tile and
             a run of at most ``group`` faces of its list): one gradient
             row per entry, summed over the tile's pixels
@@ -26,7 +28,10 @@ Each route has its own sources (``csrc/softras_{fpx,pxf}_{fwd,bwd}.cu``),
 counted wrappers and rules (tile shape, work-item size, threshold); the
 functions here are the prep, the plain versions, the launches without
 counts, and ``forward`` / ``backward``, which go by the device of their
-input and take the route's wrapper for the card.
+input and take the route's wrapper for the card.  ``fwd_plain`` is the
+unsplit forward; ``fwd_split_plain`` is the plain version of the forward
+kernel's split and merge, which the tests and the card's checks hold the
+kernel to.
 
 Bands.  ``band`` = (ty0, ty_band) keeps the tile rows [ty0, ty0 +
 ty_band): only their tiles have lists and items, the outputs and maps are
@@ -41,12 +46,18 @@ from typing import NamedTuple
 
 import torch
 
+from ... import _build
 from .. import segment_sum
 from . import cuda_impl, torch_impl
 from .cuda_impl import ROW_BASE, _Scalars, _check, _entry, _run, _scalars
 from .params import SoftRasParams
 
 BWD_WARPS = 8         # warps of a backward block (kBwdWarps)
+TILE_SPLIT = 8        # blocks sharing a tile's list in the forward (kTileSplit)
+FWD_THREADS = 256     # threads of a forward block at most (kTileThreads) ...
+FWD_PPT = 2           # ... with 2 pixels each (kTilePPT)
+FWD_PIX = FWD_THREADS * FWD_PPT   # stride of the forward's per-pixel arrays (kTilePix)
+FWD_STATE = 7         # channels of the forward's partial state (kTileState)
 
 
 def _offsets(n: torch.Tensor) -> torch.Tensor:
@@ -251,6 +262,64 @@ def fwd_plain(pin: TiledInputs, p: SoftRasParams, with_thr: bool,
     return images, aggrs, counts, thr
 
 
+def fwd_split_plain(pin: TiledInputs, p: SoftRasParams, with_thr: bool,
+                    split: int = TILE_SPLIT, chunk_pairs: int = torch_impl.CHUNK_PAIRS):
+    """The plain version of the forward kernel's split and merge: each
+    tile's list cut into the ranks' shares (``cuda_impl.rank_shares``),
+    each share aggregated without the background (``pxg_impl.item_partials``),
+    the shares merged in rank order by the pxg combine's rule
+    (``pxg_impl.merge_partials``); with ``with_thr`` the K-th smallest of
+    the shares' K-smallest candidate depths, ``far`` where a pixel has at
+    most K candidates.  Returns what ``fwd_plain`` returns."""
+    from . import pxg_impl           # pxg_impl imports this module
+    B, F = pin.rows.shape[:2]
+    dev, dt = pin.rows.device, pin.rows.dtype
+    is_, K = p.image_size, p.max_faces_id
+    Hb = band_height(pin)
+    images = torch.empty((B, 4, Hb, is_), dtype=dt, device=dev)
+    aggrs = torch.empty((B, 2, Hb, is_), dtype=dt, device=dev)
+    counts = torch.empty((B, Hb, is_), dtype=torch.int32, device=dev)
+    thr = torch.full((B, Hb, is_), p.far, dtype=dt, device=dev) if with_thr else None
+    off = pin.tile_off.tolist()
+    for b in range(B):
+        for by in range(pin.ty_band):
+            ty = pin.ty0 + by
+            for tx in range(pin.tiles_x):
+                tile_g = (b * pin.tiles_y + ty) * pin.tiles_x + tx
+                rr, cc = _tile_pixels(pin, ty, tx, is_, dev)
+                lr = rr - pin.ty0 * pin.tile_h
+                ids = pin.entries[off[tile_g]:off[tile_g + 1]].long()
+                # the ranks' shares as padded items: ids [S, G] and the real ones
+                n = ids.numel()
+                shares = cuda_impl.rank_shares(n, split) or [(0, 0)]
+                lo = torch.tensor([s[0] for s in shares], device=dev)
+                ln = torch.tensor([s[1] - s[0] for s in shares], device=dev)
+                slot = torch.arange(max(1, int(ln.max())), device=dev)
+                in_item = slot[None] < ln[:, None]
+                fid = ids[(lo[:, None] + slot[None]).clamp_max(n - 1)] if n else torch.zeros_like(in_item, dtype=torch.long)
+                fid = torch.where(in_item, fid, 0)
+                r = pin.rows[b, fid]
+                xp, yp = torch_impl.pixel_centers(rr, cc, is_)
+                step = max(1, chunk_pairs // fid.numel())
+                for s in range(0, rr.numel(), step):
+                    sl = slice(s, s + step)
+                    X = rr[sl].numel()
+                    live = torch.ones((len(shares), X), dtype=torch.bool, device=dev)
+                    parts, small = pxg_impl.item_partials(
+                        r, fid, in_item, xp[sl].expand(len(shares), X),
+                        yp[sl].expand(len(shares), X), live, p, pin.tex_res, F, with_thr)
+                    ok = torch.ones((1, len(shares)), dtype=torch.bool, device=dev)
+                    out = pxg_impl.merge_partials(parts[None], ok, p, F)[0]      # [7, X]
+                    images[b, :, lr[sl], cc[sl]] = out[:4]
+                    aggrs[b, :, lr[sl], cc[sl]] = out[4:6]
+                    cnt = out[6].round().to(torch.int32)
+                    counts[b, lr[sl], cc[sl]] = cnt
+                    if with_thr:
+                        kth = torch.kthvalue(small.reshape(-1, X), K, dim=0).values
+                        thr[b, lr[sl], cc[sl]] = torch.where(cnt > K, kth, p.far)
+    return images, aggrs, counts, thr
+
+
 def bwd_rows_plain(pin: TiledInputs, images, aggrs, thr, grad_images, p: SoftRasParams):
     """The plain version of the backward kernel: for every entry (tile,
     face) of every work item, the face's gradient summed over the tile's
@@ -341,11 +410,47 @@ def check_inputs(pin: TiledInputs, p: SoftRasParams):
     return dev, B, F, row
 
 
-def launch_fwd(source: str, pin: TiledInputs, p: SoftRasParams, with_thr: bool,
-               bounds: tuple[int, int, int] = (0, 0, 0)):
-    """Launch ``csrc/<source>.cu``'s forward on the current stream.
-    ``bounds`` are the threshold's bisection keys and steps.  Returns
-    (images, aggrs, counts, thr or None), band-local."""
+def fwd_threads(tile_h: int, tile_w: int) -> int:
+    """Threads of a forward block: a part of min(32, tile_w) x min(16,
+    tile_h) pixels of a tile (``tile_part_w``, ``tile_part_h``), FWD_PPT
+    pixels a thread, an 8 x 8 block of pixels a warp; tiles have sides
+    that are multiples of 8."""
+    if tile_h % 8 or tile_w % 8:
+        raise ValueError(f'the forward kernel takes tiles of multiples of 8 pixels, got '
+                         f'{tile_h} x {tile_w}')
+    return min(32, tile_w) * min(16, tile_h) // FWD_PPT
+
+
+def fwd_own_bytes(p: SoftRasParams, with_thr: bool) -> int:
+    """Shared memory of a forward block beside its staging buffers: the
+    threshold's K-smallest lists and their counts (K <= 32), or two count
+    buffers (the bisection)."""
+    if not with_thr:
+        return 0
+    K = p.max_faces_id
+    return 4 * (K + 1) * FWD_PIX if K <= cuda_impl.THR_LIST_MAX else 8 * FWD_PIX
+
+
+def fwd_chunk(row: int, threads: int, own_bytes: int) -> int:
+    """Faces per staged chunk of the forward: two chunks of rows of ``row``
+    floats and an id per face in what SMEM_BYTES leaves beside the
+    threshold's ``own_bytes`` (at least half of it), at most MAX_CHUNK and
+    32 a warp, at least one.  Raises where one face's two buffers and the
+    threshold's own pass a block's SMEM_MAX_BYTES (``tile_fwd_smem``)."""
+    stage = max(cuda_impl.SMEM_BYTES - own_bytes, cuda_impl.SMEM_BYTES // 2)
+    chunk = max(1, min(cuda_impl.MAX_CHUNK, 32 * (threads // 32), stage // (8 * (row + 1))))
+    if max(8 * chunk * (row + 1), 4 * FWD_STATE * FWD_PIX) + own_bytes > cuda_impl.SMEM_MAX_BYTES:
+        raise ValueError(f"a face row of {row} floats does not fit the forward kernel's "
+                         'shared memory')
+    return chunk
+
+
+def fwd_args(pin: TiledInputs, p: SoftRasParams, with_thr: bool,
+             bounds: tuple[int, int, int] = (0, 0, 0)):
+    """The forward kernel's checked arguments and its outputs (images,
+    aggrs, counts, thr or None; band-local), allocated on the inputs' card:
+    what ``launch_fwd`` hands to the kernel.  ``bounds`` are the
+    threshold's bisection keys and steps."""
     dev, B, F, row = check_inputs(pin, p)
     K = p.max_faces_id
     if with_thr and K < 1:
@@ -355,15 +460,37 @@ def launch_fwd(source: str, pin: TiledInputs, p: SoftRasParams, with_thr: bool,
     aggrs = torch.empty((B, 2, Hb, is_), dtype=torch.float32, device=dev)
     counts = torch.empty((B, Hb, is_), dtype=torch.int32, device=dev)
     thr = torch.empty((B, Hb, is_), dtype=torch.float32, device=dev) if with_thr else None
-    fn = _entry(source, source, _TileFwdArgs)
+    chunk = fwd_chunk(row, fwd_threads(pin.tile_h, pin.tile_w), fwd_own_bytes(p, with_thr))
     args = _TileFwdArgs(
         pin.rows.data_ptr(), pin.entries.data_ptr(), pin.tile_off.data_ptr(),
         images.data_ptr(), aggrs.data_ptr(), counts.data_ptr(),
         None if thr is None else thr.data_ptr(), B, F, row, is_, pin.tile_h, pin.tile_w,
-        pin.tiles_x, pin.tiles_y, pin.ty0, pin.ty_band, cuda_impl.chunk_for(row), K,
+        pin.tiles_x, pin.tiles_y, pin.ty0, pin.ty_band, chunk, K,
         *bounds, p.dist_func_id, p.rgb_func_id, p.alpha_func_id, _scalars(p, pin.tex_res))
-    _run(fn, source, args, dev)
-    return images, aggrs, counts, thr
+    return args, (images, aggrs, counts, thr)
+
+
+def launch_fwd(source: str, pin: TiledInputs, p: SoftRasParams, with_thr: bool,
+               bounds: tuple[int, int, int] = (0, 0, 0)):
+    """Launch ``csrc/<source>.cu``'s forward on the current stream: each
+    tile's list split over a cluster of TILE_SPLIT blocks; ``fwd_split_plain``
+    is the plain version of that split and merge.  ``bounds`` are the
+    threshold's bisection keys and steps.  Returns (images, aggrs, counts,
+    thr or None), band-local."""
+    args, out = fwd_args(pin, p, with_thr, bounds)
+    _run(_entry(source, source, _TileFwdArgs, TILE_SPLIT), source, args, pin.rows.device)
+    return out
+
+
+def split_variant(source: str, split: int, defines=()):
+    """The entry point of ``softras_fpx_fwd`` or ``softras_pxf_fwd`` built
+    with another number of blocks per tile (the kernel's
+    SOFTRAS_TILE_SPLIT) and other ``defines`` (such as
+    SOFTRAS_TILE_MIN_BLOCKS), to time the alternatives to the default
+    build; call it with ``fwd_args`` through ``_run``.  The wrappers launch
+    the default build only."""
+    return _entry(source, source, _TileFwdArgs, split,
+                  _build.load(source, (('SOFTRAS_TILE_SPLIT', split), *defines)))
 
 
 def launch_bwd(source: str, pin: TiledInputs, images, aggrs, thr, grad_images,

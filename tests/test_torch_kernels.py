@@ -1322,6 +1322,124 @@ def test_softras_pxf_bands_reassemble_the_image(K):
     grad_close(fold_ties(st), fold_ties(gt), frac=0.0)
 
 
+# K3 and K5 split each tile's list over a cluster of tiled.TILE_SPLIT blocks
+# and merge the ranks' states in rank order (csrc/softras_tile_fwd.cuh).  They
+# are held to the plain version of that split (tiled.fwd_split_plain): counts,
+# hard winners and thresholds exactly, images at the forward tolerance; and to
+# the builds with 2 and 4 blocks a tile: counts, winners and thresholds bit for
+# bit, images within 1e-5 (the shares are rescaled and added in another order).
+
+
+def tile_split_inputs(route, case, rgb, K):
+    """The route's inputs at 128 px for one case of the split: 'long' (a
+    dense soup: the busiest tile's list is several chunks a rank), 'big'
+    (emit cap 2: the big-face prefix of a list spans ranks), 'twins' (faces
+    F..2F-1 repeat faces 0..F-1: depth ties across ranks go to the lower
+    id, and each depth counts twice towards K), 'lone' (most lists hold one
+    face or none)."""
+    from jrender_tpu_torch.ops.softras import fpx_impl, pxf_impl, tiled
+    if case == 'lone':
+        # two small faces far apart: one tile row of each holds them
+        x = torch.tensor([[[c - 0.05, c - 0.05, 2.5, c + 0.05, c - 0.05, 2.4, c, c + 0.05, 2.6]
+                           for c in (-0.75, 0.75)]], device='cuda')
+        t = torch.rand((1, 2, 4, 3), generator=torch.Generator(device='cuda').manual_seed(21),
+                       device='cuda')
+    else:
+        x, t = dense_soup(20, F=1500 if case == 'twins' else 3000, T=4)
+        if case == 'twins':
+            x, t = torch.cat([x, x], dim=1), torch.cat([t, t.flip(-1)], dim=1)
+    kw = dict(image_size=128, aggr_func_rgb=rgb, sigma_val=1e-4)
+    if route == 'fpx':
+        p = make_params(grad_mode='full', **kw)
+        th, tw, group = *fpx_impl.tile_shape(128), fpx_impl.GROUP
+    else:
+        p = make_params(max_faces_per_pixel_for_grad=K, **kw)
+        th = tw = pxf_impl.tile_for(128)
+        group = pxf_impl.GROUP
+    pin = tiled.prep(x, t, p, th, tw, group)
+    if case == 'big':
+        B, F = x.shape[:2]
+        lists = binning.build_tile_lists_compact(x, 128, th, tw, p.threshold, 2)
+        pin = pin._replace(**tiled.tile_work(lists, B, F, pin.tiles_y, pin.tiles_x, group)._asdict())
+    return x, t, p, pin
+
+
+def tile_split_launch(route, pin, p):
+    from jrender_tpu_torch.ops.softras import fpx_impl, pxf_impl
+    if route == 'fpx':
+        return fpx_impl.launch_fpx_fwd(pin, p)
+    return pxf_impl.launch_pxf_fwd(pin, p, True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('case,rgb,K', [
+    ('long', 'softmax', 16), ('long', 'hard', 40), ('big', 'softmax', 16), ('big', 'hard', 4),
+    ('twins', 'hard', 3), ('lone', 'softmax', 1)])
+@pytest.mark.parametrize('route', ['fpx', 'pxf'])
+def test_softras_tile_fwd_split_matches_split_plain(route, case, rgb, K):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.softras import tiled
+    x, t, p, pin = tile_split_inputs(route, case, rgb, K)
+    sizes = pin.tile_off[1:] - pin.tile_off[:-1]
+    if case == 'lone':
+        assert int(sizes.max()) == 1 and (sizes == 0).any()
+    else:
+        # every rank of the busiest tile walks more than one chunk
+        chunk = tiled.fwd_chunk(pin.rows.shape[-1], tiled.fwd_threads(pin.tile_h, pin.tile_w),
+                                tiled.fwd_own_bytes(p, route == 'pxf'))
+        assert int(sizes.max()) > tiled.TILE_SPLIT * chunk
+    out = tile_split_launch(route, pin, p)
+    again = tile_split_launch(route, pin, p)
+    torch.cuda.synchronize()
+    assert all(a is None and b is None or torch.equal(a, b) for a, b in zip(out, again))
+    img, ag, cnt, thr = out
+    with_thr = route == 'pxf'
+    want, ag_w, cnt_w, thr_w = tiled.fwd_split_plain(pin, p, with_thr)
+    assert torch.equal(cnt, cnt_w)
+    mostly_close(img, want, 1e-4)
+    if rgb == 'hard':
+        assert torch.equal(ag[:, 1], ag_w[:, 1])          # the winners' ids
+        mostly_close(ag[:, 0], ag_w[:, 0], 1e-4)
+    if with_thr:
+        assert (cnt > K).any() or case == 'lone'
+        bad = (thr - thr_w).abs() > 1e-6 * thr_w.abs()
+        assert bad.float().mean().item() <= THR_FRAC
+        assert (thr[cnt <= K] == p.far).all()
+    if case == 'twins':
+        won = ag[:, 1]
+        assert (won >= 0).sum() > 1000 and not (won >= 1500).any()
+    # the unsplit plain version: the same counts
+    assert torch.equal(cnt, tiled.fwd_plain(pin, p, with_thr)[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('route', ['fpx', 'pxf'])
+def test_softras_tile_fwd_split_variants_agree(route):
+    """K3 and K5 built with 2 and 4 blocks per tile against the default
+    build: counts, winners and thresholds (K = 16 and 40) bit for bit,
+    images within 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.softras import pxf_impl, tiled
+    source = f'softras_{route}_fwd'
+    for rgb, K in (('hard', 16), ('softmax', 40)):
+        x, t, p, pin = tile_split_inputs(route, 'long', rgb, K)
+        with_thr = route == 'pxf'
+        bounds = pxf_impl.thr_bisect_bounds(p.near, p.far) if with_thr else (0, 0, 0)
+        img, ag, cnt, thr = tile_split_launch(route, pin, p)
+        for split in (2, 4):
+            args, (img_v, ag_v, cnt_v, thr_v) = tiled.fwd_args(pin, p, with_thr, bounds)
+            cuda_impl._run(tiled.split_variant(source, split), source, args, x.device)
+            torch.cuda.synchronize()
+            assert torch.equal(cnt, cnt_v), split
+            torch.testing.assert_close(img_v, img, atol=1e-5, rtol=0)
+            if rgb == 'hard':
+                assert torch.equal(ag, ag_v), split
+            if with_thr:
+                assert torch.equal(thr, thr_v), split
+
+
 @pytest.mark.gpu
 def test_soft_rasterize_fpx_pxf_routes_on_the_card(monkeypatch):
     """Under JR_LAYOUT=f_px a frame launches K3 once and a grad_mode='full'

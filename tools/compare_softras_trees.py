@@ -42,7 +42,9 @@ difference of the softmax sum S, the threshold maps (K = 16 and 40) bit
 for bit, the
 backward's slot rows (the rows the
 tile runs fill, and the big faces' rows) and reduced gradients bit for
-bit, each tree's two turns bit for bit, and the largest difference of the
+bit, the f_px and px_f counts, hard winners (ids and depths) and px_f
+threshold maps (K = 16 and 40) bit for bit and their largest image
+difference, each tree's two turns bit for bit, and the largest difference of the
 two trees' edge gradients as a share of its largest entry (they sum in
 another order where the kernel was redesigned).
 
@@ -118,6 +120,10 @@ def step_times(torch, np, fv, tex, timed):
             times.append((time.perf_counter() - t0) * 1e3 / reps)
         return float(np.median(times))
 
+    def full_step():
+        fv_leaf.grad = tex_leaf.grad = None
+        soft_rasterize(fv_leaf, tex_leaf, image_size=1024, grad_mode='full').sum().backward()
+
     def device(fn, reps=4):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -126,7 +132,14 @@ def step_times(torch, np, fv, tex, timed):
         return sum(e.self_device_time_total for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA) / 1e3 / reps
 
-    return {'soft_rasterize_step_ms': timed(raster_step, reps=10),
+    from jrender_tpu_torch.ops.softras import route
+    tiled_steps = {}
+    for layout, tag, fn in (('f_px', 'fpx_full', full_step), ('px_f', 'pxf', raster_step)):
+        with route.with_layout(layout):
+            tiled_steps.update({f'{tag}_step_ms': timed(fn, reps=10),
+                                f'{tag}_step_wall_ms': wall(fn),
+                                f'{tag}_step_device_ms': device(fn)})
+    return {**tiled_steps, 'soft_rasterize_step_ms': timed(raster_step, reps=10),
             'render_mesh_frame_ms': wall(frame), 'render_mesh_step_ms': wall(render_step),
             'soft_rasterize_step_device_ms': device(raster_step),
             'render_mesh_frame_device_ms': device(frame),
@@ -150,6 +163,45 @@ def n3mr_edge_inputs(torch, dev, v, f, gen):
     g_rgb = torch.randn(rgb.shape, generator=gen, device=dev)
     alpha = (fi >= 0).float()
     return ncuda.edge_inputs(fv, fi, rgb, alpha, g_rgb, alpha, 1024, True, False)
+
+
+def tiled_forwards(torch, fv, tex, times, timed):
+    """The f_px (K3) and px_f (K5) forwards on the faces at 1024 px, each
+    route's binning at its own tiles: softmax and hard rgb, K5 with its
+    threshold at K = 16 and at K = 40.  Adds to ``times`` each kernel's time
+    on the softmax frame and on the busiest tile's faces alone.  Returns
+    the outputs by '<route>_<rgb>' (and 'pxf_k40')."""
+    from jrender_tpu_torch.ops.softras import fpx_impl, make_params, pxf_impl
+    out = {}
+    for name in ('fpx', 'pxf'):
+        for rgb in ('softmax', 'hard'):
+            kw = dict(image_size=1024, aggr_func_rgb=rgb)
+            if name == 'fpx':
+                p = make_params(grad_mode='full', **kw)
+                prep = lambda f, t, p=p: fpx_impl.prep_fpx(f, t, p)
+                fwd = lambda pin, p=p: fpx_impl.launch_fpx_fwd(pin, p)
+            else:
+                p = make_params(**kw)
+                prep = lambda f, t, p=p: pxf_impl.prep_pxf(f, t, p)
+                fwd = lambda pin, p=p: pxf_impl.launch_pxf_fwd(pin, p, True)
+            pin = prep(fv, tex)
+            out[f'{name}_{rgb}'] = fwd(pin)
+            if rgb != 'softmax':
+                continue
+            times[f'{name}_fwd_ms'] = timed(lambda: fwd(pin))
+            sizes = pin.tile_off[1:] - pin.tile_off[:-1]
+            busy = int(sizes.argmax())
+            ids = pin.entries[int(pin.tile_off[busy]):int(pin.tile_off[busy + 1])].long()
+            sub = prep(fv[:, ids].contiguous(), tex[:, ids].contiguous())
+            times[f'{name}_fwd_busiest_tile_alone_ms'] = timed(lambda: fwd(sub))
+            times[f'{name}_busiest_tile_faces'] = ids.numel()
+            if name == 'pxf':
+                p40 = make_params(image_size=1024, max_faces_per_pixel_for_grad=40)
+                out['pxf_k40'] = pxf_impl.launch_pxf_fwd(pin, p40, True)
+                times['pxf_fwd_k40_ms'] = timed(lambda: pxf_impl.launch_pxf_fwd(pin, p40, True),
+                                                reps=5)
+    torch.cuda.synchronize()
+    return out
 
 
 def worker(repo: str, inputs: str, out: str, make: bool) -> int:
@@ -226,12 +278,14 @@ def worker(repo: str, inputs: str, out: str, make: bool) -> int:
     times['thr_busiest_tile_alone_ms'] = timed(lambda: cuda_impl.launch_thr(sub, cnt_s, p))
     times['bwd_busiest_tile_alone_ms'] = timed(
         lambda: cuda_impl.launch_bwd(sub, img_s, ag_s, thr_s, torch.ones_like(img_s), p))
+    tiled_out = tiled_forwards(torch, fv, tex, times, timed)
     from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda
     edge_in = d['edge_in']
     edge = ncuda.launch_edgebwd(*edge_in, N3MR_EPS, True, False)
     times['n3mr_edgebwd_ms'] = timed(lambda: ncuda.launch_edgebwd(*edge_in, N3MR_EPS, True, False))
     times.update(step_times(torch, np, fv, tex, timed))
     torch.save({'img': img, 'ag': ag, 'cnt': cnt, 'thr': thr, 'thr40': thr40, 'times': times,
+                'tiled': tiled_out,
                 'busiest_faces': ids.numel(),
                 'edge': edge,
                 'slot_rows': digest(rows.gslots[:, :n], rows.gbig[:, :nb]),
@@ -274,7 +328,28 @@ def main() -> int:
             turns.append((tree, torch.load(f'{tmp}/{i}.pt')))
     first = {tree: r for tree, r in reversed(turns)}
     par, chg = first['parent'], first['change']
+    def tiled_agree(a, b):
+        """The f_px and px_f forwards of two runs: counts, winners and
+        thresholds bit for bit, the largest image difference."""
+        res = {}
+        for key in a:
+            (ia, ga, ca, ta), (ib, gb, cb, tb) = a[key], b[key]
+            res[f'{key}_counts_equal'] = torch.equal(ca, cb)
+            if key.endswith('hard'):
+                res[f'{key}_winners_equal'] = torch.equal(ga, gb)
+            if ta is not None:
+                res[f'{key}_thr_equal'] = torch.equal(ta, tb)
+            res[f'{key}_image_max_abs_diff'] = (ia - ib).abs().max().item()
+        return res
+
     same = {
+        **tiled_agree(par['tiled'], chg['tiled']),
+        'tiled_each_tree_twice_equal': all(
+            all(v for k, v in tiled_agree(r['tiled'], first[t]['tiled']).items()
+                if k.endswith('equal')) and
+            all(torch.equal(x[0], y[0]) for x, y in zip(r['tiled'].values(),
+                                                        first[t]['tiled'].values()))
+            for t, r in turns),
         'fwd_counts_equal': torch.equal(par['cnt'], chg['cnt']),
         'fwd_softmax_max_equal': torch.equal(par['ag'][:, 1], chg['ag'][:, 1]),
         'fwd_image_max_abs_diff': (par['img'] - chg['img']).abs().max().item(),
