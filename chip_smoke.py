@@ -134,7 +134,9 @@ of which raises on failure:
         versions; the whole frame (softmax and hard rgb) against the plain
         version of the split, as in a; each kernel timed alone and bounded,
         K3 also on the busiest tile's faces alone and at 2, 4 and 8 blocks
-        per tile; the step on both routes in turns;
+        per tile, K4 on the busiest tile's faces alone and with vertex
+        colours, with its registers, blocks an SM and work items; the step
+        on both routes in turns;
  14. the px_f route (``JR_LAYOUT=px_f``):
      a. its forward with the threshold (K5), backward (K6) and face sum
         against their plain versions and the binned route at 24 to 256 px,
@@ -149,8 +151,8 @@ of which raises on failure:
         pixels and their gradient against the plain versions; the whole
         frame against the plain version of the split and in 4 bands of tile
         rows (bit for bit); each kernel timed alone and bounded, K5 also on
-        the busiest tile alone and at 2, 4 and 8 blocks per tile; the steps
-        on both routes in turns;
+        the busiest tile alone and at 2, 4 and 8 blocks per tile, K6 as K4
+        in 13b; the steps on both routes in turns;
  15. one JSON line of the kernels (19 of them); the last line is the device
      JSON.
 
@@ -239,6 +241,7 @@ written.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -2830,7 +2833,30 @@ def main() -> int:
                  'busiest_tile_ms': split_ms[f'{tiled.TILE_SPLIT} busiest tile'],
                  'busiest_tile_faces': ids_b.numel(), 'ms_by_blocks_per_tile': split_ms,
                  'smem_bytes': smem}
-        return ms, plain, on, lib, bnd, extra
+        # the backward: its registers and blocks an SM (the CUDA runtime), its
+        # work items, the busiest tile's faces alone, and vertex colours
+        # (register sums, no texel adds) against surface T = 25 on the frame
+        bwd_launch = fpx_impl.launch_fpx_bwd if name == 'fpx' else pxf_impl.launch_pxf_bwd
+        occ = tiled.bwd_occupancy(f'softras_{name}_bwd',
+                                  tiled.bwd_args(pin_k, img_k, ag_k, thr_k, g_ones, p_k)[0])
+        img_b, ag_b, _, thr_b = tile_fwd(name, pin_b, p_k, with_thr)
+        g_b = torch.ones_like(img_b)
+        bwd_busy = timed(lambda: bwd_launch(pin_b, img_b, ag_b, thr_b, g_b, p_k), reps=30)
+        p_v = dataclasses.replace(p_k, texture_type='vertex')
+        gen.manual_seed(SEED + 15)
+        tex_v = torch.rand((B, F, 3, 3), generator=gen, device=dev)
+        pin_v = fpx_impl.prep_fpx(fv_full, tex_v, p_v) if name == 'fpx' else \
+            pxf_impl.prep_pxf(fv_full, tex_v, p_v)
+        img_v, ag_v, _, thr_v = tile_fwd(name, pin_v, p_v, with_thr)
+        bwd_vertex = timed(lambda: bwd_launch(pin_v, img_v, ag_v, thr_v, g_ones, p_v), reps=30)
+        bwd_extra = {**occ, 'items': W_k, 'group': impl.GROUP, 'busiest_tile_ms': bwd_busy,
+                     'busiest_tile_faces': ids_b.numel(), 'vertex_colours_ms': bwd_vertex}
+        log(f'  softras_{name}_bwd: {occ["registers"]} registers, {occ["local_bytes"]} bytes of '
+            f'local memory, {occ["blocks_per_sm"]} blocks an SM; {W_k} work items of at most '
+            f'{impl.GROUP} faces; the busiest tile ({ids_b.numel()} faces) alone {bwd_busy:.4f} '
+            f'ms; vertex colours {bwd_vertex:.4f} ms against {ms["bwd"]:.4f} with surface T = '
+            f'{pin_k.tex_res ** 2}  [{smi}]')
+        return ms, plain, on, lib, bnd, extra, bwd_extra
 
     with route.with_layout('f_px'):
         fpx_t = tiled_timing(
@@ -3064,7 +3090,7 @@ def main() -> int:
         *({**entry(f'softras_{r}_{k}', f'softras_{r}_{k}.cu',
                    f'jrender_tpu/ops/softras/pallas_impl.py:{line}',
                    t_err[f'{r}_{k}'], tm[0][k], tm[1][k], tm[2][k], tm[4][k], tm[3].get(k)),
-           **(tm[5] if k == 'fwd' else {})}
+           **(tm[5] if k == 'fwd' else tm[6])}
           for r, tm, rows_ in (('fpx', fpx_t, ((313, 'fwd'), (442, 'bwd'))),
                                ('pxf', pxf_t, ((894, 'fwd'), (1161, 'bwd'))))
           for line, k in rows_),

@@ -13,21 +13,45 @@
 // entries' rows [E, GC], which the segment sum (segment_sum.cu) adds per
 // face in ascending tile order.
 //
-// Design: softras_tile_bwd.cuh (a warp per staged face walks the face's
-// bbox inside the tile, sums in a fixed order, no atomics: bit-equal
-// twice).
+// Design: softras_tile_bwd.cuh (a warp per entry walks the face's bbox
+// inside the tile, sums in a fixed order, no atomics: bit-equal twice and
+// at every build).
+//
+// Choices of this source (tools/time_tile_bwd.py, PERF.md §6; 1024 px,
+// 39,474 faces, NVIDIA H100 80GB HBM3, 700.00 W): 3 blocks an SM (80
+// registers), rows staged a chunk a block, texel adds in rounds, items of
+// 32 faces: 0.80 ms against 1.20 for build 000 (no cap, texel adds lane
+// after lane) in one call; warps taking faces from a counter (px_f's
+// choice) 2.1-2.5% slower in each of 8 turns, 4 blocks an SM 0.81; the
+// tile's maps staged in shared memory (96 KB a block, one block an SM; a
+// build since removed) 2.2.
 //
 // Bound.  Operations: the forward's pair math for every pair in a bbox
 // plus the gradient terms of every candidate.  Bytes of the function the
 // backward and the face sum compute together: the face rows, the lists,
 // the 10 maps of the pixels with a candidate, one gradient row per face
 // out; the entry rows between the two kernels count only in the sum's.
+#ifndef SOFTRAS_TILE_BWD_MIN_BLOCKS
+#define SOFTRAS_TILE_BWD_MIN_BLOCKS 3
+#endif
+#ifndef SOFTRAS_TILE_BWD_ROWS
+#define SOFTRAS_TILE_BWD_ROWS 0
+#endif
+#ifndef SOFTRAS_TILE_BWD_TEXEL
+#define SOFTRAS_TILE_BWD_TEXEL 1
+#endif
 #include "softras_tile_bwd.cuh"
 
 extern "C" int softras_fpx_bwd(const softras::TileBwdArgs* args, void* stream) {
   using namespace softras;
   if (args->thr != nullptr) return (int)cudaErrorInvalidValue;  // untruncated
-  return (int)tile_bwd_dispatch(*args, static_cast<cudaStream_t>(stream));
+  return tile_bwd_dispatch(*args, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// Registers, spill bytes and blocks an SM of the kernel these arguments
+// launch (out[0..2]).
+extern "C" int softras_fpx_bwd_occupancy(const softras::TileBwdArgs* args, int* out) {
+  return softras::tile_bwd_dispatch(*args, nullptr, out);
 }
 
 extern "C" int softras_fpx_bwd_args_size() { return (int)sizeof(softras::TileBwdArgs); }

@@ -14,7 +14,10 @@ Tiles are t x t pixels, t = 32, 16 or 8, the first that divides the image
 another, has no counterpart, nor has ``JR_PRECISION``: the port sums in
 float32).  The lists are the binning's at that tile (``tiled.prep``),
 written once per step and kept for the backward, and cut into work items
-of at most 128 faces for it.  **No caps**: the JAX package caps a tile's
+of at most ``GROUP`` faces for it: 32, where the JAX kernel takes 128 (its
+``PF_FB``), since smaller items spread the backward more evenly over the
+card's SMs (``tools/time_tile_bwd.py``, PERF.md; an entry's gradient row
+does not depend on the item that holds it).  **No caps**: the JAX package caps a tile's
 list at 2,048 faces, its big-face list at ``binning.CL_GBIG`` and its grid
 at ``_work_cap_pf``; the port keeps every face.
 
@@ -50,7 +53,7 @@ from .params import SoftRasParams
 from .tiled import TiledInputs
 
 TILES = (32, 16, 8)   # tile edges, the first that divides the image is taken
-GROUP = 128           # faces of a backward work item at most (the JAX PF_FB)
+GROUP = 32            # faces of a backward work item at most (the JAX PF_FB is 128)
 
 
 def tile_for(image_size: int) -> int:

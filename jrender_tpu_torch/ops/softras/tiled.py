@@ -21,8 +21,10 @@ rows.  Here both have the same two kernels:
             rank 0: image, aggregates, counts and, when asked, the top-K
             threshold
   backward  csrc/softras_tile_bwd.cuh  a block per work item (a tile and
-            a run of at most ``group`` faces of its list): one gradient
-            row per entry, summed over the tile's pixels
+            a run of at most ``group`` faces of its list), a warp per
+            entry: one gradient row per entry, summed over the tile's
+            pixels; the rows do not depend on the items or on the build's
+            compile-time choices (``bwd_defines``, ``bwd_variant``)
 
 Each route has its own sources (``csrc/softras_{fpx,pxf}_{fwd,bwd}.cu``),
 counted wrappers and rules (tile shape, work-item size, threshold); the
@@ -493,11 +495,20 @@ def split_variant(source: str, split: int, defines=()):
                   _build.load(source, (('SOFTRAS_TILE_SPLIT', split), *defines)))
 
 
-def launch_bwd(source: str, pin: TiledInputs, images, aggrs, thr, grad_images,
-               p: SoftRasParams):
-    """Launch ``csrc/<source>.cu``'s backward on the current stream: a
-    block per work item.  ``thr`` is the band's threshold map or None (no
-    truncation).  Returns rows [E, GC]."""
+def bwd_smem_bytes(row: int, chunk: int, tex_sums: int) -> int:
+    """Shared memory a backward block asks for (``tile_bwd_smem``), the
+    larger of the sources' two row layouts (f_px: a chunk of ``chunk`` rows
+    and their ids; px_f: two row buffers a warp), with BWD_WARPS texel
+    sums of ``tex_sums`` floats (3T, surface texels; else 0) and the face
+    counter."""
+    rows = max(chunk * (row + 1), 2 * BWD_WARPS * row)
+    return 4 * (rows + BWD_WARPS * tex_sums) + 16
+
+
+def bwd_args(pin: TiledInputs, images, aggrs, thr, grad_images, p: SoftRasParams):
+    """The backward kernel's checked arguments and its output rows [E, GC],
+    allocated on the inputs' card: what ``launch_bwd`` hands to the kernel.
+    ``thr`` is the band's threshold map or None (no truncation)."""
     dev, B, F, row = check_inputs(pin, p)
     is_, Hb = p.image_size, band_height(pin)
     _check(images, 'images', torch.float32, (B, 4, Hb, is_), dev)
@@ -507,23 +518,66 @@ def launch_bwd(source: str, pin: TiledInputs, images, aggrs, thr, grad_images,
         _check(thr, 'thr', torch.float32, (B, Hb, is_), dev)
     GC = cuda_impl._grad_columns(p, pin.tex_res)
     tex_sums = GC - 9 if p.texture_type_id == 0 else 0
-    reserved = 4 * BWD_WARPS * tex_sums
-    if cuda_impl.SMEM_BYTES - reserved < 4 * row + 4:
+    chunk = cuda_impl.chunk_for(row, 4 * BWD_WARPS * tex_sums)
+    if bwd_smem_bytes(row, chunk, tex_sums) > cuda_impl.SMEM_MAX_BYTES:
         raise ValueError(f"a face row of {row} floats does not fit the backward kernel's "
                          'shared memory')
-    W = pin.items.shape[0]
     grows = torch.empty((pin.entries.numel(), GC), dtype=torch.float32, device=dev)
-    if W == 0:
-        return grows
-    fn = _entry(source, source, _TileBwdArgs)
     args = _TileBwdArgs(
         pin.rows.data_ptr(), pin.entries.data_ptr(), pin.items.data_ptr(), images.data_ptr(),
         aggrs.data_ptr(), grad_images.data_ptr(), None if thr is None else thr.data_ptr(),
-        grows.data_ptr(), W, F, row, is_, pin.tile_h, pin.tile_w, pin.tiles_x, pin.tiles_y,
-        pin.ty0, Hb, cuda_impl.chunk_for(row, reserved), GC,
+        grows.data_ptr(), pin.items.shape[0], F, row, is_, pin.tile_h, pin.tile_w,
+        pin.tiles_x, pin.tiles_y, pin.ty0, Hb, chunk, GC,
         p.dist_func_id, p.rgb_func_id, p.alpha_func_id, _scalars(p, pin.tex_res))
-    _run(fn, source, args, dev)
+    return args, grows
+
+
+def launch_bwd(source: str, pin: TiledInputs, images, aggrs, thr, grad_images,
+               p: SoftRasParams):
+    """Launch ``csrc/<source>.cu``'s backward on the current stream: a
+    block per work item, a warp per entry.  ``thr`` is the band's threshold
+    map or None (no truncation).  Returns rows [E, GC]."""
+    args, grows = bwd_args(pin, images, aggrs, thr, grad_images, p)
+    if args.W:
+        _run(_entry(source, source, _TileBwdArgs), source, args, pin.rows.device)
     return grows
+
+
+BWD_MACROS = ('SOFTRAS_TILE_BWD_MIN_BLOCKS', 'SOFTRAS_TILE_BWD_ROWS', 'SOFTRAS_TILE_BWD_TEXEL')
+
+
+def bwd_defines(build: str):
+    """The macros of a backward build named by three digits: the register
+    cap (SOFTRAS_TILE_BWD_MIN_BLOCKS, 0: none), the rows staged by each
+    warp (_ROWS), the texel adds in rounds (_TEXEL); '000' is none of
+    them."""
+    if len(build) != 3 or not build.isdigit():
+        raise ValueError(f'a backward build is three digits (cap, rows, texel), got '
+                         f'{build!r}')
+    return tuple(zip(BWD_MACROS, (int(c) for c in build)))
+
+
+def bwd_variant(source: str, defines=()):
+    """The entry point of ``softras_fpx_bwd`` or ``softras_pxf_bwd`` built
+    with other compile-time choices (``defines``: SOFTRAS_TILE_BWD_MIN_BLOCKS,
+    _ROWS, _TEXEL), to time the alternatives to the default build;
+    call it with ``bwd_args`` through ``_run``.  The wrappers launch the
+    default build only."""
+    return _entry(source, source, _TileBwdArgs, lib=_build.load(source, tuple(defines)))
+
+
+def bwd_occupancy(source: str, args, defines=()) -> dict:
+    """Registers, local (spill) bytes and blocks an SM of the backward
+    kernel that ``args`` (``bwd_args``) launch, in the build of ``source``
+    with ``defines``, from the CUDA runtime."""
+    fn = getattr(_build.load(source, tuple(defines)), f'{source}_occupancy')
+    fn.argtypes = [ctypes.POINTER(_TileBwdArgs), ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    err = fn(ctypes.byref(args), out)
+    if err != 0:
+        raise RuntimeError(f'{source} occupancy query failed: CUDA error {err}')
+    return {'registers': out[0], 'local_bytes': out[1], 'blocks_per_sm': out[2]}
 
 
 def _face_order(pin) -> segment_sum.SegmentOrder:

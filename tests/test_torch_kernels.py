@@ -1440,6 +1440,84 @@ def test_softras_tile_fwd_split_variants_agree(route):
                 assert torch.equal(thr, thr_v), split
 
 
+# K4 and K6 (csrc/softras_tile_bwd.cuh) give each entry's row to one warp,
+# which walks the face's bbox inside the tile in a fixed order: every build
+# (register cap, warps taking faces from a counter, texel adds in rounds) and
+# every work-item size gives the same rows, bit for bit.
+TILE_BWD_BUILDS = ('000', '300', '010', '001', '301', '311', '411')
+
+
+def tile_bwd_case(route, kind, group=None):
+    """A dense soup at 128 px (every tile's list many items long) with two
+    screen-filling faces on the route, the forward's outputs and a seeded
+    incoming gradient: (pin, images, aggrs, thr, grad, params).  ``kind``:
+    'surface' (T = 4, softmax), 'vertex' (vertex colours) or 'hard'
+    (hard rgb and alpha, barycentric distance); px_f at K = 4 (binding)."""
+    from jrender_tpu_torch.ops.softras import fpx_impl, pxf_impl, tiled
+    vertex = kind == 'vertex'
+    x, t = dense_soup(30, F=1500, T=3 if vertex else 4)
+    x = with_big_faces(x)
+    t = t.reshape(1, -1, 3, 3) if vertex else tie_symmetric(t)
+    kw = dict(image_size=128, sigma_val=1e-4, gamma_val=1e-3 if not vertex else 0.1)
+    if vertex:
+        kw.update(texture_type='vertex', fill_back=False)
+    if kind == 'hard':
+        kw.update(dist_func='barycentric', aggr_func_rgb='hard', aggr_func_alpha='hard')
+    if route == 'fpx':
+        p = make_params(grad_mode='full', **kw)
+        th, tw = fpx_impl.tile_shape(128)
+        group = group or fpx_impl.GROUP
+    else:
+        p = make_params(max_faces_per_pixel_for_grad=4, **kw)
+        th = tw = pxf_impl.tile_for(128)
+        group = group or pxf_impl.GROUP
+    pin = tiled.prep(x, t, p, th, tw, group, for_grad=True)
+    if route == 'fpx':
+        img, ag, _, thr = fpx_impl.launch_fpx_fwd(pin, p)
+    else:
+        img, ag, _, thr = pxf_impl.launch_pxf_fwd(pin, p, True)
+    g = torch.randn(img.shape, generator=torch.Generator(device='cuda').manual_seed(8),
+                    device='cuda')
+    return pin, img, ag, thr, g, p
+
+
+def tile_bwd_wrapper(route):
+    from jrender_tpu_torch.ops.softras import fpx_impl, pxf_impl
+    return fpx_impl.launch_fpx_bwd if route == 'fpx' else pxf_impl.launch_pxf_bwd
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kind', ['surface', 'vertex', 'hard'])
+@pytest.mark.parametrize('route', ['fpx', 'pxf'])
+def test_softras_tile_bwd_builds_and_items_agree(route, kind):
+    """K4 or K6: the default build twice, every build of TILE_BWD_BUILDS
+    and items of 1, 8, 32 and 128 faces give the same rows, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch import _build
+    from jrender_tpu_torch.ops.softras import tiled
+    source = f'softras_{route}_bwd'
+    _build.build([(source, tiled.bwd_defines(b)) for b in TILE_BWD_BUILDS])
+    pin, img, ag, thr, g, p = tile_bwd_case(route, kind)
+    assert int((pin.tile_off[1:] - pin.tile_off[:-1]).max()) > 128
+    launch = tile_bwd_wrapper(route)
+    rows = launch(pin, img, ag, thr, g, p)
+    again = launch(pin, img, ag, thr, g, p)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, again)
+    for b in TILE_BWD_BUILDS:
+        args, rows_b = tiled.bwd_args(pin, img, ag, thr, g, p)
+        cuda_impl._run(tiled.bwd_variant(source, tiled.bwd_defines(b)), source, args,
+                       img.device)
+        torch.cuda.synchronize()
+        assert torch.equal(rows_b, rows), b
+    for group in (1, 8, 32, 128):
+        pin_g = tile_bwd_case(route, kind, group)[0]
+        assert torch.equal(pin_g.entries, pin.entries)
+        assert int((pin_g.items[:, 2] - pin_g.items[:, 1]).max()) <= group
+        assert torch.equal(launch(pin_g, img, ag, thr, g, p), rows), group
+
+
 @pytest.mark.gpu
 def test_soft_rasterize_fpx_pxf_routes_on_the_card(monkeypatch):
     """Under JR_LAYOUT=f_px a frame launches K3 once and a grad_mode='full'

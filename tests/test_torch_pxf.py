@@ -5,8 +5,9 @@ by 8; every test sets the variable with ``monkeypatch``, which restores
 it, and the JAX side's layout with ``monkeypatch.setattr(pallas_impl,
 'LAYOUT', ...)``.  On the CPU the px_f wrappers take their plain versions,
 which read what the kernels read: the binning at t x t tiles (t = 32, 16
-or 8), written out tile after tile and cut into work items of 128 faces,
-for the whole image or for one band of tile rows (``pxf_impl.prep_pxf``).
+or 8), written out tile after tile and cut into work items of
+``pxf_impl.GROUP`` faces, for the whole image or for one band of tile rows
+(``pxf_impl.prep_pxf``).
 
 The JAX side is its px_f layout itself (``pallas_impl.soft_rasterize_fwd_pallas_pf``
 / ``_bwd_pallas_pf`` in interpret mode, as tests/test_softras_pallas.py

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Hold two trees of the port's binned SoftRas kernels (and N3MR's edge
-gradient) against each other on one CUDA card: their outputs bit for bit
-and their times in turns.
+"""Hold two trees of the port's SoftRas kernels (and N3MR's edge gradient)
+against each other on one CUDA card: their outputs bit for bit and their
+times in turns.
 
     python3 tools/compare_softras_trees.py --parent PATH
 
@@ -25,6 +25,10 @@ in the turns parent, change, change, parent:
     kernels alone and
     the forward, threshold and backward on the busiest tile's faces alone
     (CUDA events, the median of 5 rounds of 20 launches after a warm-up);
+  * runs the f_px backward (K4, ``grad_mode='full'``) and the px_f
+    backward (K6, K = 16), softmax and hard rgb, each on common forward
+    outputs (this tree's K3 and K5) and a seeded incoming gradient, then the
+    face sum after it, and times both on the softmax frame;
   * runs and times N3MR's edge gradient (``n3mr.cuda_impl.launch_edgebwd``,
     what the tree launches for it) on common maps of the same sphere at
     1024 px (phase 9 of ``chip_smoke.py``: 2x2x2 texels, a seeded incoming
@@ -44,7 +48,8 @@ backward's slot rows (the rows the
 tile runs fill, and the big faces' rows) and reduced gradients bit for
 bit, the f_px and px_f counts, hard winners (ids and depths) and px_f
 threshold maps (K = 16 and 40) bit for bit and their largest image
-difference, each tree's two turns bit for bit, and the largest difference of the
+difference, K4's and K6's entry rows and face sums bit for bit, each
+tree's two turns bit for bit, and the largest difference of the
 two trees' edge gradients as a share of its largest entry (they sum in
 another order where the kernel was redesigned).
 
@@ -204,6 +209,53 @@ def tiled_forwards(torch, fv, tex, times, timed):
     return out
 
 
+TILED_BWD = {'fpx_softmax': dict(grad_mode='full'), 'fpx_hard': dict(grad_mode='full',
+                                                                   aggr_func_rgb='hard'),
+             'pxf_softmax': {}, 'pxf_hard': dict(aggr_func_rgb='hard')}
+
+
+def tiled_bwd_inputs(torch, fv, tex, gen):
+    """The common inputs of the f_px (K4, ``grad_mode='full'``) and px_f (K6,
+    K = 16) backwards at 1024 px, softmax and hard rgb: each route's forward
+    outputs (images, aggregates, threshold or None) and a seeded incoming
+    gradient, by the keys of TILED_BWD."""
+    from jrender_tpu_torch.ops.softras import fpx_impl, make_params, pxf_impl
+    out = {}
+    for key, kw in TILED_BWD.items():
+        p = make_params(image_size=1024, **kw)
+        if key.startswith('fpx'):
+            img, ag, _, thr = fpx_impl.launch_fpx_fwd(fpx_impl.prep_fpx(fv, tex, p), p)
+        else:
+            img, ag, _, thr = pxf_impl.launch_pxf_fwd(pxf_impl.prep_pxf(fv, tex, p), p, True)
+        out[key] = (img, ag, thr, torch.randn(img.shape, generator=gen, device=fv.device))
+    return out
+
+
+def tiled_backwards(torch, fv, tex, common, times, timed, digest):
+    """K4 and K6 on the common inputs, and the face sum after them: the
+    entry rows' and the face sums' digests by key; adds to ``times`` each
+    kernel's time on the softmax frame."""
+    from jrender_tpu_torch.ops.softras import fpx_impl, make_params, pxf_impl, tiled
+    out = {}
+    for key, kw in TILED_BWD.items():
+        p = make_params(image_size=1024, **kw)
+        img, ag, thr, g = common[key]
+        if key.startswith('fpx'):
+            pin = fpx_impl.prep_fpx(fv, tex, p, for_grad=True)
+            run = lambda pin=pin, p=p: fpx_impl.launch_fpx_bwd(pin, img, ag, thr, g, p)
+        else:
+            pin = pxf_impl.prep_pxf(fv, tex, p, for_grad=True)
+            run = lambda pin=pin, p=p: pxf_impl.launch_pxf_bwd(pin, img, ag, thr, g, p)
+        rows = run()
+        gf, gt = tiled.face_sum(pin, rows, p)
+        torch.cuda.synchronize()
+        out[key] = {'rows': digest(rows), 'sums': digest(gf, gt), 'items': pin.items.shape[0]}
+        if key.endswith('softmax'):
+            times[f'{key[:3]}_bwd_ms'] = timed(run)
+            times[f'{key[:3]}_bwd_items'] = pin.items.shape[0]
+    return out
+
+
 def worker(repo: str, inputs: str, out: str, make: bool) -> int:
     """One tree's run, in a process that imports that tree only."""
     import numpy as np
@@ -226,7 +278,8 @@ def worker(repo: str, inputs: str, out: str, make: bool) -> int:
         thr = cuda_impl.launch_thr(inp, cnt, p)
         g = torch.randn(img.shape, generator=gen, device=dev)
         torch.save({'fv': fv, 'tex': tex, 'img': img, 'ag': ag, 'cnt': cnt, 'thr': thr,
-                    'g': g, 'edge_in': n3mr_edge_inputs(torch, dev, v, f, gen)}, inputs)
+                    'g': g, 'edge_in': n3mr_edge_inputs(torch, dev, v, f, gen),
+                    'tiled_bwd_in': tiled_bwd_inputs(torch, fv, tex, gen)}, inputs)
         return 0
 
     d = torch.load(inputs, map_location=dev)
@@ -279,13 +332,14 @@ def worker(repo: str, inputs: str, out: str, make: bool) -> int:
     times['bwd_busiest_tile_alone_ms'] = timed(
         lambda: cuda_impl.launch_bwd(sub, img_s, ag_s, thr_s, torch.ones_like(img_s), p))
     tiled_out = tiled_forwards(torch, fv, tex, times, timed)
+    tiled_bwd = tiled_backwards(torch, fv, tex, d['tiled_bwd_in'], times, timed, digest)
     from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda
     edge_in = d['edge_in']
     edge = ncuda.launch_edgebwd(*edge_in, N3MR_EPS, True, False)
     times['n3mr_edgebwd_ms'] = timed(lambda: ncuda.launch_edgebwd(*edge_in, N3MR_EPS, True, False))
     times.update(step_times(torch, np, fv, tex, timed))
     torch.save({'img': img, 'ag': ag, 'cnt': cnt, 'thr': thr, 'thr40': thr40, 'times': times,
-                'tiled': tiled_out,
+                'tiled': tiled_out, 'tiled_bwd': tiled_bwd,
                 'busiest_faces': ids.numel(),
                 'edge': edge,
                 'slot_rows': digest(rows.gslots[:, :n], rows.gbig[:, :nb]),
@@ -350,6 +404,12 @@ def main() -> int:
             all(torch.equal(x[0], y[0]) for x, y in zip(r['tiled'].values(),
                                                         first[t]['tiled'].values()))
             for t, r in turns),
+        **{f'{k}_bwd_rows_equal': par['tiled_bwd'][k]['rows'] == chg['tiled_bwd'][k]['rows']
+           for k in TILED_BWD},
+        **{f'{k}_bwd_face_sums_equal': par['tiled_bwd'][k]['sums'] == chg['tiled_bwd'][k]['sums']
+           for k in TILED_BWD},
+        'tiled_bwd_each_tree_twice_equal': all(r['tiled_bwd'] == first[t]['tiled_bwd']
+                                               for t, r in turns),
         'fwd_counts_equal': torch.equal(par['cnt'], chg['cnt']),
         'fwd_softmax_max_equal': torch.equal(par['ag'][:, 1], chg['ag'][:, 1]),
         'fwd_image_max_abs_diff': (par['img'] - chg['img']).abs().max().item(),
