@@ -110,7 +110,11 @@ of which raises on failure:
         at K = 4 if no pixel has more than 16 candidates); the work items,
         the busiest tile's split and the overfull tiles; 4,096 pixels and
         their gradient against the plain versions; each kernel timed alone
-        and bounded from this run's counts; the steps and frames on both
+        and bounded from this run's counts, the partials (K7) and the
+        backward (K9) also on the busiest tile's work items alone, K9 also
+        at work items of 8 faces (rows bit-equal to the default's), and
+        every other build of both (``pxg_impl.FWD_CAPS``, ``BWD_BUILDS``)
+        twice, bit-equal to the default build; the steps and frames on both
         routes in turns;
      c. demo 2's trainer on the pxg route: the first step's gradient against
         phase 7's binned one, 20 steps, the loss must fall;
@@ -454,6 +458,8 @@ def main() -> int:
         ('softras_bwd', 'SOFTRAS_BWD_SPLIT', cuda_impl.BWD_SPLIT),
         ('softras_fpx_fwd', 'SOFTRAS_TILE_SPLIT', tiled.TILE_SPLIT),
         ('softras_pxf_fwd', 'SOFTRAS_TILE_SPLIT', tiled.TILE_SPLIT)) for S in SPLITS if S != chosen]
+    variants += [('softras_pxg_fwd', pxg_impl.fwd_defines(b)) for b in pxg_impl.FWD_CAPS]
+    variants += [('softras_pxg_bwd', tiled.bwd_defines(b)) for b in pxg_impl.BWD_BUILDS]
     _build.build(kernels_src + variants)
     log(f'build: {kernels_src} and {len(variants)} variants in {time.time() - t0:.1f} s')
     # the f_px and px_f forwards' variants too (registers and spills per
@@ -2355,6 +2361,78 @@ def main() -> int:
         mem = {'parts': part_bytes, 'depth lists': list_bytes, 'entry rows': 4 * E_f * GC}
         log(f'  scratch, bytes: {mem}')
 
+        # K7 and K9 on the busiest tile's work items alone (the frame's
+        # inputs), K9 at work items of 8 faces, and every other build of
+        # both twice: each bit-equal to the default build on the frame
+        depths_f = pxg_impl.launch_pxg_fwd(pin_f, p_full, True)[1]
+        on_busy = pin_f.items[:, 0] == busiest
+        pin_bf = pin_f._replace(items=pin_f.items[on_busy].contiguous())
+        lo_b, hi_b = int(pin_f.tile_off[busiest]), int(pin_f.tile_off[busiest + 1])
+        parts_bt, depths_bt = pxg_impl.launch_pxg_fwd(pin_bf, p_full, True)
+        rows_bt = pxg_impl.launch_pxg_bwd(pin_bf, img_g, ag_g, thr_g, g_ones, p_full)
+        pin_8 = pxg_impl.prep_pxg(fv_full, tex_full, p_full, for_grad=True, group=8)
+        rows_8 = pxg_impl.launch_pxg_bwd(pin_8, img_g, ag_g, thr_g, g_ones, p_full)
+        torch.cuda.synchronize()
+        if not (torch.equal(parts_bt, parts_f[on_busy])
+                and torch.equal(depths_bt, depths_f[on_busy])
+                and torch.equal(rows_bt[lo_b:hi_b], grows_f[lo_b:hi_b])):
+            raise AssertionError('pxg 1024 px: the busiest tile\'s items alone differ from the '
+                                 'frame\'s')
+        if not torch.equal(rows_8, grows_f):
+            raise AssertionError('pxg 1024 px: K9\'s rows at work items of 8 faces differ')
+        gm_busy = {
+            'fwd': timed(lambda: pxg_impl.launch_pxg_fwd(pin_bf, p_full, True), reps=30),
+            'fwd_nothr': timed(lambda: pxg_impl.launch_pxg_fwd(pin_bf, p_full, False), reps=30),
+            'bwd': timed(lambda: pxg_impl.launch_pxg_bwd(pin_bf, img_g, ag_g, thr_g, g_ones,
+                                                         p_full), reps=30)}
+        bwd_8_ms = timed(lambda: pxg_impl.launch_pxg_bwd(pin_8, img_g, ag_g, thr_g, g_ones,
+                                                         p_full), reps=30)
+        view_f = pxg_impl.bwd_view(pin_f, p_full)
+        for b in pxg_impl.FWD_CAPS:
+            for lists in (True, True, False):
+                args_v, (pv, dv) = pxg_impl.fwd_args(pin_f, p_full, lists)
+                cuda_impl._run(pxg_impl.fwd_variant(pxg_impl.fwd_defines(b)), 'softras_pxg_fwd',
+                               args_v, dev)
+                torch.cuda.synchronize()
+                if not torch.equal(pv, parts_f) or (lists and not torch.equal(dv, depths_f)):
+                    raise AssertionError(f'pxg 1024 px: K7 at cap {b} (depth lists {lists}) '
+                                         'differs from the default build')
+        for b in pxg_impl.BWD_BUILDS:
+            for _ in range(2):
+                args_v, rv = tiled.bwd_args(view_f, img_g, ag_g, thr_g, g_ones, p_full)
+                cuda_impl._run(tiled.bwd_variant('softras_pxg_bwd', tiled.bwd_defines(b)),
+                               'softras_pxg_bwd', args_v, dev)
+                torch.cuda.synchronize()
+                if not torch.equal(rv, grows_f):
+                    raise AssertionError(f'pxg 1024 px: K9 build {b} differs from the default')
+        fwd_occ = pxg_impl.fwd_occupancy(pxg_impl.fwd_args(pin_f, p_full, True)[0])
+        bwd_occ = tiled.bwd_occupancy('softras_pxg_bwd', tiled.bwd_args(
+            view_f, img_g, ag_g, thr_g, g_ones, p_full)[0])
+        pxg_extra = {
+            'fwd': {**fwd_occ, 'items': W_f, 'group': pxg_impl.GROUP,
+                    'ms_no_lists': gm['fwd_nothr'], 'busiest_tile_ms': gm_busy['fwd'],
+                    'busiest_tile_no_lists_ms': gm_busy['fwd_nothr'],
+                    'busiest_tile_items': int(on_busy.sum().item()),
+                    'busiest_tile_faces': hi_b - lo_b},
+            'bwd': {**bwd_occ, 'items': W_f, 'group': pxg_impl.GROUP,
+                    'busiest_tile_ms': gm_busy['bwd'],
+                    'busiest_tile_items': int(on_busy.sum().item()),
+                    'busiest_tile_faces': hi_b - lo_b, 'ms_items_of_8': bwd_8_ms}}
+        log(f'  softras_pxg_fwd: {fwd_occ["registers"]} registers, {fwd_occ["local_bytes"]} '
+            f'bytes of local memory, {fwd_occ["blocks_per_sm"]} blocks an SM, {W_f} items; '
+            f'the busiest tile\'s '
+            f'{pxg_extra["fwd"]["busiest_tile_items"]} items ({hi_b - lo_b} faces) alone '
+            f'{gm_busy["fwd"]:.4f} ms ({gm_busy["fwd_nothr"]:.4f} without the depth lists)  '
+            f'[{smi}]')
+        log(f'  softras_pxg_bwd: {bwd_occ["registers"]} registers, {bwd_occ["local_bytes"]} '
+            f'bytes of local memory, {bwd_occ["blocks_per_sm"]} blocks an SM, {W_f} '
+            f'items of at most {pxg_impl.GROUP} faces; the busiest tile\'s '
+            f'{pxg_extra["bwd"]["busiest_tile_items"]} items alone {gm_busy["bwd"]:.4f} ms; '
+            f'items of 8 faces {bwd_8_ms:.4f} ms, rows bit-equal  [{smi}]')
+        log(f'  K7 at caps {pxg_impl.FWD_CAPS} (twice with the depth lists, once without) and '
+            f'K9 builds {pxg_impl.BWD_BUILDS} (twice): bit-equal to the default builds; the busiest '
+            f'tile\'s items alone bit-equal to the frame\'s')
+
     # the steps and frames on both routes in turns: binned, pxg, pxg, binned
     g_times = {'binned': [], 'pxg': []}
     for r_name in ('binned', 'pxg', 'pxg', 'binned'):
@@ -3075,8 +3153,8 @@ def main() -> int:
         entry('softras_dir_bwd', 'softras_dir_bwd.cu', 'jrender_tpu/ops/softras/dir_impl.py:480',
               max(d_err['bwd'], small['bwd_err']), small['bwd_ms'], small['bwd_plain_ms'],
               small['plain_on'], small['bwd_bound']),
-        *(entry(f'softras_pxg_{k}', src, rep, g_err[k], gm[k], gm_plain[k], gm_on[k], gb[k],
-                gm_lib.get(k))
+        *({**entry(f'softras_pxg_{k}', src, rep, g_err[k], gm[k], gm_plain[k], gm_on[k], gb[k],
+                   gm_lib.get(k)), **pxg_extra.get(k, {})}
           for k, src, rep in (
               ('fwd', 'softras_pxg_fwd.cu', 'jrender_tpu/ops/softras/pxg_impl.py:314'),
               ('combine', 'softras_pxg_fwd.cu', 'jrender_tpu/ops/softras/pxg_impl.py:449'),

@@ -11,19 +11,25 @@
 //
 // Design.  The prep (ops/softras/pxg_impl.py) cuts every tile's face list
 // into work items of at most 64 faces.
-//  softras_pxg_fwd_kernel: one block of 16 x 16 threads per work item, one
-//    thread per pixel of the item's tile in 8 x 4 warps, as the binned
-//    forward (softras_fwd.cu).  The block stages its faces' rows in shared
-//    memory and each thread keeps the binned kernel's accumulators in
+//  softras_pxg_fwd_kernel: blocks of 16 x 16 threads, one thread per pixel
+//    of an item's tile in 8 x 4 warps, as the binned forward
+//    (softras_fwd.cu).  Warp w copies the rows of faces w, w + 8, ... of a
+//    staged chunk into shared memory with cp.async, from ids its lanes
+//    loaded while the block walked the chunk before, so one block barrier
+//    stands between a chunk's copies and its walk (an item of 64 faces is
+//    one chunk).  Each thread keeps the binned kernel's accumulators in
 //    registers, without the background: the online softmax (S, M and the
 //    numerators, M starting at -1e30), alpha as a product, sum or max, the
 //    candidate count and the hard winner (depth, original id, lowest id on
-//    a tie).  It writes them as one partial row per pixel, [W, 8, 256].
-//    With the threshold asked for (K <= 32) a thread also keeps the K
-//    smallest candidate depths of its item (softras_topk.cuh's list) and
-//    writes them, +inf padded, to [W, K, 256]: the K smallest of a tile's
-//    union lie among the K smallest of each item, so the threshold kernel
-//    merges lists instead of walking the faces again.
+//    a tie).  It writes them as one partial row per pixel, [W, 8, 256], at
+//    the item's own index.  With the threshold asked for (K <= 32) a thread
+//    also keeps the K smallest candidate depths of its item in shared
+//    memory ([K][256], a warp's lanes on distinct banks; softras_topk.cuh's
+//    SharedSmallestK) and writes them, +inf padded, to [W, K, 256]: the K
+//    smallest of a tile's union lie among the K smallest of each item, so
+//    the threshold kernel merges lists instead of walking the faces again.
+//    A thread walks its item's faces in list order, so no choice below
+//    moves a bit of a partial row or a depth list.
 //  softras_pxg_combine_kernel: one block per (tile, batch element), a
 //    thread per pixel walks the tile's items in order: M = max(M_g, eps),
 //    each item's sums scaled by exp((M_g - M) / gamma), the background
@@ -36,6 +42,23 @@
 // index_add_ add with float atomics on the card, so their sums change from
 // run to run.  No atomics here: every output is deterministic.
 //
+// Compile-time choice of the partials kernel: SOFTRAS_PXG_FWD_MIN_BLOCKS,
+// the blocks an SM is to hold, the register cap of __launch_bounds__ (0:
+// no cap; pxg_impl.fwd_defines; tools/time_pxg_fwd.py times the caps,
+// PERF.md has the readings).  The default, 5 blocks an SM at 48 registers,
+// read 0.496-0.499 ms with the depth lists and 0.449-0.450 without, against
+// 0.586-0.588 and 0.509-0.510 for the kernel before (no cap, a chunk
+// staged by all threads behind three block barriers, the lists in local
+// memory) and 0.509-0.511 / 0.470-0.473 at 4 blocks, in four turns of one
+// call (1024 px, 39,474 faces, K = 16, NVIDIA H100 80GB HBM3, 700.00 W).
+// Timed alone in another call, the warp-staged rows gained 6.5% and the
+// lists in shared memory 8%; the kernel before held 48 registers uncapped,
+// so a cap gained only beside them.  A persistent grid (as many blocks as
+// the SMs hold, each walking items i, i + grid, ... with the next item's
+// rows in flight) lost in every reading (PERF.md §6): its static share of
+// items left SMs idle behind the costly ones, where a block per item lets
+// the hardware hand the next item to the first free SM.
+//
 // Bound.  The pair work is the binned forward's (every pair of a tile's
 // list tested against its bbox, the bbox pairs through the distance cut,
 // the candidates shaded); the bytes are the face rows once per item and
@@ -44,17 +67,26 @@
 // list off the critical path: at 1024 px on the 39,474-face sphere that
 // tile holds 1,158 faces against a mean of 127, and its one block was most
 // of the binned forward's time.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "softras_pair.cuh"
 #include "softras_topk.cuh"
 
+#ifndef SOFTRAS_PXG_FWD_MIN_BLOCKS
+#define SOFTRAS_PXG_FWD_MIN_BLOCKS 5
+#endif
+
 namespace softras {
 
 constexpr int kTile = 16;
 constexpr int kThreads = kTile * kTile;
+constexpr int kWarps = kThreads / 32;
 constexpr int kParts = 8;        // channels of a partial row
 constexpr float kNoMax = -1e30f; // the softmax maximum of an item without a candidate
+constexpr int kMaxChunk = 64;                 // faces of a staged chunk, at most
+constexpr int kPerWarp = kMaxChunk / kWarps;  // faces a warp stages per chunk
+constexpr size_t kSmemDefault = 48 * 1024;    // dynamic shared memory without asking
 
 struct PxgFwdArgs {
   const float* rows;     // [B, F, row]
@@ -78,12 +110,52 @@ struct PxgCombineArgs {
   Scalars s;
 };
 
+// Shared memory of a partials block, in bytes: a chunk of rows and their
+// ids, and (with the depth lists) K depths a thread.
+__host__ __device__ inline size_t pxg_fwd_smem(const PxgFwdArgs& a) {
+  const size_t lists = a.depths != nullptr ? (size_t)a.K * kThreads : 0;
+  return ((size_t)a.chunk * (a.row + 1) + lists) * sizeof(float);
+}
+
+// Lane q < kPerWarp of warp w: the id of face w + kWarps * q of the chunk
+// of n faces at `at` in the entries, or -1.
+__device__ __forceinline__ int chunk_ids(const int* entries, int at, int n, int warp,
+                                         int lane) {
+  const int j = warp + kWarps * lane;
+  return (lane < kPerWarp && j < n) ? entries[at + j] : -1;
+}
+
+// Warp w copies the rows of faces w, w + kWarps, ... of a chunk of n faces
+// (ids from chunk_ids) into srow / sid with cp.async, and commits them as
+// one group.
+__device__ __forceinline__ void stage(const float* rows_b, int row, float* srow, int* sid,
+                                      int n, int ids, int warp, int lane) {
+#pragma unroll
+  for (int q = 0; q < kPerWarp; ++q) {
+    const int j = warp + kWarps * q;
+    const int id = __shfl_sync(0xffffffffu, ids, q);
+    if (j < n) {
+      if (lane == 0) sid[j] = id;
+      const float* src = rows_b + (size_t)id * row;
+      float* dst = srow + j * row;
+      for (int k = lane; k < row; k += 32) __pipeline_memcpy_async(dst + k, src + k, 4);
+    }
+  }
+  __pipeline_commit();
+}
+
+#if SOFTRAS_PXG_FWD_MIN_BLOCKS > 0
+#define SOFTRAS_PXG_FWD_BOUNDS __launch_bounds__(kThreads, SOFTRAS_PXG_FWD_MIN_BLOCKS)
+#else
+#define SOFTRAS_PXG_FWD_BOUNDS __launch_bounds__(kThreads)
+#endif
+
 template <int DIST, int RGB, bool THR>
-__global__ void __launch_bounds__(kThreads)
-    softras_pxg_fwd_kernel(const PxgFwdArgs a) {
-  extern __shared__ float smem[];
-  float* srow = smem;                                         // [chunk, row]
-  int* sid = reinterpret_cast<int*>(smem + a.chunk * a.row);  // [chunk]
+__global__ void SOFTRAS_PXG_FWD_BOUNDS softras_pxg_fwd_kernel(const PxgFwdArgs a) {
+  extern __shared__ float4 smem4[];
+  float* srow = reinterpret_cast<float*>(smem4);                  // [chunk, row]
+  int* sid = reinterpret_cast<int*>(srow + (size_t)a.chunk * a.row);  // [chunk]
+  float* slist = srow + (size_t)a.chunk * (a.row + 1);            // [K, 256]
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -111,21 +183,19 @@ __global__ void __launch_bounds__(kThreads)
   int win = -1;
   float A = a.alpha_func == kAlphaProd ? 1.0f : 0.0f;
   int cnt = 0;
-  SmallestK list;
-  list.K = a.K;
-  list.n = 0;
-  list.imax = 0;
+  SharedSmallestK<kThreads> list{slist + tid, a.K, 0, 0, 0.0f};
 
+  // the ids of chunk c + 1 are loaded while the block walks chunk c
+  int ids = chunk_ids(a.entries, first, min(a.chunk, total), warp, lane);
   for (int base = 0; base < total; base += a.chunk) {
     const int n = min(a.chunk, total - base);
-    __syncthreads();  // the previous chunk has been consumed
-    if (tid < n) sid[tid] = a.entries[first + base + tid];
-    __syncthreads();
-    for (int i = tid; i < n * a.row; i += kThreads) {
-      const int j = i / a.row;
-      srow[i] = rows_b[(size_t)sid[j] * a.row + (i - j * a.row)];
-    }
-    __syncthreads();
+    if (base > 0) __syncthreads();  // the previous chunk has been consumed
+    stage(rows_b, a.row, srow, sid, n, ids, warp, lane);
+    const int next = base + a.chunk;
+    if (next < total)
+      ids = chunk_ids(a.entries, first + next, min(a.chunk, total - next), warp, lane);
+    __pipeline_wait_prior(0);
+    __syncthreads();  // the chunk is in
     if (!live) continue;
 
     for (int j = 0; j < n; ++j) {
@@ -206,7 +276,7 @@ __global__ void __launch_bounds__(kThreads)
   if (THR) {
     float* d = a.depths + (size_t)item * a.K * kThreads + px;
     const float inf = __int_as_float(0x7f800000);
-    for (int k = 0; k < a.K; ++k) d[k * kThreads] = k < list.n ? list.d[k] : inf;
+    for (int k = 0; k < a.K; ++k) d[k * kThreads] = k < list.n ? slist[k * kThreads + tid] : inf;
   }
 }
 
@@ -307,43 +377,74 @@ __global__ void __launch_bounds__(kThreads)
   a.counts[(size_t)b * HW + px] = (int)cnt;
 }
 
+// Launch the partials kernel for these arguments, or (occupancy != null)
+// report its registers, spill bytes and blocks an SM instead.  static: its
+// `ready` must be this library's own, not one shared with a variant build
+// (a static local of a function with external linkage is one symbol across
+// every library loaded).
 template <int DIST, int RGB, bool THR>
-cudaError_t launch(const PxgFwdArgs& a, cudaStream_t stream) {
-  const size_t smem = (size_t)a.chunk * a.row * sizeof(float) +
-                      (size_t)a.chunk * sizeof(int);
-  softras_pxg_fwd_kernel<DIST, RGB, THR><<<a.W, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+static int fwd_launch(const PxgFwdArgs& a, cudaStream_t stream, int* occupancy) {
+  const auto kernel = softras_pxg_fwd_kernel<DIST, RGB, THR>;
+  if (a.chunk < 1 || a.chunk > kMaxChunk || a.row < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = pxg_fwd_smem(a);
+  static size_t ready = 0;
+  if (ready < smem) {
+    cudaError_t err = cudaSuccess;
+    if (smem > kSmemDefault)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    ready = smem;
+  }
+  if (occupancy) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    int blocks = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
+    occupancy[0] = attr.numRegs;
+    occupancy[1] = (int)attr.localSizeBytes;
+    occupancy[2] = blocks;
+    return (int)err;
+  }
+  if (a.W == 0) return (int)cudaSuccess;
+  kernel<<<a.W, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <int DIST, int RGB>
-cudaError_t launch_thr(const PxgFwdArgs& a, cudaStream_t stream) {
-  return a.depths != nullptr ? launch<DIST, RGB, true>(a, stream)
-                             : launch<DIST, RGB, false>(a, stream);
+static int fwd_by_thr(const PxgFwdArgs& a, cudaStream_t stream, int* occupancy) {
+  return a.depths != nullptr ? fwd_launch<DIST, RGB, true>(a, stream, occupancy)
+                             : fwd_launch<DIST, RGB, false>(a, stream, occupancy);
 }
 
 template <int DIST>
-cudaError_t launch_rgb(const PxgFwdArgs& a, cudaStream_t stream) {
+static int fwd_by_rgb(const PxgFwdArgs& a, cudaStream_t stream, int* occupancy) {
   switch (a.rgb_func) {
-    case kRgbHard: return launch_thr<DIST, kRgbHard>(a, stream);
-    case kRgbSoftmax: return launch_thr<DIST, kRgbSoftmax>(a, stream);
-    default: return launch_thr<DIST, 2>(a, stream);
+    case kRgbHard: return fwd_by_thr<DIST, kRgbHard>(a, stream, occupancy);
+    case kRgbSoftmax: return fwd_by_thr<DIST, kRgbSoftmax>(a, stream, occupancy);
+    default: return fwd_by_thr<DIST, 2>(a, stream, occupancy);
+  }
+}
+
+static int fwd_dispatch(const PxgFwdArgs& a, cudaStream_t stream, int* occupancy) {
+  if (a.depths != nullptr && (a.K < 1 || a.K > kListMax)) return (int)cudaErrorInvalidValue;
+  switch (a.dist_func) {
+    case kDistHard: return fwd_by_rgb<kDistHard>(a, stream, occupancy);
+    case kDistBary: return fwd_by_rgb<kDistBary>(a, stream, occupancy);
+    default: return fwd_by_rgb<kDistEuclid>(a, stream, occupancy);
   }
 }
 
 }  // namespace softras
 
 extern "C" int softras_pxg_fwd(const softras::PxgFwdArgs* args, void* stream) {
-  using namespace softras;
-  if (args->depths != nullptr && (args->K < 1 || args->K > kListMax))
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (args->dist_func) {
-    case kDistHard: err = launch_rgb<kDistHard>(*args, st); break;
-    case kDistBary: err = launch_rgb<kDistBary>(*args, st); break;
-    default: err = launch_rgb<kDistEuclid>(*args, st); break;
-  }
-  return (int)err;
+  return softras::fwd_dispatch(*args, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// Registers, spill bytes and blocks an SM of the partials kernel these
+// arguments launch (out[0..2]).
+extern "C" int softras_pxg_fwd_occupancy(const softras::PxgFwdArgs* args, int* out) {
+  return softras::fwd_dispatch(*args, nullptr, out);
 }
 
 extern "C" int softras_pxg_combine(const softras::PxgCombineArgs* args, void* stream) {

@@ -123,17 +123,6 @@ def chunk_for(row: int, reserved_bytes: int = 0) -> int:
     return max(1, min(MAX_CHUNK, (SMEM_BYTES - reserved_bytes) // (4 * row + 4)))
 
 
-def chunk_for_bwd(row: int, tex_sums: int) -> int:
-    """Faces per chunk of a backward kernel, whose block also holds the
-    tile's pixel maps (11 floats per pixel) and, for surface textures, 3T
-    texel sums per warp (``tex_sums`` floats, 0 for vertex colours)."""
-    left = SMEM_BYTES - bwd_reserved_bytes(tex_sums)
-    if left < 4 * row + 4:
-        raise ValueError(f'a face row of {row} floats does not fit the backward '
-                         f"kernel's shared memory")
-    return min(MAX_CHUNK, left // (4 * row + 4))
-
-
 def bwd_reserved_bytes(tex_sums: int) -> int:
     """Shared memory a backward block holds besides its face rows: the
     tile's pixel maps (11 floats per pixel) and, for surface textures, 3T

@@ -19,8 +19,11 @@ kernel stages up to 64 face rows in shared memory at once
 1024 px on the 39,474-face sphere a mean tile of 127 faces makes two items
 and the busiest, 1,158 faces, 19.  A smaller group adds partial rows and
 combine work for every tile; a larger one leaves the long lists to few
-blocks.  The prep's one host synchronisation reads the sizes (entries,
-items, big-face pairs) so that every kernel's grid is exact.
+blocks.  The backward runs on the same items (its rows do not depend on
+the cut; items of 48 faces read 0.25-0.4% faster than 64 on its kernel alone,
+which did not pay for a second cut in every prep, PERF.md).  The prep's
+one host synchronisation reads the sizes (entries, items, big-face pairs)
+so that every kernel's grid is exact.
 
 **No caps.** The JAX package caps a tile's list at
 ``min(F, 2048)`` faces, sizes its grid for the worst case
@@ -44,7 +47,10 @@ Kernels and wrappers (each wrapper counts its launches in ``.launches``):
                                                    tiles where a pixel has more
                                                    than K candidates
   ``launch_pxg_bwd``      csrc/softras_pxg_bwd.cu  one gradient row per entry
-                                                   (tile, face) of every item
+                                                   (tile, face), over the
+                                                   work items (``tiled``'s
+                                                   tile backward,
+                                                   ``bwd_view``)
 Each face's rows are then summed in tile order by ``tiled.face_sum`` (the
 segment sum, csrc/segment_sum.cu), which the f_px and px_f routes share,
 as they share ``tiled.tile_work``, which writes the lists out.
@@ -64,6 +70,7 @@ from typing import NamedTuple
 
 import torch
 
+from ... import _build
 from . import cuda_impl, tiled, torch_impl
 from . import geometry as G
 from .cuda_impl import ROW_BASE, TILE, _Scalars, _check, _entry, _run, _scalars
@@ -97,13 +104,21 @@ def tiles_for(image_size: int) -> int:
 def prep_pxg(face_vertices: torch.Tensor, textures: torch.Tensor, p: SoftRasParams,
              for_grad: bool = False, group: int = GROUP) -> PxgInputs:
     """Rows, tile lists and work items of the pxg route, plain torch on the
-    device of the input.  ``for_grad`` adds each face's entries, which the
-    backward's face sum walks."""
+    device of the input, with one host synchronisation.  ``for_grad`` adds
+    each face's entries, which the backward's face sum walks."""
     B, F = face_vertices.shape[:2]
     base = cuda_impl.prepare(face_vertices, textures, p)
     tiles = tiles_for(p.image_size)
     work = tiled.tile_work(base.lists, B, F, tiles, tiles, group, for_grad)
     return PxgInputs(base.rows, *work, base.tex_res)
+
+
+def bwd_view(pin: PxgInputs, p: SoftRasParams) -> tiled.TiledInputs:
+    """The backward's view of the inputs: ``tiled``'s table of 16 x 16
+    tiles, no band, as the tile backward (csrc/softras_tile_bwd.cuh)
+    reads it."""
+    tiles = tiles_for(p.image_size)
+    return tiled.TiledInputs(*pin, TILE, TILE, tiles, tiles, 0, tiles)
 
 
 def _shape(pin: PxgInputs, p: SoftRasParams):
@@ -373,8 +388,8 @@ def thr_plain(pin: PxgInputs, depths: torch.Tensor, counts: torch.Tensor, p: Sof
 def bwd_rows_plain(pin: PxgInputs, images, aggrs, thr, grad_images, p: SoftRasParams):
     """The plain version of the backward kernel: for every entry (tile,
     face) of every work item, the face's gradient summed over the tile's
-    pixels (``torch_impl.backward_single`` on the item).  Returns rows
-    [E, 9 + 3T or 18]."""
+    pixels (``torch_impl.backward_single`` on the item).  Returns rows [E,
+    9 + 3T or 18]."""
     B, F, tiles, NT = _shape(pin, p)
     is_ = p.image_size
     R = pin.tex_res
@@ -433,14 +448,6 @@ class _PxgThrArgs(ctypes.Structure):
                                      'K', 'dist_func')] + [('s', _Scalars)]
 
 
-class _PxgBwdArgs(ctypes.Structure):
-    """Mirror of ``softras::PxgBwdArgs`` in csrc/softras_pxg_bwd.cu."""
-    _fields_ = [(n, ctypes.c_void_p) for n in ('rows', 'entries', 'items', 'image', 'aggrs',
-                                               'grad', 'thr', 'grows')] + \
-        [(n, ctypes.c_int) for n in ('W', 'F', 'row', 'image_size', 'tiles_x', 'chunk', 'GC',
-                                     'dist_func', 'rgb_func', 'alpha_func')] + [('s', _Scalars)]
-
-
 def _check_inputs(pin: PxgInputs, p: SoftRasParams):
     """Rows, lists and items on one card, of the types, shapes and layout
     the kernels index.  Returns (device, B, F, row, NT)."""
@@ -466,12 +473,12 @@ def _check_inputs(pin: PxgInputs, p: SoftRasParams):
     return dev, B, F, row, NT
 
 
-def launch_pxg_fwd(pin: PxgInputs, p: SoftRasParams, with_thr: bool):
-    """Launch the partials kernel on the current stream: a block per work
-    item, a thread per pixel of its tile.  Returns (parts [W, 8, 256],
-    depths [W, K, 256] or None); the depth lists come only with
-    ``with_thr`` and K <= 32 (above that the threshold kernel bisects over
-    the tile's list).  ``launch_pxg_fwd.launches`` counts the launches."""
+def fwd_args(pin: PxgInputs, p: SoftRasParams, with_thr: bool):
+    """The partials kernel's checked arguments and its outputs (parts [W,
+    8, 256], depths [W, K, 256] or None), allocated on the inputs' card:
+    what ``launch_pxg_fwd`` hands to the kernel.  The depth lists come only
+    with ``with_thr`` and K <= 32 (above that the threshold kernel bisects
+    over the tile's list)."""
     dev, B, F, row, NT = _check_inputs(pin, p)
     W = pin.items.shape[0]
     K = p.max_faces_id
@@ -480,20 +487,66 @@ def launch_pxg_fwd(pin: PxgInputs, p: SoftRasParams, with_thr: bool):
     lists = with_thr and K <= LIST_MAX
     parts = torch.empty((W, PARTS, PIXELS), dtype=torch.float32, device=dev)
     depths = torch.empty((W, K, PIXELS), dtype=torch.float32, device=dev) if lists else None
-    if W == 0:
-        return parts, depths
-    fn = _entry('softras_pxg_fwd', 'softras_pxg_fwd', _PxgFwdArgs)
     args = _PxgFwdArgs(
         pin.rows.data_ptr(), pin.entries.data_ptr(), pin.items.data_ptr(), parts.data_ptr(),
         None if depths is None else depths.data_ptr(), W, F, row, p.image_size,
         tiles_for(p.image_size), cuda_impl.chunk_for(row), K if lists else 0,
         p.dist_func_id, p.rgb_func_id, p.alpha_func_id, _scalars(p, pin.tex_res))
-    _run(fn, 'softras_pxg_fwd', args, dev)
+    return args, (parts, depths)
+
+
+def launch_pxg_fwd(pin: PxgInputs, p: SoftRasParams, with_thr: bool):
+    """Launch the partials kernel on the current stream: a block per work
+    item, a thread per pixel of its tile.  Returns (parts [W, 8, 256],
+    depths [W, K, 256] or None), as ``fwd_args`` says.
+    ``launch_pxg_fwd.launches`` counts the launches."""
+    args, out = fwd_args(pin, p, with_thr)
+    if args.W == 0:
+        return out
+    _run(_entry('softras_pxg_fwd', 'softras_pxg_fwd', _PxgFwdArgs), 'softras_pxg_fwd', args,
+         pin.rows.device)
     launch_pxg_fwd.launches += 1
-    return parts, depths
+    return out
 
 
 launch_pxg_fwd.launches = 0
+
+# The builds that the card's checks hold bit-equal to the default ones: the
+# partials kernel's register caps (``fwd_defines``) and the backward's
+# three-digit builds (``tiled.bwd_defines``).
+FWD_CAPS = (0, 2, 3, 4)
+BWD_BUILDS = ('000', '300', '010', '001', '301', '311', '401', '411')
+
+
+def fwd_defines(cap: int):
+    """The macro of a partials build: its register cap, the blocks an SM is
+    to hold (SOFTRAS_PXG_FWD_MIN_BLOCKS; 0: no cap)."""
+    if not 0 <= cap <= 32:
+        raise ValueError(f'a partials build holds 0 to 32 blocks an SM, got {cap}')
+    return (('SOFTRAS_PXG_FWD_MIN_BLOCKS', cap),)
+
+
+def fwd_variant(defines=()):
+    """The partials kernel's entry point built with other compile-time
+    choices (``defines``, ``fwd_defines``), to time the alternatives to the
+    default build; call it with ``fwd_args`` through ``_run``.  The wrapper
+    launches the default build only."""
+    return _entry('softras_pxg_fwd', 'softras_pxg_fwd', _PxgFwdArgs,
+                  lib=_build.load('softras_pxg_fwd', tuple(defines)))
+
+
+def fwd_occupancy(args, defines=()) -> dict:
+    """Registers, local (spill) bytes and blocks an SM of the partials
+    kernel that ``args`` (``fwd_args``) launch, in the build with
+    ``defines``, from the CUDA runtime."""
+    fn = _build.load('softras_pxg_fwd', tuple(defines)).softras_pxg_fwd_occupancy
+    fn.argtypes = [ctypes.POINTER(_PxgFwdArgs), ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    err = fn(ctypes.byref(args), out)
+    if err != 0:
+        raise RuntimeError(f'softras_pxg_fwd occupancy query failed: CUDA error {err}')
+    return {'registers': out[0], 'local_bytes': out[1], 'blocks_per_sm': out[2]}
 
 
 def launch_pxg_combine(pin: PxgInputs, parts: torch.Tensor, p: SoftRasParams):
@@ -556,32 +609,16 @@ launch_pxg_thr.launches = 0
 
 
 def launch_pxg_bwd(pin: PxgInputs, images, aggrs, thr, grad_images, p: SoftRasParams):
-    """Launch the backward kernel on the current stream: a block per work
-    item stages its faces' rows and its tile's pixel maps; a warp per face
-    walks the face's bbox inside the tile and writes the entry's gradient
-    row.  ``thr`` is the threshold map or None (no truncation).  Returns
+    """Launch the backward kernel on the current stream: the tile backward
+    (csrc/softras_tile_bwd.cuh) over the backward's items (``bwd_view``), a
+    block per item, a warp per entry walking the face's bbox inside the
+    tile.  ``thr`` is the threshold map or None (no truncation).  Returns
     rows [E, GC].  ``launch_pxg_bwd.launches`` counts the launches."""
-    dev, B, F, row, NT = _check_inputs(pin, p)
-    is_ = p.image_size
-    _check(images, 'images', torch.float32, (B, 4, is_, is_), dev)
-    _check(aggrs, 'aggrs', torch.float32, (B, 2, is_, is_), dev)
-    _check(grad_images, 'grad_images', torch.float32, (B, 4, is_, is_), dev)
-    if thr is not None:
-        _check(thr, 'thr', torch.float32, (B, is_, is_), dev)
-    GC = cuda_impl._grad_columns(p, pin.tex_res)
-    tex_sums = GC - 9 if p.texture_type_id == 0 else 0
-    chunk = cuda_impl.chunk_for_bwd(row, tex_sums)
-    W = pin.items.shape[0]
-    grows = torch.empty((pin.entries.numel(), GC), dtype=torch.float32, device=dev)
-    if W == 0:
+    args, grows = tiled.bwd_args(bwd_view(pin, p), images, aggrs, thr, grad_images, p)
+    if args.W == 0:
         return grows
-    fn = _entry('softras_pxg_bwd', 'softras_pxg_bwd', _PxgBwdArgs)
-    args = _PxgBwdArgs(
-        pin.rows.data_ptr(), pin.entries.data_ptr(), pin.items.data_ptr(), images.data_ptr(),
-        aggrs.data_ptr(), grad_images.data_ptr(), None if thr is None else thr.data_ptr(),
-        grows.data_ptr(), W, F, row, is_, tiles_for(is_), chunk, GC,
-        p.dist_func_id, p.rgb_func_id, p.alpha_func_id, _scalars(p, pin.tex_res))
-    _run(fn, 'softras_pxg_bwd', args, dev)
+    _run(_entry('softras_pxg_bwd', 'softras_pxg_bwd', tiled._TileBwdArgs), 'softras_pxg_bwd',
+         args, pin.rows.device)
     launch_pxg_bwd.launches += 1
     return grows
 

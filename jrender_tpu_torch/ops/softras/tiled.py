@@ -510,7 +510,10 @@ def bwd_args(pin: TiledInputs, images, aggrs, thr, grad_images, p: SoftRasParams
     allocated on the inputs' card: what ``launch_bwd`` hands to the kernel.
     ``thr`` is the band's threshold map or None (no truncation)."""
     dev, B, F, row = check_inputs(pin, p)
-    is_, Hb = p.image_size, band_height(pin)
+    is_ = p.image_size
+    # the band's rows, up to the image's edge (a ragged last tile row, as
+    # the pxg route's 16 x 16 tiles have at sizes not divisible by 16)
+    Hb = min(band_height(pin), is_ - pin.ty0 * pin.tile_h)
     _check(images, 'images', torch.float32, (B, 4, Hb, is_), dev)
     _check(aggrs, 'aggrs', torch.float32, (B, 2, Hb, is_), dev)
     _check(grad_images, 'grad_images', torch.float32, (B, 4, Hb, is_), dev)
@@ -558,11 +561,11 @@ def bwd_defines(build: str):
 
 
 def bwd_variant(source: str, defines=()):
-    """The entry point of ``softras_fpx_bwd`` or ``softras_pxf_bwd`` built
-    with other compile-time choices (``defines``: SOFTRAS_TILE_BWD_MIN_BLOCKS,
-    _ROWS, _TEXEL), to time the alternatives to the default build;
-    call it with ``bwd_args`` through ``_run``.  The wrappers launch the
-    default build only."""
+    """The entry point of ``softras_fpx_bwd``, ``softras_pxf_bwd`` or
+    ``softras_pxg_bwd`` built with other compile-time choices (``defines``:
+    SOFTRAS_TILE_BWD_MIN_BLOCKS, _ROWS, _TEXEL), to time the alternatives
+    to the default build; call it with ``bwd_args`` through ``_run``.  The
+    wrappers launch the default build only."""
     return _entry(source, source, _TileBwdArgs, lib=_build.load(source, tuple(defines)))
 
 

@@ -1518,6 +1518,99 @@ def test_softras_tile_bwd_builds_and_items_agree(route, kind):
         assert torch.equal(launch(pin_g, img, ag, thr, g, p), rows), group
 
 
+# K9 (csrc/softras_pxg_bwd.cu) is the same tile backward on the pxg route's
+# 16 x 16 tiles: every build (pxg_impl.BWD_BUILDS) and every work-item size
+# gives the same rows, bit for bit.  K7 (csrc/softras_pxg_fwd.cu) walks an
+# item's faces in list order at every register cap (pxg_impl.FWD_CAPS): its
+# partial rows and depth lists are bit-equal across builds.
+
+
+def pxg_case(kind, group=None):
+    """tile_bwd_case's dense soup on the pxg route at K = 4 (binding), the
+    forward's outputs and a seeded incoming gradient: (pin, images, aggrs,
+    thr, grad, params); work items of ``group`` faces (the route's
+    default)."""
+    from jrender_tpu_torch.ops.softras import pxg_impl
+    vertex = kind == 'vertex'
+    x, t = dense_soup(30, F=1500, T=3 if vertex else 4)
+    x = with_big_faces(x)
+    t = t.reshape(1, -1, 3, 3) if vertex else tie_symmetric(t)
+    kw = dict(image_size=128, sigma_val=1e-4, gamma_val=1e-3 if not vertex else 0.1,
+              max_faces_per_pixel_for_grad=4)
+    if vertex:
+        kw.update(texture_type='vertex', fill_back=False)
+    if kind == 'hard':
+        kw.update(dist_func='barycentric', aggr_func_rgb='hard', aggr_func_alpha='hard')
+    p = make_params(**kw)
+    pin = pxg_impl.prep_pxg(x, t, p, for_grad=True, group=group or pxg_impl.GROUP)
+    img, ag, _, thr = pxg_impl.forward(pin, p, True)
+    g = torch.randn(img.shape, generator=torch.Generator(device='cuda').manual_seed(8),
+                    device='cuda')
+    return pin, img, ag, thr, g, p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kind', ['surface', 'vertex', 'hard'])
+def test_softras_pxg_bwd_builds_and_items_agree(kind):
+    """K9: the default build twice, every build of ``pxg_impl.BWD_BUILDS``
+    and work items of 1, 8, 32 and 64 faces give the same rows, bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch import _build
+    from jrender_tpu_torch.ops.softras import pxg_impl, tiled
+    _build.build([('softras_pxg_bwd', tiled.bwd_defines(b)) for b in pxg_impl.BWD_BUILDS])
+    pin, img, ag, thr, g, p = pxg_case(kind)
+    assert int((pin.tile_off[1:] - pin.tile_off[:-1]).max()) > 64
+    rows = pxg_impl.launch_pxg_bwd(pin, img, ag, thr, g, p)
+    again = pxg_impl.launch_pxg_bwd(pin, img, ag, thr, g, p)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, again)
+    for b in pxg_impl.BWD_BUILDS:
+        args, rows_b = tiled.bwd_args(pxg_impl.bwd_view(pin, p), img, ag, thr, g, p)
+        cuda_impl._run(tiled.bwd_variant('softras_pxg_bwd', tiled.bwd_defines(b)),
+                       'softras_pxg_bwd', args, img.device)
+        torch.cuda.synchronize()
+        assert torch.equal(rows_b, rows), b
+    for group in (1, 8, 32, 64):
+        pin_g = pxg_case(kind, group)[0]
+        assert torch.equal(pin_g.entries, pin.entries)
+        assert int((pin_g.items[:, 2] - pin_g.items[:, 1]).max()) <= group
+        assert torch.equal(pxg_impl.launch_pxg_bwd(pin_g, img, ag, thr, g, p), rows), group
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kind', ['surface', 'vertex', 'hard'])
+def test_softras_pxg_fwd_builds_agree(kind):
+    """K7: the default build twice and every cap of ``pxg_impl.FWD_CAPS``
+    give the same partial rows and depth lists, with and without the lists, bit
+    for bit, at the route's items of 64 faces and at items of 2."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch import _build
+    from jrender_tpu_torch.ops.softras import pxg_impl
+    _build.build([('softras_pxg_fwd', pxg_impl.fwd_defines(b)) for b in pxg_impl.FWD_CAPS])
+    for group, lists in ((pxg_impl.GROUP, True), (pxg_impl.GROUP, False), (2, True)):
+        pin, _, _, _, _, p = pxg_case(kind, group=group)
+        assert int((pin.item_off[1:] - pin.item_off[:-1]).max()) > 1
+        parts, depths = pxg_impl.launch_pxg_fwd(pin, p, lists)
+        again = pxg_impl.launch_pxg_fwd(pin, p, lists)
+        torch.cuda.synchronize()
+        assert torch.equal(parts, again[0])
+        assert (depths is None) == (not lists)
+        if lists:
+            assert torch.equal(depths, again[1])
+        for b in pxg_impl.FWD_CAPS:
+            defines = pxg_impl.fwd_defines(b)
+            args, (parts_b, depths_b) = pxg_impl.fwd_args(pin, p, lists)
+            cuda_impl._run(pxg_impl.fwd_variant(defines), 'softras_pxg_fwd', args, parts.device)
+            torch.cuda.synchronize()
+            assert torch.equal(parts_b, parts), (b, lists)
+            if lists:
+                assert torch.equal(depths_b, depths), b
+            assert pxg_impl.fwd_occupancy(args, defines)['blocks_per_sm'] >= 1, b
+
+
 @pytest.mark.gpu
 def test_soft_rasterize_fpx_pxf_routes_on_the_card(monkeypatch):
     """Under JR_LAYOUT=f_px a frame launches K3 once and a grad_mode='full'

@@ -198,6 +198,97 @@ def test_work_items_cover_the_tile_lists(mt, rng, monkeypatch):
         assert (seg[1:] > seg[:-1]).all()
 
 
+@pytest.mark.parametrize('bwd_group', [8, 32, 64])
+@pytest.mark.parametrize('mt', [None, 2])
+def test_backward_items_cover_the_tile_lists(bwd_group, mt, rng, monkeypatch):
+    """The work items the backward runs on, at ``bwd_group`` faces an item:
+    each tile's entries once, in order, in items of at most ``bwd_group``
+    faces; the lists do not move with the cut, and the backward's view
+    (``bwd_view``) hands the tile backward those items on the route's
+    16 x 16 tiles.  Without ``for_grad`` the face sum has nothing to walk
+    and raises."""
+    if mt is not None:
+        monkeypatch.setattr(binning, 'mt_for', lambda F: mt)
+    fv, tex = soup(rng, F=120, B=2, radius=(0.2, 0.6))
+    fvt, text = torch.tensor(fv), torch.tensor(tex)
+    p = make_params(image_size=72)
+    pin = pxg_impl.prep_pxg(fvt, text, p, for_grad=True, group=bwd_group)
+    ref = pxg_impl.prep_pxg(fvt, text, p, for_grad=True, group=1)
+    for name in ('entries', 'tile_off', 'face_off', 'face_entries'):
+        assert torch.equal(getattr(pin, name), getattr(ref, name)), name
+    off, ioff = pin.tile_off.long(), pin.item_off.long()
+    assert int((off[1:] - off[:-1]).max()) > bwd_group          # some tile has several items
+    covered = torch.zeros(pin.entries.numel(), dtype=torch.int64)
+    for g in range(off.numel() - 1):
+        its = pin.items[ioff[g]:ioff[g + 1]].long()
+        assert its.shape[0] == -(-int(off[g + 1] - off[g]) // bwd_group)
+        assert (its[:, 0] == g).all()
+        if its.shape[0]:
+            assert int(its[0, 1]) == int(off[g]) and int(its[-1, 2]) == int(off[g + 1])
+            assert torch.equal(its[1:, 1], its[:-1, 2])
+            assert ((its[:, 2] - its[:, 1]) <= bwd_group).all()
+            assert ((its[:, 2] - its[:, 1]) >= 1).all()
+        for _, a, b in its.tolist():
+            covered[a:b] += 1
+    assert (covered == 1).all()
+    view = pxg_impl.bwd_view(pin, p)
+    assert view.items is pin.items and view.item_off is pin.item_off
+    assert (view.tile_h, view.tile_w, view.ty0, view.ty_band) == (16, 16, 0, view.tiles_y)
+    fwd_only = pxg_impl.prep_pxg(fvt, text, p, group=bwd_group)
+    assert fwd_only.face_off is None
+    rows = torch.zeros((fwd_only.entries.numel(), 9 + 3 * fwd_only.tex_res ** 2))
+    with pytest.raises(ValueError, match='for_grad'):
+        tiled.sum_plain(fwd_only, rows, p)
+
+
+def test_prep_synchronises_once(rng, monkeypatch):
+    """``prep_pxg(for_grad=True)`` reads its sizes in one host
+    synchronisation: one tensor-to-host read.  (``geometry.border_inflation``
+    rounds a Python constant through a CPU float32 tensor, which reads
+    nothing of the device: not counted.)"""
+    import inspect
+    fv, tex = soup(rng, F=60, B=2)
+    fvt, text = torch.tensor(fv), torch.tensor(tex)
+    p = make_params(image_size=64)
+    reads = []
+    for name in ('tolist', 'item', '__int__', '__float__', '__bool__', '__index__', 'numpy'):
+        real = getattr(torch.Tensor, name)
+
+        def counted(self, *a, real=real, name=name, **k):
+            if not any(f.function == 'border_inflation' for f in inspect.stack()[1:4]):
+                reads.append(name)
+            return real(self, *a, **k)
+
+        monkeypatch.setattr(torch.Tensor, name, counted)
+    pin = pxg_impl.prep_pxg(fvt, text, p, for_grad=True, group=8)
+    monkeypatch.undo()
+    assert reads == ['tolist']
+    assert pin.items.shape[0] > 0 and pin.face_off is not None
+
+
+@pytest.mark.parametrize('bwd_group', [8, 32, 64])
+def test_plain_face_sums_agree_across_backward_items(bwd_group, rng):
+    """The plain backward's face sums at work items of ``bwd_group`` faces
+    agree within 1e-6 of max|grad| with those of one item per tile (a
+    tile's list whole), on the same forward outputs: an entry's row does not
+    depend on its item, and PyTorch's own sums inside an item change order
+    with its face count."""
+    fv, tex = soup(rng, F=150, T=4, radius=(0.2, 0.6))
+    fvt, text = torch.tensor(fv), torch.tensor(tie_symmetric(tex))
+    p = make_params(image_size=48, sigma_val=1e-3, gamma_val=1e-3, max_faces_per_pixel_for_grad=4)
+    whole = pxg_impl.prep_pxg(fvt, text, p, for_grad=True, group=150)
+    pin = pxg_impl.prep_pxg(fvt, text, p, for_grad=True, group=bwd_group)
+    assert pin.items.shape[0] > whole.items.shape[0]
+    img, ag, cnt, thr = pxg_impl.forward(whole, p, True)
+    assert (cnt > 4).any()
+    g = torch.tensor(rng.randn(1, 4, 48, 48).astype(np.float32))
+    wf, wt = pxg_impl.backward(whole, img, ag, thr, g, p)
+    gf, gt = pxg_impl.backward(pin, img, ag, thr, g, p)
+    for got, want in ((gf, wf), (gt, wt)):
+        assert want.abs().max() > 0
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * float(want.abs().max()))
+
+
 @pytest.mark.parametrize('kw', [dict(), dict(aggr_func_rgb='hard', aggr_func_alpha='hard'),
                                 dict(aggr_func_alpha='sum', texture_type='vertex')],
                          ids=['softmax-prod', 'hard', 'sum-vertex'])

@@ -3,10 +3,13 @@
 against each other on one CUDA card: their outputs bit for bit and their
 times in turns.
 
-    python3 tools/compare_softras_trees.py --parent PATH
+    python3 tools/compare_softras_trees.py --parent PATH [--change PATH]
+                                           [--parts binned,tiled,pxg,n3mr]
 
 PATH is another checkout of the port (for example ``git archive`` of the
-parent commit unpacked into a git-ignored directory).  On the 39,474-face
+parent commit unpacked into a git-ignored directory); ``--change`` is this
+tree unless given (give the parent twice to read one tree in four turns);
+``--parts`` keeps some of the parts below (all by default).  On the 39,474-face
 ``uv_sphere(130, 153)`` at 1024 px, demo 1's camera at 45 degrees, 5x5
 texels per face, the renderer's defaults (K = 16), this tree first makes
 the inputs: the rasterizer's face vertices and textures, its forward
@@ -29,6 +32,14 @@ in the turns parent, change, change, parent:
     backward (K6, K = 16), softmax and hard rgb, each on common forward
     outputs (this tree's K3 and K5) and a seeded incoming gradient, then the
     face sum after it, and times both on the softmax frame;
+  * runs the pxg route's kernels (``pxg``), softmax and hard rgb at K = 16:
+    the partials with the depth lists (K7, ``launch_pxg_fwd``), the combine,
+    the threshold (K8) on them, and the backward (K9, ``launch_pxg_bwd``)
+    with the face sum on common forward outputs, threshold and a seeded
+    incoming gradient; times K7 with and without the depth lists, the
+    combine, K8, K9 and the face sum on the softmax frame, and K7 and K9
+    on the busiest tile's work items alone (the items of that tile on the
+    frame's inputs);
   * runs and times N3MR's edge gradient (``n3mr.cuda_impl.launch_edgebwd``,
     what the tree launches for it) on common maps of the same sphere at
     1024 px (phase 9 of ``chip_smoke.py``: 2x2x2 texels, a seeded incoming
@@ -37,7 +48,9 @@ in the turns parent, change, change, parent:
     (CUDA events), and ``Renderer.render_mesh`` frames and forward +
     backward steps (host clock around work that ends in a synchronize;
     the median of 5 rounds of 10), and the device time of each step
-    (torch.profiler over 4 steps: the kernels' summed device time).
+    (torch.profiler over 4 steps: the kernels' summed device time); the
+    f_px, px_f and pxg steps alike under their ``JR_LAYOUT``, the pxg
+    step also with each kernel's device time by name.
 
 It prints one JSON line: the card's name and power limit, each turn's
 times, and whether the trees agree: the forward's candidate counts and
@@ -48,8 +61,11 @@ backward's slot rows (the rows the
 tile runs fill, and the big faces' rows) and reduced gradients bit for
 bit, the f_px and px_f counts, hard winners (ids and depths) and px_f
 threshold maps (K = 16 and 40) bit for bit and their largest image
-difference, K4's and K6's entry rows and face sums bit for bit, each
-tree's two turns bit for bit, and the largest difference of the
+difference, K4's and K6's entry rows and face sums bit for bit, K7's
+partial rows and depth lists, the combine's image, aggregates and counts,
+K8's threshold maps, K9's entry rows and face sums bit for bit (softmax
+and hard rgb), each tree's two turns bit for bit, and the largest
+difference of the
 two trees' edge gradients as a share of its largest entry (they sum in
 another order where the kernel was redesigned).
 
@@ -81,9 +97,12 @@ def scene(torch, dev):
     return v, f, tex, renderer, gen
 
 
-def step_times(torch, np, fv, tex, timed):
+def step_times(torch, np, fv, tex, timed, parts):
     """The steps' times in ms: soft_rasterize's (CUDA events), render_mesh's
-    frame and step (host clock), and the device time of each step."""
+    frame and step (host clock), and the device time of each step; the
+    f_px and px_f steps with ``tiled`` in ``parts``, the pxg step (and its
+    kernels' device time by name) with ``pxg``, the binned ones with
+    ``binned``."""
     import time
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -129,26 +148,40 @@ def step_times(torch, np, fv, tex, timed):
         fv_leaf.grad = tex_leaf.grad = None
         soft_rasterize(fv_leaf, tex_leaf, image_size=1024, grad_mode='full').sum().backward()
 
-    def device(fn, reps=4):
+    def device(fn, reps=4, by_name=False):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        return sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA) / 1e3 / reps
+        ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        total = sum(e.self_device_time_total for e in ev) / 1e3 / reps
+        if not by_name:
+            return total
+        return total, {e.key: e.self_device_time_total / 1e3 / reps for e in ev
+                       if 'softras' in e.key or 'segment' in e.key}
 
     from jrender_tpu_torch.ops.softras import route
-    tiled_steps = {}
-    for layout, tag, fn in (('f_px', 'fpx_full', full_step), ('px_f', 'pxf', raster_step)):
+    out = {}
+    steps = []
+    if 'tiled' in parts:
+        steps += [('f_px', 'fpx_full', full_step), ('px_f', 'pxf', raster_step)]
+    if 'pxg' in parts:
+        steps.append(('pxg', 'pxg', raster_step))
+    for layout, tag, fn in steps:
         with route.with_layout(layout):
-            tiled_steps.update({f'{tag}_step_ms': timed(fn, reps=10),
-                                f'{tag}_step_wall_ms': wall(fn),
-                                f'{tag}_step_device_ms': device(fn)})
-    return {**tiled_steps, 'soft_rasterize_step_ms': timed(raster_step, reps=10),
-            'render_mesh_frame_ms': wall(frame), 'render_mesh_step_ms': wall(render_step),
-            'soft_rasterize_step_device_ms': device(raster_step),
-            'render_mesh_frame_device_ms': device(frame),
-            'render_mesh_step_device_ms': device(render_step)}
+            out.update({f'{tag}_step_ms': timed(fn, reps=10), f'{tag}_step_wall_ms': wall(fn)})
+            if layout == 'pxg':
+                out['pxg_step_device_ms'], out['pxg_step_kernels_device_ms'] = device(
+                    fn, by_name=True)
+            else:
+                out[f'{tag}_step_device_ms'] = device(fn)
+    if 'binned' in parts:
+        out.update({'soft_rasterize_step_ms': timed(raster_step, reps=10),
+                    'render_mesh_frame_ms': wall(frame), 'render_mesh_step_ms': wall(render_step),
+                    'soft_rasterize_step_device_ms': device(raster_step),
+                    'render_mesh_frame_device_ms': device(frame),
+                    'render_mesh_step_device_ms': device(render_step)})
+    return out
 
 
 N3MR_EPS = 1e-4   # rasterize's default
@@ -256,7 +289,71 @@ def tiled_backwards(torch, fv, tex, common, times, timed, digest):
     return out
 
 
-def worker(repo: str, inputs: str, out: str, make: bool) -> int:
+PXG = {'pxg_softmax': {}, 'pxg_hard': dict(aggr_func_rgb='hard')}
+
+
+def pxg_inputs(torch, fv, tex, gen):
+    """The common inputs of the pxg backward (K9) at 1024 px, K = 16,
+    softmax and hard rgb: the pxg route's forward outputs (images, aggrs,
+    threshold map) and a seeded incoming gradient, by the keys of PXG."""
+    from jrender_tpu_torch.ops.softras import make_params, pxg_impl
+    out = {}
+    for key, kw in PXG.items():
+        p = make_params(image_size=1024, **kw)
+        img, ag, _, thr = pxg_impl.forward(pxg_impl.prep_pxg(fv, tex, p), p, True)
+        out[key] = (img, ag, thr, torch.randn(img.shape, generator=gen, device=fv.device))
+    return out
+
+
+def pxg_kernels(torch, fv, tex, common, times, timed, digest):
+    """The pxg kernels of this tree on the faces at 1024 px: K7's partial
+    rows and depth lists, the combine's outputs and K8's threshold from
+    them, and K9's entry rows and face sums on the common inputs, as
+    digests by key; adds to ``times`` each kernel's time on the softmax
+    frame and K7's and K9's on the busiest tile's work items alone."""
+    from jrender_tpu_torch.ops.softras import make_params, pxg_impl, tiled
+    out = {}
+    for key, kw in PXG.items():
+        p = make_params(image_size=1024, **kw)
+        img_c, ag_c, thr_c, g = common[key]
+        pin = pxg_impl.prep_pxg(fv, tex, p, for_grad=True)
+        parts, depths = pxg_impl.launch_pxg_fwd(pin, p, True)
+        img, ag, cnt = pxg_impl.launch_pxg_combine(pin, parts, p)
+        thr = pxg_impl.launch_pxg_thr(pin, depths, cnt, p)
+        rows = pxg_impl.launch_pxg_bwd(pin, img_c, ag_c, thr_c, g, p)
+        gf, gt = tiled.face_sum(pin, rows, p)
+        torch.cuda.synchronize()
+        out[key] = {'parts': digest(parts), 'depths': digest(depths), 'image': digest(img),
+                    'aggrs': digest(ag), 'counts': digest(cnt), 'thr': digest(thr),
+                    'bwd_rows': digest(rows), 'bwd_face_sums': digest(gf, gt)}
+        if key != 'pxg_softmax':
+            continue
+        times.update({
+            'pxg_fwd_ms': timed(lambda: pxg_impl.launch_pxg_fwd(pin, p, True)),
+            'pxg_fwd_nothr_ms': timed(lambda: pxg_impl.launch_pxg_fwd(pin, p, False)),
+            'pxg_combine_ms': timed(lambda: pxg_impl.launch_pxg_combine(pin, parts, p)),
+            'pxg_thr_ms': timed(lambda: pxg_impl.launch_pxg_thr(pin, depths, cnt, p)),
+            'pxg_bwd_ms': timed(lambda: pxg_impl.launch_pxg_bwd(pin, img_c, ag_c, thr_c, g, p)),
+            'pxg_sum_ms': timed(lambda: tiled.face_sum(pin, rows, p)),
+            'pxg_items': int(pin.items.shape[0])})
+        # the busiest tile's items alone, on the frame's inputs
+        busy = int((pin.tile_off[1:] - pin.tile_off[:-1]).argmax())
+        pin_f = pin._replace(items=pin.items[pin.items[:, 0] == busy].contiguous())
+        times.update({
+            'pxg_fwd_busiest_tile_ms': timed(lambda: pxg_impl.launch_pxg_fwd(pin_f, p, True)),
+            'pxg_fwd_nothr_busiest_tile_ms': timed(
+                lambda: pxg_impl.launch_pxg_fwd(pin_f, p, False)),
+            'pxg_bwd_busiest_tile_ms': timed(
+                lambda: pxg_impl.launch_pxg_bwd(pin_f, img_c, ag_c, thr_c, g, p)),
+            'pxg_busiest_tile_faces': int(pin.tile_off[busy + 1] - pin.tile_off[busy]),
+            'pxg_busiest_tile_items': int(pin_f.items.shape[0])})
+    return out
+
+
+PARTS = ('binned', 'tiled', 'pxg', 'n3mr')
+
+
+def worker(repo: str, inputs: str, out: str, make: bool, parts) -> int:
     """One tree's run, in a process that imports that tree only."""
     import numpy as np
     import torch
@@ -279,21 +376,12 @@ def worker(repo: str, inputs: str, out: str, make: bool) -> int:
         g = torch.randn(img.shape, generator=gen, device=dev)
         torch.save({'fv': fv, 'tex': tex, 'img': img, 'ag': ag, 'cnt': cnt, 'thr': thr,
                     'g': g, 'edge_in': n3mr_edge_inputs(torch, dev, v, f, gen),
-                    'tiled_bwd_in': tiled_bwd_inputs(torch, fv, tex, gen)}, inputs)
+                    'tiled_bwd_in': tiled_bwd_inputs(torch, fv, tex, gen),
+                    'pxg_in': pxg_inputs(torch, fv, tex, gen)}, inputs)
         return 0
 
     d = torch.load(inputs, map_location=dev)
     fv, tex = d['fv'], d['tex']
-    inp = cuda_impl.prepare(fv, tex, p, for_grad=True)
-    img, ag, cnt = cuda_impl.launch(inp, p)
-    thr = cuda_impl.launch_thr(inp, d['cnt'], p)
-    p40 = make_params(image_size=1024, max_faces_per_pixel_for_grad=40)
-    thr40 = cuda_impl.launch_thr(inp, d['cnt'], p40)
-    rows = cuda_impl.launch_bwd(inp, d['img'], d['ag'], d['thr'], d['g'], p)
-    gf, gt = cuda_impl.launch_reduce(inp, rows, p)
-    torch.cuda.synchronize()
-    n = int(inp.lists.run_counts.sum())
-    nb = int(inp.lists.gcount.sum())
 
     def digest(*ts):
         h = hashlib.sha256()
@@ -316,63 +404,151 @@ def worker(repo: str, inputs: str, out: str, make: bool) -> int:
             times.append(ev[0].elapsed_time(ev[1]) / reps)
         return float(np.median(times))
 
-    ones = torch.ones_like(img)
-    times = {'fwd_ms': timed(lambda: cuda_impl.launch(inp, p)),
-             'thr_ms': timed(lambda: cuda_impl.launch_thr(inp, cnt, p)),
-             'thr_k40_ms': timed(lambda: cuda_impl.launch_thr(inp, cnt, p40), reps=5),
-             'bwd_ms': timed(lambda: cuda_impl.launch_bwd(inp, img, ag, d['thr'], ones, p)),
-             'reduce_ms': timed(lambda: cuda_impl.launch_reduce(inp, rows, p))}
-    busiest = int(inp.lists.counts[0].argmax())
-    ids = binning.tile_list(inp.lists, 0, busiest, -(-1024 // cuda_impl.TILE)).long()
-    sub = cuda_impl.prepare(fv[:, ids].contiguous(), tex[:, ids].contiguous(), p, for_grad=True)
-    img_s, ag_s, cnt_s = cuda_impl.launch(sub, p)
-    thr_s = cuda_impl.launch_thr(sub, cnt_s, p)
-    times['fwd_busiest_tile_alone_ms'] = timed(lambda: cuda_impl.launch(sub, p))
-    times['thr_busiest_tile_alone_ms'] = timed(lambda: cuda_impl.launch_thr(sub, cnt_s, p))
-    times['bwd_busiest_tile_alone_ms'] = timed(
-        lambda: cuda_impl.launch_bwd(sub, img_s, ag_s, thr_s, torch.ones_like(img_s), p))
-    tiled_out = tiled_forwards(torch, fv, tex, times, timed)
-    tiled_bwd = tiled_backwards(torch, fv, tex, d['tiled_bwd_in'], times, timed, digest)
-    from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda
-    edge_in = d['edge_in']
-    edge = ncuda.launch_edgebwd(*edge_in, N3MR_EPS, True, False)
-    times['n3mr_edgebwd_ms'] = timed(lambda: ncuda.launch_edgebwd(*edge_in, N3MR_EPS, True, False))
-    times.update(step_times(torch, np, fv, tex, timed))
-    torch.save({'img': img, 'ag': ag, 'cnt': cnt, 'thr': thr, 'thr40': thr40, 'times': times,
-                'tiled': tiled_out, 'tiled_bwd': tiled_bwd,
-                'busiest_faces': ids.numel(),
-                'edge': edge,
-                'slot_rows': digest(rows.gslots[:, :n], rows.gbig[:, :nb]),
-                'reduced': digest(gf, gt)}, out)
+    times, res = {}, {}
+    if 'binned' in parts:
+        inp = cuda_impl.prepare(fv, tex, p, for_grad=True)
+        img, ag, cnt = cuda_impl.launch(inp, p)
+        thr = cuda_impl.launch_thr(inp, d['cnt'], p)
+        p40 = make_params(image_size=1024, max_faces_per_pixel_for_grad=40)
+        thr40 = cuda_impl.launch_thr(inp, d['cnt'], p40)
+        rows = cuda_impl.launch_bwd(inp, d['img'], d['ag'], d['thr'], d['g'], p)
+        gf, gt = cuda_impl.launch_reduce(inp, rows, p)
+        torch.cuda.synchronize()
+        n = int(inp.lists.run_counts.sum())
+        nb = int(inp.lists.gcount.sum())
+        ones = torch.ones_like(img)
+        times.update({
+            'fwd_ms': timed(lambda: cuda_impl.launch(inp, p)),
+            'thr_ms': timed(lambda: cuda_impl.launch_thr(inp, cnt, p)),
+            'thr_k40_ms': timed(lambda: cuda_impl.launch_thr(inp, cnt, p40), reps=5),
+            'bwd_ms': timed(lambda: cuda_impl.launch_bwd(inp, img, ag, d['thr'], ones, p)),
+            'reduce_ms': timed(lambda: cuda_impl.launch_reduce(inp, rows, p))})
+        busiest = int(inp.lists.counts[0].argmax())
+        ids = binning.tile_list(inp.lists, 0, busiest, -(-1024 // cuda_impl.TILE)).long()
+        sub = cuda_impl.prepare(fv[:, ids].contiguous(), tex[:, ids].contiguous(), p,
+                                for_grad=True)
+        img_s, ag_s, cnt_s = cuda_impl.launch(sub, p)
+        thr_s = cuda_impl.launch_thr(sub, cnt_s, p)
+        times['fwd_busiest_tile_alone_ms'] = timed(lambda: cuda_impl.launch(sub, p))
+        times['thr_busiest_tile_alone_ms'] = timed(lambda: cuda_impl.launch_thr(sub, cnt_s, p))
+        times['bwd_busiest_tile_alone_ms'] = timed(
+            lambda: cuda_impl.launch_bwd(sub, img_s, ag_s, thr_s, torch.ones_like(img_s), p))
+        res.update({'img': img, 'ag': ag, 'cnt': cnt, 'thr': thr, 'thr40': thr40,
+                    'busiest_faces': ids.numel(),
+                    'slot_rows': digest(rows.gslots[:, :n], rows.gbig[:, :nb]),
+                    'reduced': digest(gf, gt)})
+    if 'tiled' in parts:
+        res['tiled'] = tiled_forwards(torch, fv, tex, times, timed)
+        res['tiled_bwd'] = tiled_backwards(torch, fv, tex, d['tiled_bwd_in'], times, timed,
+                                           digest)
+    if 'pxg' in parts:
+        res['pxg'] = pxg_kernels(torch, fv, tex, d['pxg_in'], times, timed, digest)
+    if 'n3mr' in parts:
+        from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda
+        edge_in = d['edge_in']
+        res['edge'] = ncuda.launch_edgebwd(*edge_in, N3MR_EPS, True, False)
+        times['n3mr_edgebwd_ms'] = timed(
+            lambda: ncuda.launch_edgebwd(*edge_in, N3MR_EPS, True, False))
+    times.update(step_times(torch, np, fv, tex, timed, parts))
+    torch.save({**res, 'times': times}, out)
     return 0
+
+
+def agreement(par, chg, turns, first, parts):
+    """Whether the two trees' outputs agree, bit for bit where they should,
+    and each tree's turns with each other."""
+    import torch
+    same = {}
+    if 'tiled' in parts:
+        def tiled_agree(a, b):
+            """The f_px and px_f forwards of two runs: counts, winners and
+            thresholds bit for bit, the largest image difference."""
+            res = {}
+            for key in a:
+                (ia, ga, ca, ta), (ib, gb, cb, tb) = a[key], b[key]
+                res[f'{key}_counts_equal'] = torch.equal(ca, cb)
+                if key.endswith('hard'):
+                    res[f'{key}_winners_equal'] = torch.equal(ga, gb)
+                if ta is not None:
+                    res[f'{key}_thr_equal'] = torch.equal(ta, tb)
+                res[f'{key}_image_max_abs_diff'] = (ia - ib).abs().max().item()
+            return res
+
+        same.update({
+            **tiled_agree(par['tiled'], chg['tiled']),
+            'tiled_each_tree_twice_equal': all(
+                all(v for k, v in tiled_agree(r['tiled'], first[t]['tiled']).items()
+                    if k.endswith('equal')) and
+                all(torch.equal(x[0], y[0]) for x, y in zip(r['tiled'].values(),
+                                                            first[t]['tiled'].values()))
+                for t, r in turns),
+            **{f'{k}_bwd_rows_equal': par['tiled_bwd'][k]['rows'] == chg['tiled_bwd'][k]['rows']
+               for k in TILED_BWD},
+            **{f'{k}_bwd_face_sums_equal':
+               par['tiled_bwd'][k]['sums'] == chg['tiled_bwd'][k]['sums'] for k in TILED_BWD},
+            'tiled_bwd_each_tree_twice_equal': all(r['tiled_bwd'] == first[t]['tiled_bwd']
+                                                   for t, r in turns)})
+    if 'pxg' in parts:
+        same.update({f'{k}_{what}_equal': par['pxg'][k][what] == chg['pxg'][k][what]
+                     for k in PXG for what in par['pxg'][k]})
+        same['pxg_each_tree_twice_equal'] = all(r['pxg'] == first[t]['pxg'] for t, r in turns)
+    if 'binned' in parts:
+        same.update({
+            'fwd_counts_equal': torch.equal(par['cnt'], chg['cnt']),
+            'fwd_softmax_max_equal': torch.equal(par['ag'][:, 1], chg['ag'][:, 1]),
+            'fwd_image_max_abs_diff': (par['img'] - chg['img']).abs().max().item(),
+            'fwd_aggr_S_max_rel_diff': ((par['ag'][:, 0] - chg['ag'][:, 0]).abs()
+                                        / par['ag'][:, 0].abs()).max().item(),
+            'thr_equal': torch.equal(par['thr'], chg['thr']),
+            'thr_k40_equal': torch.equal(par['thr40'], chg['thr40']),
+            'bwd_slot_rows_equal': par['slot_rows'] == chg['slot_rows'],
+            'bwd_reduced_equal': par['reduced'] == chg['reduced'],
+            'each_tree_twice_equal': all(r['slot_rows'] == first[t]['slot_rows']
+                                         and torch.equal(r['img'], first[t]['img'])
+                                         and torch.equal(r['thr'], first[t]['thr'])
+                                         and torch.equal(r['thr40'], first[t]['thr40'])
+                                         for t, r in turns)})
+    if 'n3mr' in parts:
+        same['edge_each_tree_twice_equal'] = all(torch.equal(r['edge'], first[t]['edge'])
+                                                 for t, r in turns)
+        same['edge_max_diff_of_scale'] = ((par['edge'] - chg['edge']).abs().max()
+                                          / par['edge'].abs().max()).item()
+    return same
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--parent', help='the other tree of the port')
+    ap.add_argument('--change', default=str(REPO), help='the tree held against it (this one)')
+    ap.add_argument('--parts', default=','.join(PARTS),
+                    help=f'comma-separated parts to run, of {",".join(PARTS)}')
     ap.add_argument('--worker', help=argparse.SUPPRESS)
     ap.add_argument('--inputs', help=argparse.SUPPRESS)
     ap.add_argument('--out', help=argparse.SUPPRESS)
     ap.add_argument('--make', action='store_true', help=argparse.SUPPRESS)
     args = ap.parse_args()
+    parts = [x for x in args.parts.split(',') if x]
+    if not parts or any(x not in PARTS for x in parts):
+        ap.error(f'--parts takes some of {",".join(PARTS)}, got {args.parts!r}')
     import torch
     if not torch.cuda.is_available():
         print('compare_softras_trees: no CUDA device', file=sys.stderr)
         return 2
     if args.worker:
-        return worker(args.worker, args.inputs, args.out, args.make)
+        return worker(args.worker, args.inputs, args.out, args.make, parts)
     if not args.parent:
         ap.error('--parent is required')
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, timeout=60,
                          check=True).stdout.strip().splitlines()[0]
-    trees = {'parent': str(Path(args.parent).resolve()), 'change': str(REPO)}
+    trees = {'parent': str(Path(args.parent).resolve()),
+             'change': str(Path(args.change).resolve())}
     with tempfile.TemporaryDirectory() as tmp:
         inputs = f'{tmp}/inputs.pt'
 
         def run(tree, out, make=False):
             cmd = [sys.executable, __file__, '--worker', trees[tree], '--inputs', inputs,
-                   '--out', out] + (['--make'] if make else [])
+                   '--out', out, '--parts', ','.join(parts)] + (['--make'] if make else [])
             subprocess.run(cmd, check=True)
 
         run('change', '', make=True)
@@ -381,53 +557,9 @@ def main() -> int:
             run(tree, f'{tmp}/{i}.pt')
             turns.append((tree, torch.load(f'{tmp}/{i}.pt')))
     first = {tree: r for tree, r in reversed(turns)}
-    par, chg = first['parent'], first['change']
-    def tiled_agree(a, b):
-        """The f_px and px_f forwards of two runs: counts, winners and
-        thresholds bit for bit, the largest image difference."""
-        res = {}
-        for key in a:
-            (ia, ga, ca, ta), (ib, gb, cb, tb) = a[key], b[key]
-            res[f'{key}_counts_equal'] = torch.equal(ca, cb)
-            if key.endswith('hard'):
-                res[f'{key}_winners_equal'] = torch.equal(ga, gb)
-            if ta is not None:
-                res[f'{key}_thr_equal'] = torch.equal(ta, tb)
-            res[f'{key}_image_max_abs_diff'] = (ia - ib).abs().max().item()
-        return res
-
-    same = {
-        **tiled_agree(par['tiled'], chg['tiled']),
-        'tiled_each_tree_twice_equal': all(
-            all(v for k, v in tiled_agree(r['tiled'], first[t]['tiled']).items()
-                if k.endswith('equal')) and
-            all(torch.equal(x[0], y[0]) for x, y in zip(r['tiled'].values(),
-                                                        first[t]['tiled'].values()))
-            for t, r in turns),
-        **{f'{k}_bwd_rows_equal': par['tiled_bwd'][k]['rows'] == chg['tiled_bwd'][k]['rows']
-           for k in TILED_BWD},
-        **{f'{k}_bwd_face_sums_equal': par['tiled_bwd'][k]['sums'] == chg['tiled_bwd'][k]['sums']
-           for k in TILED_BWD},
-        'tiled_bwd_each_tree_twice_equal': all(r['tiled_bwd'] == first[t]['tiled_bwd']
-                                               for t, r in turns),
-        'fwd_counts_equal': torch.equal(par['cnt'], chg['cnt']),
-        'fwd_softmax_max_equal': torch.equal(par['ag'][:, 1], chg['ag'][:, 1]),
-        'fwd_image_max_abs_diff': (par['img'] - chg['img']).abs().max().item(),
-        'fwd_aggr_S_max_rel_diff': ((par['ag'][:, 0] - chg['ag'][:, 0]).abs()
-                                    / par['ag'][:, 0].abs()).max().item(),
-        'thr_equal': torch.equal(par['thr'], chg['thr']),
-        'thr_k40_equal': torch.equal(par['thr40'], chg['thr40']),
-        'bwd_slot_rows_equal': par['slot_rows'] == chg['slot_rows'],
-        'bwd_reduced_equal': par['reduced'] == chg['reduced'],
-        'each_tree_twice_equal': all(r['slot_rows'] == first[t]['slot_rows']
-                                     and torch.equal(r['img'], first[t]['img'])
-                                     and torch.equal(r['thr'], first[t]['thr'])
-                                     and torch.equal(r['thr40'], first[t]['thr40'])
-                                     and torch.equal(r['edge'], first[t]['edge'])
-                                     for t, r in turns),
-        'edge_max_diff_of_scale': ((par['edge'] - chg['edge']).abs().max()
-                                   / par['edge'].abs().max()).item()}
-    print(json.dumps({'device': smi, 'busiest_tile_faces': int(chg['busiest_faces']),
+    same = agreement(first['parent'], first['change'], turns, first, parts)
+    print(json.dumps({'device': smi, 'trees': trees, 'parts': parts,
+                      'busiest_tile_faces': first['change'].get('busiest_faces'),
                       'agree': same,
                       'turns': [{'tree': t, **r['times']} for t, r in turns]}), flush=True)
     return 0

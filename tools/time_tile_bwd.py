@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Time the f_px (K4) and px_f (K6) backwards built with other compile-time
-choices and cut into other work items, on one CUDA card.
+"""Time the f_px (K4), px_f (K6) and pxg (K9) backwards built with other
+compile-time choices and cut into other work items, on one CUDA card.
 
     python3 tools/time_tile_bwd.py [--builds 000,301,...] [--groups 8,16,32,64,128]
-                                   [--turns N]
+                                   [--turns N] [--routes fpx,pxf,pxg]
 
 On the 39,474-face ``uv_sphere(130, 153)`` at 1024 px, demo 1's camera at
 45 degrees, 5x5 texels a face, the renderer's defaults (K4 at
-``grad_mode='full'``, K6 with the forward's threshold at K = 16), a seeded
-incoming gradient: each build of ``csrc/softras_tile_bwd.cuh`` is timed on
-the frame and on the busiest tile's faces alone, at the route's work-item
+``grad_mode='full'``, K6 and K9 with the forward's threshold at K = 16), a
+seeded incoming gradient: each build of ``csrc/softras_tile_bwd.cuh`` is
+timed on the frame and on the busiest tile alone (f_px, px_f: its faces
+alone; pxg: its work items on the frame's inputs), at the route's work-item
 size, in the order given and then in reverse, ``--turns`` times over (CUDA
 events, the median of 5 rounds of 20 launches after a warm-up; each
 build's readings are listed in the order taken, so two builds read in
@@ -18,9 +19,10 @@ digits: SOFTRAS_TILE_BWD_MIN_BLOCKS (the register cap; 0: none), _ROWS
 (each warp stages its own faces' rows with cp.async and takes the item's
 next face from a counter) and _TEXEL (the texel adds in rounds); 000 is
 none of them.  Every build is also timed at each work-item size of
-``--groups`` (faces an item at most; ``tiled.prep(..., group)``; empty:
-none), and the default build with vertex colours (``texture_type=
-'vertex'``: register sums, no texel adds) beside surface T = 25.
+``--groups`` (faces an item at most; ``tiled.prep(..., group)``, pxg:
+``prep_pxg(..., group)``; empty: none), and the default build with vertex
+colours (``texture_type='vertex'``: register sums, no texel adds) beside
+surface T = 25.
 Registers and spill stores come from ``ptxas -v`` for every distance
 (hard, barycentric, euclidean) with surface texels and with vertex
 colours, blocks an SM from the CUDA runtime; every build's rows, on the
@@ -69,6 +71,7 @@ def main() -> int:
     ap.add_argument('--groups', default='8,16,32,64,128')
     ap.add_argument('--turns', type=int, default=1,
                     help='times over the builds in order and in reverse')
+    ap.add_argument('--routes', default='fpx,pxf,pxg')
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -80,7 +83,7 @@ def main() -> int:
     from compare_softras_trees import scene
     from jrender_tpu_torch import Mesh, _build
     from jrender_tpu_torch.ops.softras import (cuda_impl, fpx_impl, make_params, pxf_impl,
-                                               tiled)
+                                               pxg_impl, tiled)
 
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, timeout=60,
@@ -110,14 +113,24 @@ def main() -> int:
 
     builds = args.builds.split(',')
     groups = [int(g) for g in args.groups.split(',') if g]
-    sources = ('softras_fpx_bwd', 'softras_pxf_bwd')
+    routes = args.routes.split(',')
+    sources = [f'softras_{r}_bwd' for r in routes]
     _build.build([s for s in sources]
                  + [(s, tiled.bwd_defines(b)) for s in sources for b in builds])
 
     def case(name, p, fv_, tex_, group):
         """The route's prep at ``group`` faces an item and its forward's
         outputs with a seeded incoming gradient: (pin, images, aggrs, thr,
-        grad)."""
+        grad); pxg's pin is the backward's view, its forward the one at the
+        route's own items (K7's partials, and so the image's last bits,
+        follow the cut)."""
+        if name == 'pxg':
+            pin = pxg_impl.prep_pxg(fv_, tex_, p, for_grad=True, group=group)
+            own = pin if group == pxg_impl.GROUP else pxg_impl.prep_pxg(fv_, tex_, p)
+            img, ag, _, thr = pxg_impl.forward(own, p, True)
+            g = torch.randn(img.shape, generator=torch.Generator(device=dev).manual_seed(7),
+                            device=dev)
+            return pxg_impl.bwd_view(pin, p), img, ag, thr, g
         th, tw = fpx_impl.tile_shape(1024) if name == 'fpx' else (pxf_impl.tile_for(1024),) * 2
         pin = tiled.prep(fv_, tex_, p, th, tw, group, for_grad=True)
         if name == 'fpx':
@@ -129,21 +142,31 @@ def main() -> int:
         return pin, img, ag, thr, g
 
     result = {'device': smi, 'routes': {}}
-    for name in ('fpx', 'pxf'):
+    for name in routes:
         source = f'softras_{name}_bwd'
-        impl = fpx_impl if name == 'fpx' else pxf_impl
+        impl = {'fpx': fpx_impl, 'pxf': pxf_impl, 'pxg': pxg_impl}[name]
         kw = dict(image_size=1024, grad_mode='full') if name == 'fpx' else dict(image_size=1024)
         p = make_params(**kw)
         frame = case(name, p, fv, tex, impl.GROUP)
         pin = frame[0]
         sizes = pin.tile_off[1:] - pin.tile_off[:-1]
         busy = int(sizes.argmax())
-        ids = pin.entries[int(pin.tile_off[busy]):int(pin.tile_off[busy + 1])].long()
-        cases = {'frame': frame,
-                 'busiest tile': case(name, p, fv[:, ids].contiguous(), tex[:, ids].contiguous(),
-                                      impl.GROUP)}
+        lo, hi = int(pin.tile_off[busy]), int(pin.tile_off[busy + 1])
+        ids = pin.entries[lo:hi].long()
+        if name == 'pxg':
+            # the busiest tile's items alone, on the frame's inputs: only its
+            # entries' rows are written
+            alone = pin._replace(items=pin.items[pin.items[:, 0] == busy].contiguous())
+            cases = {'frame': frame, 'busiest tile': (alone, *frame[1:])}
+            keep = {'busiest tile': slice(lo, hi)}
+        else:
+            cases = {'frame': frame,
+                     'busiest tile': case(name, p, fv[:, ids].contiguous(),
+                                          tex[:, ids].contiguous(), impl.GROUP)}
+            keep = {}
         cases.update({f'group {g}': case(name, p, fv, tex, g) for g in groups})
-        want = {which: tiled.launch_bwd(source, *c[:4], c[4], p) for which, c in cases.items()}
+        want = {which: tiled.launch_bwd(source, *c[:4], c[4], p)[keep.get(which, slice(None))]
+                for which, c in cases.items()}
         torch.cuda.synchronize()
         for g in groups:
             if not torch.equal(want[f'group {g}'], want['frame']):
@@ -159,6 +182,7 @@ def main() -> int:
                 run = lambda fn=fn, a=a: cuda_impl._run(fn, source, a, dev)
                 run()
                 torch.cuda.synchronize()
+                rows = rows[keep.get(which, slice(None))]
                 if not torch.equal(rows, want[which]):
                     bad = (rows != want[which]).any(dim=1).float().mean().item()
                     raise AssertionError(f'{source} build {b}, {which}: rows differ from the '
@@ -183,6 +207,7 @@ def main() -> int:
                         **tiled.bwd_occupancy(source, a_def),
                         'ptxas_registers_spill_stores': ptxas(source, ())},
             'busiest_tile_faces': ids.numel(),
+            'busiest_tile_items': int(cases['busiest tile'][0].items.shape[0]),
             'items_by_group': {g: int(cases[f'group {g}'][0].items.shape[0]) for g in groups},
             'builds': {b: {'frame_ms': times[f'{b} frame'],
                            'busiest_tile_ms': times[f'{b} busiest tile'],
