@@ -65,7 +65,10 @@ of which raises on failure:
      gradient on 2,048-px maps (the anti-aliased step's size); two steps
      with anti-aliasing (2048 px inside); every kernel is timed alone and
      bounded from this run's counts, the edge kernels also at 2048 px; the
-     band keys at 1024 px equal the plain version's, bit for bit;
+     band keys at 1024 px equal the plain version's, bit for bit; the
+     z-buffer on the busiest tile's cluster alone (a grid of one cluster)
+     and every other build of ``n3mr.cuda_impl.MAPS_BUILDS`` twice,
+     bit-equal to the default build;
  10. a trainer: 20 Adam steps of demo 4's texture fit (256 px, texture
      size 4, orthographic camera at a random azimuth per step, ambient
      light only) on a 1,300-face sphere towards images the port renders
@@ -106,16 +109,19 @@ of which raises on failure:
      b. bench.py's headline row on the pxg route: 8 ``render_mesh`` frames,
         8 steps of ``soft_rasterize(...).sum().backward()`` and 8 through
         ``render_mesh`` at 1024 px on the 39,474-face sphere, one launch of
-        each pxg wrapper per step and none of the binned or dir ones (a step
-        at K = 4 if no pixel has more than 16 candidates); the work items,
-        the busiest tile's split and the overfull tiles; 4,096 pixels and
-        their gradient against the plain versions; each kernel timed alone
-        and bounded from this run's counts, the partials (K7) and the
+        each pxg wrapper per step (the threshold's on every step: it runs
+        over every tile) and none of the binned or dir ones; the work
+        items, the busiest tile's split and the overfull tiles (there must
+        be some at K = 16); 4,096 pixels and their gradient against the
+        plain versions; each kernel timed alone and bounded from this run's
+        counts, the threshold (K8) beside its wrapper, on the overfull tile
+        of the most items alone and at K = 40, the partials (K7) and the
         backward (K9) also on the busiest tile's work items alone, K9 also
         at work items of 8 faces (rows bit-equal to the default's), and
-        every other build of both (``pxg_impl.FWD_CAPS``, ``BWD_BUILDS``)
-        twice, bit-equal to the default build; the steps and frames on both
-        routes in turns;
+        every other build of the three (``pxg_impl.FWD_CAPS``,
+        ``BWD_BUILDS``, ``THR_BUILDS``; K8 at K = 16 and 40) twice,
+        bit-equal to the default build; the steps and frames on both routes
+        in turns;
      c. demo 2's trainer on the pxg route: the first step's gradient against
         phase 7's binned one, 20 steps, the loss must fall;
  13. the f_px route, which ``JR_LAYOUT=f_px`` opens (phases 3-12 run with it
@@ -460,6 +466,8 @@ def main() -> int:
         ('softras_pxf_fwd', 'SOFTRAS_TILE_SPLIT', tiled.TILE_SPLIT)) for S in SPLITS if S != chosen]
     variants += [('softras_pxg_fwd', pxg_impl.fwd_defines(b)) for b in pxg_impl.FWD_CAPS]
     variants += [('softras_pxg_bwd', tiled.bwd_defines(b)) for b in pxg_impl.BWD_BUILDS]
+    variants += [('n3mr_maps', ncuda.maps_defines(b)) for b in ncuda.MAPS_BUILDS]
+    variants += [('softras_pxg_thr', pxg_impl.thr_defines(b)) for b in pxg_impl.THR_BUILDS]
     _build.build(kernels_src + variants)
     log(f'build: {kernels_src} and {len(variants)} variants in {time.time() - t0:.1f} s')
     # the f_px and px_f forwards' variants too (registers and spills per
@@ -493,6 +501,14 @@ def main() -> int:
         ev[1].record()
         torch.cuda.synchronize()
         return ev[0].elapsed_time(ev[1]) / reps
+
+    def thr_alone(pin, depths, cnt, p, tile=None):
+        """The pxg threshold kernel (K8) alone, as a callable: its arguments
+        made now (``pxg_impl.thr_args``), on every tile or on one tile; its
+        launches are not counted."""
+        args, thr = pxg_impl.thr_args(pin, depths, cnt, p, *(() if tile is None else (tile, 1)))
+        fn = cuda_impl._entry('softras_pxg_thr', 'softras_pxg_thr', pxg_impl._PxgThrArgs)
+        return lambda: (cuda_impl._run(fn, 'softras_pxg_thr', args, dev), thr)
 
     def textures(F, T, seed):
         gen.manual_seed(seed)
@@ -1445,9 +1461,39 @@ def main() -> int:
         f'{e_maps:.2g}); texture grad, whole frame, {e_tex:.2g} of scale; edge grad of '
         f'{ids_n.numel()} of {won.numel()} drawn faces {e_edge:.2g} of scale')
 
+    # the z-buffer on the busiest tile's cluster alone (a grid of that one
+    # cluster, on the frame's lists; its launches are not counted): its
+    # tiles' maps are the frame's, bit for bit; and every other build of
+    # MAPS_BUILDS twice: the default build's maps, bit for bit
+    busy_n = int(lists_n.counts[0].argmax())
+    args_busy, maps_busy = ncuda.maps_args(rows_n, lists_n, tex_n, 1024, 0.1, 100.0, EPS_N,
+                                           tile=busy_n)
+    maps_fn = ncuda.maps_variant()
+    cuda_impl._run(maps_fn, 'n3mr_maps', args_busy, dev)
+    torch.cuda.synchronize()
+    ty_b, tx_b = divmod(busy_n, -(-1024 // ncuda.TILE))
+    ty_c = ty_b - ty_b % ncuda.MAPS_SPLIT
+    on_busy = torch.zeros((1024, 1024), dtype=torch.bool, device=dev)
+    on_busy[ty_c * 16:(ty_c + ncuda.MAPS_SPLIT) * 16, tx_b * 16:tx_b * 16 + 16] = True
+    if not all(torch.equal(a[0][on_busy], b[0][on_busy]) for a, b in zip(maps_busy, maps_n)):
+        raise AssertionError('1024 px: the busiest tile\'s cluster alone gives other maps there')
+    busy_cluster_faces = int(lists_n.counts[0].reshape(-1, 1024 // 16)[
+        ty_c:ty_c + ncuda.MAPS_SPLIT, tx_b].sum())
+    for b in ncuda.MAPS_BUILDS:
+        for _ in range(2):
+            args_v, maps_v = ncuda.maps_args(rows_n, lists_n, tex_n, 1024, 0.1, 100.0, EPS_N)
+            cuda_impl._run(ncuda.maps_variant(ncuda.maps_defines(b)), 'n3mr_maps', args_v, dev)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(maps_v, maps_n)):
+                raise AssertionError(f'1024 px: z-buffer build {b} differs from the default')
+    maps_occ = ncuda.maps_occupancy()
+    log(f'  z-buffer builds {ncuda.MAPS_BUILDS} (twice each): bit-equal to the default build '
+        f'{ncuda.MAPS_BUILD}; {maps_occ}')
+
     # timings: each kernel alone on the step's inputs, its plain version, and
     # for the texture gradient the one PyTorch call that sums the same rows
     maps_ms = timed(lambda: ncuda.launch_maps(rows_n, lists_n, tex_n, 1024, 0.1, 100.0, EPS_N))
+    maps_busy_ms = timed(lambda: cuda_impl._run(maps_fn, 'n3mr_maps', args_busy, dev))
     texbwd_ms = timed(lambda: ncuda.launch_texbwd(rows_n, tex_n.shape, fi_n, wt_n, dp_n, zc_n,
                                                   gr_n, EPS_N))
     edgebwd_ms = timed(lambda: ncuda.launch_edgebwd(*edge_in, EPS_N, True, False))
@@ -1556,7 +1602,10 @@ def main() -> int:
         f'slots; the band design moves {band_bytes:,} bytes ({band_bytes_ms:.6f} ms at the '
         f'HBM rate); at 2048 px: {e_rows_aa:,} rows, {out_aa:,} cells outwards, {in_aa:,} '
         f'inwards, {pos_aa:,} positive, longest item {longest_aa:,}')
-    log(f'  kernels alone: z-buffer {maps_ms:.4f} ms, texture gradient {texbwd_ms:.4f} ms, '
+    log(f'  kernels alone: z-buffer {maps_ms:.4f} ms (the busiest tile, {busy_n}, '
+        f'{int(lists_n.counts[0, busy_n])} faces; its cluster of {ncuda.MAPS_SPLIT} tiles, '
+        f'{busy_cluster_faces} faces, alone {maps_busy_ms:.4f} ms), '
+        f'texture gradient {texbwd_ms:.4f} ms, '
         f'edge gradient {edgebwd_ms:.4f} ms with its band keys and their sort (the keys '
         f'{bands_ms:.4f} ms, with the sort {bands_sort_ms:.4f} ms, plain {bands_plain_ms:.4f} ms; '
         f'its inputs, plain torch: {edge_prep_ms:.4f} ms); at 2048 px {edgebwd_aa_ms:.4f} ms; '
@@ -2218,9 +2267,9 @@ def main() -> int:
             zero_counts()
             for i in range(STEPS):
                 step(i)
+                # the threshold kernel runs on every forward with a gradient,
+                # over every tile (no host read picks the overfull ones)
                 want = {n: i + 1 for n in pxg_wrappers}
-                if not over_f.numel():
-                    want['softras_pxg_thr'] = 0
                 if read_pxg() != want or any(read_counts().values()) \
                         or any(read_dir().values()) or any(read_tiled().values()) \
                         or read_sum() != i + 1:
@@ -2242,16 +2291,8 @@ def main() -> int:
             f'soft_rasterize steps, {pxg_mesh_counts} for {STEPS} render_mesh steps; none '
             f'binned or dir')
         if not over_f.numel():
-            # no pixel over K = 16: one step at K = 4 gives the threshold kernel work
-            zero_counts()
-            fv_leaf.grad = tex_leaf.grad = None
-            soft_rasterize(fv_leaf, tex_leaf, image_size=1024, sigma_val=1e-5, gamma_val=1e-4,
-                           max_faces_per_pixel_for_grad=4).sum().backward()
-            torch.cuda.synchronize()
-            if read_pxg()['softras_pxg_thr'] != 1:
-                raise AssertionError(f'pxg step at K = 4: {read_pxg()}')
-            log(f'  no overfull tile at K = 16; a step at K = 4: {read_pxg()}')
-            pxg_counts['softras_pxg_thr'] = read_pxg()['softras_pxg_thr']
+            raise AssertionError('1024 px: no overfull tile at K = 16: the threshold kernel '
+                                 'merges nothing')
 
         # 4,096 pixels' gradient against the plain backward on those pixels
         pin_t = pxg_impl.prep_pxg(fv_full, tex_sym, p_full, for_grad=True)
@@ -2285,7 +2326,9 @@ def main() -> int:
             'fwd': timed(lambda: pxg_impl.launch_pxg_fwd(pin_f, p_full, True), reps=30),
             'fwd_nothr': timed(lambda: pxg_impl.launch_pxg_fwd(pin_f, p_full, False), reps=30),
             'combine': timed(lambda: pxg_impl.launch_pxg_combine(pin_f, parts_f, p_full), reps=30),
-            'thr': timed(lambda: pxg_impl.launch_pxg_thr(pin_f, depths_f, cnt_g, p_full), reps=30),
+            'thr': timed(thr_alone(pin_f, depths_f, cnt_g, p_full), reps=30),
+            'thr_wrapper': timed(lambda: pxg_impl.launch_pxg_thr(pin_f, depths_f, cnt_g, p_full),
+                                 reps=30),
             'bwd': timed(lambda: pxg_impl.launch_pxg_bwd(pin_f, img_g, ag_g, thr_g, g_ones,
                                                          p_full), reps=30),
             'sum': timed(lambda: tiled.face_sum(pin_f, grows_f, p_full), reps=30)}
@@ -2310,6 +2353,14 @@ def main() -> int:
         parts_rows = parts_f.reshape(W_f, -1)
         gm_lib = {'combine': timed(lambda: dump_t.zero_().index_add_(0, item_tile, parts_rows),
                                    reps=5)}
+        # the threshold's yardstick: torch.kthvalue on the overfull tiles'
+        # lists, already gathered ([tiles, items x K, 256]; the gather is not
+        # timed)
+        lists_o, ok_o = pxg_impl._by_tile(pin_f, depths_f, over_f.long())
+        lists_o = torch.where(ok_o[:, :, None, None], lists_o, float('inf')).reshape(
+            over_f.numel(), -1, pxg_impl.PIXELS)
+        gm_lib['thr'] = timed(lambda: torch.kthvalue(lists_o, p_full.max_faces_id, dim=1),
+                              reps=30)
         n_fe = (pin_f.face_off[1:] - pin_f.face_off[:-1]).long()
         face_key = torch.repeat_interleave(torch.arange(n_fe.numel(), device=dev), n_fe)
         rows_by_face = grows_f[pin_f.face_entries.long()]
@@ -2335,10 +2386,10 @@ def main() -> int:
             'combine': bound(W_f * pxg_impl.PIXELS * OPS_COMBINE,
                              part_bytes + 4 * pin_f.item_off.numel() + 4 * B * 7 * HW),
             # a compare per list entry of the overfull tiles' items; those
-            # lists and the counts of their pixels in, their thresholds out
+            # lists and the count map in, the threshold map out
             'thr': bound(over_items * p_full.max_faces_id * pxg_impl.PIXELS * OPS_LIST,
                          4 * over_items * p_full.max_faces_id * pxg_impl.PIXELS
-                         + 4 * 2 * over_f.numel() * pxg_impl.PIXELS),
+                         + 4 * 2 * B * HW),
             # the function that the backward and its sum compute together
             'bwd': bound(census['in_bbox'] * OPS_DIST + census['inside'] * OPS_INSIDE
                          + census['candidates'] * OPS_DEPTH + census['within_thr'] * OPS_GRAD
@@ -2354,10 +2405,12 @@ def main() -> int:
         log(f'  overfull: {over_f.numel()} tiles, {over_items} items, {over_px} pixels over K')
         log(f'  kernels alone, ms: prep {gm["prep"]:.4f}, partials {gm["fwd"]:.4f} (without '
             f'the depth lists {gm["fwd_nothr"]:.4f}), combine {gm["combine"]:.4f}, threshold '
-            f'{gm["thr"]:.4f}, backward {gm["bwd"]:.4f}, sum {gm["sum"]:.4f}  [{smi}]')
+            f'{gm["thr"]:.4f} (its wrapper {gm["thr_wrapper"]:.4f}), backward {gm["bwd"]:.4f}, '
+            f'sum {gm["sum"]:.4f}  [{smi}]')
         log(f'  plain versions, ms: ' + ', '.join(f'{k} {v:.3f} on {gm_on[k]}'
                                                   for k, v in gm_plain.items())
-            + f'; index_add_: combine {gm_lib["combine"]:.4f}, sum {gm_lib["sum"]:.4f}  [{smi}]')
+            + f'; index_add_: combine {gm_lib["combine"]:.4f}, sum {gm_lib["sum"]:.4f}; '
+            f'torch.kthvalue of the gathered lists {gm_lib["thr"]:.4f}  [{smi}]')
         mem = {'parts': part_bytes, 'depth lists': list_bytes, 'entry rows': 4 * E_f * GC}
         log(f'  scratch, bytes: {mem}')
 
@@ -2405,6 +2458,24 @@ def main() -> int:
                 torch.cuda.synchronize()
                 if not torch.equal(rv, grows_f):
                     raise AssertionError(f'pxg 1024 px: K9 build {b} differs from the default')
+        # K8 on the overfull tile of the most items alone, and every other
+        # build of THR_BUILDS twice at K = 16 and 40: the default build's map
+        busy_o = int(over_f.long()[n_items[over_f.long()].argmax()])
+        thr_busy_ms = timed(thr_alone(pin_f, depths_f, cnt_g, p_full, busy_o), reps=30)
+        p40 = dataclasses.replace(p_full, max_faces_id=40)
+        thr_40 = pxg_impl.launch_pxg_thr(pin_f, None, cnt_g, p40)
+        thr_40_ms = timed(lambda: pxg_impl.launch_pxg_thr(pin_f, None, cnt_g, p40), reps=3)
+        for b in pxg_impl.THR_BUILDS:
+            for pp, dd, want_t in ((p_full, depths_f, thr_g), (p40, None, thr_40)):
+                for _ in range(2):
+                    args_v, thr_v = pxg_impl.thr_args(pin_f, dd, cnt_g, pp)
+                    cuda_impl._run(pxg_impl.thr_variant(pxg_impl.thr_defines(b)),
+                                   'softras_pxg_thr', args_v, dev)
+                    torch.cuda.synchronize()
+                    if not torch.equal(thr_v, want_t):
+                        raise AssertionError(f'pxg 1024 px: K8 build {b} at K = '
+                                             f'{pp.max_faces_id} differs from the default')
+        thr_occ = pxg_impl.thr_occupancy(pxg_impl.thr_args(pin_f, depths_f, cnt_g, p_full)[0])
         fwd_occ = pxg_impl.fwd_occupancy(pxg_impl.fwd_args(pin_f, p_full, True)[0])
         bwd_occ = tiled.bwd_occupancy('softras_pxg_bwd', tiled.bwd_args(
             view_f, img_g, ag_g, thr_g, g_ones, p_full)[0])
@@ -2417,7 +2488,11 @@ def main() -> int:
             'bwd': {**bwd_occ, 'items': W_f, 'group': pxg_impl.GROUP,
                     'busiest_tile_ms': gm_busy['bwd'],
                     'busiest_tile_items': int(on_busy.sum().item()),
-                    'busiest_tile_faces': hi_b - lo_b, 'ms_items_of_8': bwd_8_ms}}
+                    'busiest_tile_faces': hi_b - lo_b, 'ms_items_of_8': bwd_8_ms},
+            'thr': {**thr_occ, 'overfull_tiles': int(over_f.numel()),
+                    'wrapper_ms': gm['thr_wrapper'], 'busiest_tile_ms': thr_busy_ms,
+                    'busiest_tile_items': int(n_items[busy_o].item()), 'ms_k40': thr_40_ms,
+                    'build': pxg_impl.THR_BUILD, 'builds': list(pxg_impl.THR_BUILDS)}}
         log(f'  softras_pxg_fwd: {fwd_occ["registers"]} registers, {fwd_occ["local_bytes"]} '
             f'bytes of local memory, {fwd_occ["blocks_per_sm"]} blocks an SM, {W_f} items; '
             f'the busiest tile\'s '
@@ -2429,8 +2504,14 @@ def main() -> int:
             f'items of at most {pxg_impl.GROUP} faces; the busiest tile\'s '
             f'{pxg_extra["bwd"]["busiest_tile_items"]} items alone {gm_busy["bwd"]:.4f} ms; '
             f'items of 8 faces {bwd_8_ms:.4f} ms, rows bit-equal  [{smi}]')
-        log(f'  K7 at caps {pxg_impl.FWD_CAPS} (twice with the depth lists, once without) and '
-            f'K9 builds {pxg_impl.BWD_BUILDS} (twice): bit-equal to the default builds; the busiest '
+        log(f'  softras_pxg_thr: {thr_occ["registers"]} registers, {thr_occ["local_bytes"]} '
+            f'bytes of local memory, {thr_occ["blocks_per_sm"]} blocks an SM, build '
+            f'{pxg_impl.THR_BUILD}; the overfull tile of the most items '
+            f'({pxg_extra["thr"]["busiest_tile_items"]}) alone {thr_busy_ms:.4f} ms; at K = 40 '
+            f'{thr_40_ms:.4f} ms  [{smi}]')
+        log(f'  K7 at caps {pxg_impl.FWD_CAPS} (twice with the depth lists, once without), '
+            f'K9 builds {pxg_impl.BWD_BUILDS} (twice) and K8 builds {pxg_impl.THR_BUILDS} '
+            f'(twice at K = 16 and 40): bit-equal to the default builds; the busiest '
             f'tile\'s items alone bit-equal to the frame\'s')
 
     # the steps and frames on both routes in turns: binned, pxg, pxg, binned
@@ -2473,10 +2554,8 @@ def main() -> int:
             t_pxg.append((time.perf_counter() - t0) * 1e3)
             losses_g.append(loss.item())
         train_pxg = read_pxg()
-        want = dict.fromkeys(pxg_wrappers, TRAIN_STEPS)
-        want['softras_pxg_thr'] = train_pxg['softras_pxg_thr']     # only with an overfull tile
-        if train_pxg != want or train_pxg['softras_pxg_thr'] > TRAIN_STEPS \
-                or any(read_counts().values()) or any(read_dir().values()) \
+        want = dict.fromkeys(pxg_wrappers, TRAIN_STEPS)   # the threshold on every step too
+        if train_pxg != want or any(read_counts().values()) or any(read_dir().values()) \
                 or any(read_tiled().values()) or read_sum() != TRAIN_STEPS:
             raise AssertionError(f'pxg launches of {TRAIN_STEPS} training steps: {train_pxg}, '
                                  f'{read_counts()}, {read_dir()}, face sums {read_sum()}')
@@ -3134,9 +3213,14 @@ def main() -> int:
         entry('softras_bwd_reduce', 'softras_bwd.cu',
               'jrender_tpu/ops/softras/pxt_impl.py:1128', red_err, red_ms, red_plain_ms,
               'all rows', red_bound, red_lib_ms),
-        entry('n3mr_maps', 'n3mr_maps.cu', 'jrender_tpu/ops/n3mr/pallas_impl.py:34',
-              n_err['n3mr_maps'], maps_ms, maps_plain_ms, f'{SAMPLES} of {HW_n} pixels',
-              maps_bound),
+        {**entry('n3mr_maps', 'n3mr_maps.cu', 'jrender_tpu/ops/n3mr/pallas_impl.py:34',
+                 n_err['n3mr_maps'], maps_ms, maps_plain_ms, f'{SAMPLES} of {HW_n} pixels',
+                 maps_bound),
+         'registers': maps_occ['registers'], 'local_bytes': maps_occ['local_bytes'],
+         'blocks_per_sm': maps_occ['blocks_per_sm'], 'tiles_per_cluster': ncuda.MAPS_SPLIT,
+         'busiest_cluster_ms': maps_busy_ms, 'busiest_tile_faces': int(lists_n.counts[0, busy_n]),
+         'busiest_cluster_faces': busy_cluster_faces,
+         'build': ncuda.MAPS_BUILD, 'builds': list(ncuda.MAPS_BUILDS)},
         entry('n3mr_texbwd', 'n3mr_texbwd.cu', 'jrender_tpu/ops/n3mr/pallas_impl.py:347',
               n_err['n3mr_texbwd'], texbwd_ms, texbwd_plain_ms, 'the whole frame',
               texbwd_bound, texbwd_lib_ms),

@@ -8,7 +8,10 @@ work items and caps: every face and every edge is processed.
 
 Kernels and wrappers (each wrapper counts its launches in ``.launches``):
   ``launch_maps``        csrc/n3mr_maps.cu     the z-buffer's maps and, with
-                                               textures, the sampled rgb
+                                               textures, the sampled rgb; a
+                                               cluster of MAPS_SPLIT blocks a
+                                               tile (``maps_split_plain`` is
+                                               the plain rule of the split)
   ``launch_texbwd``      csrc/n3mr_texbwd.cu   the texture gradient
   ``launch_edge_bands``  csrc/n3mr_edgebwd.cu  the edge items' band keys
   ``launch_edgebwd``     csrc/n3mr_edgebwd.cu  the NMR edge gradient, on the
@@ -41,7 +44,13 @@ from . import torch_impl
 from .torch_impl import ROW
 
 TILE = 16                     # screen tile = one block of TILE x TILE threads
-MAPS_CHUNK = 128              # face rows staged in shared memory at once
+MAPS_CHUNK = 128              # face ids a staged chunk of the z-buffer (kChunk)
+MAPS_SPLIT = 4                # tiles (and blocks) a cluster pools (N3MR_MAPS_SPLIT)
+# The z-buffer's builds that the card's checks hold bit-equal to the default
+# one, named by one digit (``maps_defines``): the tiles a cluster pools.  The
+# default build is MAPS_BUILD.
+MAPS_BUILD = '4'
+MAPS_BUILDS = ('1', '2', '4', '8')
 EDGE_BAND = 4                 # d0 rows of an edge band (kBand of csrc/n3mr_edgebwd.cu)
 EDGE_SPAN = 8                 # bands an edge item is listed in, at most (kSpan)
 EDGE_SMEM_BYTES = 112 * 1024  # a band's staged rows: two blocks an SM
@@ -53,7 +62,8 @@ class _MapsArgs(ctypes.Structure):
         'rows', 'tex', 'faces_sorted', 'starts', 'run_counts', 'glist', 'gcount',
         'ranges', 'face_index', 'depth', 'weight', 'face_inv', 'zcorn', 'rgb')] + \
         [(n, ctypes.c_int) for n in (
-            'B', 'F', 'L', 'image_size', 'tiles_x', 'tiles_y', 'chunk', 'ts')] + \
+            'B', 'F', 'L', 'image_size', 'tiles_x', 'tiles_y', 'chunk', 'ts', 'first_col',
+            'first_row', 'n_cols', 'n_rows')] + \
         [(n, ctypes.c_float) for n in ('near', 'far', 'eps')]
 
 
@@ -98,17 +108,13 @@ def _device_of(t: torch.Tensor) -> torch.device:
     return t.device
 
 
-def launch_maps(rows: torch.Tensor, lists: binning.CompactLists, textures,
-                is_: int, near: float, far: float, eps: float):
-    """Launch the z-buffer kernel on the current stream.
-
-    rows [B,F,19] (``torch_impl.face_rows``), ``lists`` the tile lists of
-    the y-negated faces, ``textures`` [B,F,ts,ts,ts,3] or None.  Returns
-    (face_index [B,H,W] int32, weight [B,H,W,3], depth [B,H,W], face_inv
-    [B,H,W,9], zcorn [B,H,W,3], rgb [B,H,W,3] or None): what
-    ``torch_impl.forward_maps`` and ``trilinear_rgb_from_maps`` return.
-    Any texture size is served.  ``launch_maps.launches`` counts the
-    launches."""
+def maps_args(rows: torch.Tensor, lists: binning.CompactLists, textures,
+              is_: int, near: float, far: float, eps: float, tile: int | None = None):
+    """The z-buffer kernel's checked arguments and its outputs, allocated
+    on the inputs' card: what ``launch_maps`` hands to the kernel (see
+    there).  With ``tile`` (a tile of the image, row-major) only the cluster
+    that holds it is launched, on the same lists: the maps of its tiles are
+    written, the others' are not."""
     dev = _device_of(rows)
     if rows.dim() != 3:
         raise ValueError(f'rows must be [B, F, {ROW}], got {tuple(rows.shape)}')
@@ -129,6 +135,12 @@ def launch_maps(rows: torch.Tensor, lists: binning.CompactLists, textures,
     if textures is not None:
         ts = textures.shape[2]
         _check(textures, 'textures', torch.float32, (B, F, ts, ts, ts, 3), dev)
+    if tile is None:
+        cover = (0, 0, tiles, tiles)
+    elif 0 <= tile < NT:
+        cover = (tile % tiles, tile // tiles, 1, 1)
+    else:
+        raise ValueError(f'tile {tile} outside the {NT} of the image')
 
     def out(*shape, dtype=torch.float32):
         return torch.empty((B, is_, is_) + shape, dtype=dtype, device=dev)
@@ -137,21 +149,173 @@ def launch_maps(rows: torch.Tensor, lists: binning.CompactLists, textures,
     weight, face_inv, zcorn = out(3), out(9), out(3)
     rgb = out(3) if textures is not None else None
 
-    fn = _entry('n3mr_maps', 'n3mr_maps', _MapsArgs)
     args = _MapsArgs(
         rows.data_ptr(), None if textures is None else textures.data_ptr(),
         lists.faces_sorted.data_ptr(), lists.starts.data_ptr(),
         lists.run_counts.data_ptr(), lists.glist.data_ptr(), lists.gcount.data_ptr(),
         lists.ranges.data_ptr(), fi.data_ptr(), depth.data_ptr(), weight.data_ptr(),
         face_inv.data_ptr(), zcorn.data_ptr(), None if rgb is None else rgb.data_ptr(),
-        B, F, L, is_, tiles, tiles, MAPS_CHUNK, ts, near, far, eps)
-    _run(fn, 'n3mr_maps', args, dev)
+        B, F, L, is_, tiles, tiles, MAPS_CHUNK, ts, *cover, near, far, eps)
+    return args, (fi, weight, depth, face_inv, zcorn, rgb)
+
+
+def launch_maps(rows: torch.Tensor, lists: binning.CompactLists, textures,
+                is_: int, near: float, far: float, eps: float):
+    """Launch the z-buffer kernel on the current stream: a block a tile, a
+    cluster of MAPS_SPLIT blocks pooling the lists of as many tiles of a
+    column and walking equal shares of them.
+
+    rows [B,F,19] (``torch_impl.face_rows``), ``lists`` the tile lists of
+    the y-negated faces, ``textures`` [B,F,ts,ts,ts,3] or None.  Returns
+    (face_index [B,H,W] int32, weight [B,H,W,3], depth [B,H,W], face_inv
+    [B,H,W,9], zcorn [B,H,W,3], rgb [B,H,W,3] or None): what
+    ``torch_impl.forward_maps`` and ``trilinear_rgb_from_maps`` return.
+    Any texture size is served.  ``launch_maps.launches`` counts the
+    launches."""
+    args, out = maps_args(rows, lists, textures, is_, near, far, eps)
+    _run(_entry('n3mr_maps', 'n3mr_maps', _MapsArgs, MAPS_SPLIT), 'n3mr_maps', args, rows.device)
     launch_maps.launches += 1
-    return fi, weight, depth, face_inv, zcorn, rgb
+    return out
 
 
 launch_maps.launches = 0
 
+def maps_defines(build: str):
+    """The macro of a z-buffer build named by one digit: the tiles of a
+    column that a cluster of as many blocks pools (1, 2, 4 or 8)."""
+    if build not in MAPS_BUILDS:
+        raise ValueError(f'a z-buffer build is the tiles a cluster pools, one of '
+                         f'{MAPS_BUILDS}, got {build!r}')
+    return (('N3MR_MAPS_SPLIT', int(build)),)
+
+
+def maps_variant(defines=()):
+    """The z-buffer kernel's entry point built with other compile-time
+    choices (``maps_defines``), to time the alternatives to the default
+    build; call it with ``maps_args`` through ``_run``.  The wrapper
+    launches the default build only."""
+    split = dict(defines).get('N3MR_MAPS_SPLIT', MAPS_SPLIT)
+    return _entry('n3mr_maps', 'n3mr_maps', _MapsArgs, split,
+                  _build.load('n3mr_maps', tuple(defines)))
+
+
+def maps_occupancy(defines=()) -> dict:
+    """Registers, local (spill) bytes and blocks an SM of the z-buffer
+    kernel in the build with ``defines``, from the CUDA runtime."""
+    fn = _build.load('n3mr_maps', tuple(defines)).n3mr_maps_occupancy
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    err = fn(out)
+    if err != 0:
+        raise RuntimeError(f'n3mr_maps occupancy query failed: CUDA error {err}')
+    return {'registers': out[0], 'local_bytes': out[1], 'blocks_per_sm': out[2]}
+
+
+def warp_box_plain(is_: int, dtype=torch.float32, device=None):
+    """The pixel centres of every warp's first and last column and row, as
+    the z-buffer kernel computes them: a warp is 8 x 4 pixels of a 16 x 16
+    tile (past a ragged edge too).  Returns (x_lo, x_hi [wx], y_lo, y_hi
+    [wy]) over wx = 2 * tiles warp columns and wy = 4 * tiles warp rows."""
+    tiles = -(-is_ // TILE)
+    c = torch.arange(2 * tiles, device=device) * 8
+    r = torch.arange(4 * tiles, device=device) * 4
+    def ctr(v):      # torch_impl._pixel_coords' centres
+        return (2.0 * v.to(dtype) + 1 - is_) / is_
+
+    return ctr(c), ctr(c + 7), ctr(r), ctr(r + 3)
+
+
+def warp_skip_plain(rows: torch.Tensor, is_: int) -> torch.Tensor:
+    """The plain version of the kernel's warp corner test: [B, F, wy, wx]
+    true where an edge of face f rejects every pixel of warp (wy, wx)
+    (``warp_box_plain``): its inside-test sides L(yp) = (yp - ya) * (xb -
+    xa) and R(xp) = (xp - xa) * (yb - ya), each operation rounded to
+    nearest, are monotone in one coordinate where the edge vector is
+    finite, so the largest L over the warp's rows and the least R over its
+    columns lie at its corners, and L < R there means L < R at every pixel.
+    A face whose edge vector is not finite is never skipped by that edge."""
+    x_lo, x_hi, y_lo, y_hi = warp_box_plain(is_, rows.dtype, rows.device)
+    y_lo, y_hi = y_lo[:, None], y_hi[:, None]                    # [wy, 1]
+    out = torch.zeros(rows.shape[:2] + (y_lo.shape[0], x_lo.shape[0]), dtype=torch.bool,
+                      device=rows.device)
+    for a, b in ((0, 3), (3, 6), (6, 0)):
+        xa, ya = rows[..., a, None, None], rows[..., a + 1, None, None]
+        A = rows[..., b, None, None] - xa
+        Bv = rows[..., b + 1, None, None] - ya
+        lmax = torch.maximum((y_lo - ya) * A, (y_hi - ya) * A)
+        rmin = torch.minimum((x_lo - xa) * Bv, (x_hi - xa) * Bv)
+        out |= A.isfinite() & Bv.isfinite() & (lmax < rmin)
+    return out
+
+
+def maps_split_plain(face: torch.Tensor, is_: int, near: float, far: float, split: int,
+                     skip: bool = False, lists: binning.CompactLists | None = None):
+    """The plain version of the z-buffer kernel's pooled split: the lists of
+    ``split`` tiles of a column (rows ty0 .. ty0 + split - 1, each
+    ``binning.tile_list``: its big faces in range, then its run; of
+    ``lists`` or ``tile_lists``), one after the other, cut into ``split``
+    shares of ceil(total / split) positions; in each share a pixel of every
+    tile the share touches keeps the least (depth, id) of that tile's front
+    faces that pass its test with near < depth < far (the thread's rule, the
+    same in any order), a face rejected for the pixel's warp by
+    ``warp_skip_plain`` not tested where ``skip``; each tile's states merged
+    in share order by the same rule; the winners' maps formed as
+    ``torch_impl.forward_maps`` forms them.  Returns what that returns."""
+    B, F = face.shape[:2]
+    dev, dt = face.device, face.dtype
+    rows = torch_impl.face_rows(face, is_)
+    cl = tile_lists(face, is_) if lists is None else lists
+    tiles = -(-is_ // TILE)
+    wskip = warp_skip_plain(rows, is_) if skip else None
+    pix = torch.arange(TILE * TILE, device=dev)
+    ly, lx = pix // TILE, pix % TILE
+    none = torch.zeros(0, dtype=torch.int64, device=dev)
+    best_f = torch.full((B, is_ * is_), -1, dtype=torch.int64, device=dev)
+    best_z = torch.full((B, is_ * is_), float('inf'), dtype=dt, device=dev)
+    for b in range(B):
+        for tx in range(tiles):
+            for ty0 in range(0, tiles, split):
+                rows_k = [ty0 + k for k in range(split)]
+                ids = [binning.tile_list(cl, b, t * tiles + tx, tiles).long() if t < tiles
+                       else none for t in rows_k]
+                off = [0]
+                for i in ids:
+                    off.append(off[-1] + i.numel())
+                per = max(1, -(-off[-1] // split))
+                for k, t in enumerate(rows_k):
+                    if t >= tiles or ids[k].numel() == 0:
+                        continue
+                    rr, cc = t * TILE + ly, tx * TILE + lx
+                    live = (rr < is_) & (cc < is_)
+                    flat = (rr * is_ + cc)[live]
+                    XI, YI, xp, yp = (c[:, None] for c in torch_impl._pixel_coords(flat, is_, dt))
+                    bz = torch.full((flat.numel(),), float('inf'), dtype=dt, device=dev)
+                    bf = torch.full((flat.numel(),), -1, dtype=torch.int64, device=dev)
+                    for r in range(split):       # the shares that touch tile k, in order
+                        a0 = max(min(off[-1], r * per), off[k])
+                        a1 = min(min(off[-1], r * per + per), off[k + 1])
+                        if a0 >= a1:
+                            continue
+                        share = ids[k][a0 - off[k]:a1 - off[k]]
+                        inside, _, zp = torch_impl._pair_terms(rows[b, share][None], XI, YI,
+                                                               xp, yp)
+                        ok = inside & (zp > near) & (zp < far)
+                        if skip:
+                            wy, wx = (rr[live] // 4)[:, None], (cc[live] // 8)[:, None]
+                            ok &= ~wskip[b, share[None], wy, wx]
+                        zkey = torch.where(ok, zp, float('inf'))
+                        zr = zkey.amin(dim=1)
+                        fr = torch.where(ok & (zkey == zr[:, None]), share[None], F).amin(dim=1)
+                        fr = torch.where(fr < F, fr, -1)
+                        upd = (fr >= 0) & ((bf < 0) | (zr < bz) | ((zr == bz) & (fr < bf)))
+                        bz = torch.where(upd, zr, bz)
+                        bf = torch.where(upd, fr, bf)
+                    best_z[b, flat] = bz
+                    best_f[b, flat] = bf
+    coords = torch_impl._pixel_coords(torch.arange(is_ * is_, device=dev), is_, dt)
+    maps = torch_impl.maps_of_winners(rows, best_f, best_z, coords, far)
+    return tuple(m.reshape(B, is_, is_, *m.shape[2:]) for m in maps)
 
 def launch_texbwd(rows, tex_shape, face_index, weight, depth, zcorn, grad_rgb,
                   eps: float):

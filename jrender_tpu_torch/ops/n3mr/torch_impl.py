@@ -162,20 +162,32 @@ def forward_maps(face, is_, near, far, face_chunk=512, pixels=None):
         best_z[:, sl] = bz
         best_f[:, sl] = bf
 
+    face_index, weight, depth, face_inv, zcorn = maps_of_winners(
+        rows, best_f, best_z, (XI, YI, xp, yp), far)
+    if whole:
+        return (face_index.reshape(B, is_, is_), weight.reshape(B, is_, is_, 3),
+                depth.reshape(B, is_, is_), face_inv.reshape(B, is_, is_, 9),
+                zcorn.reshape(B, is_, is_, 3))
+    return face_index, weight, depth, face_inv, zcorn
+
+
+def maps_of_winners(rows, best_f, best_z, coords, far):
+    """The maps of P pixels from their winners: rows [B,F,19], best_f [B,P]
+    (-1: none) and best_z [B,P], coords the pixels' (XI, YI, xp, yp) [P]
+    (``_pixel_coords``).  The winner's weights are recomputed from its row,
+    as the kernel's walk computed them.  Returns (face_index [B,P] int32,
+    weight [B,P,3], depth [B,P], face_inv [B,P,9], zcorn [B,P,3])."""
+    B = rows.shape[0]
     has = best_f >= 0
-    b = torch.arange(B, device=dev)[:, None]
+    b = torch.arange(B, device=rows.device)[:, None]
     rw = rows[b, best_f.clamp_min(0)]                               # [B,P,19]
-    _, w, _ = _pair_terms(rw, XI[None], YI[None], xp[None], yp[None])
+    _, w, _ = _pair_terms(rw, *(c[None] for c in coords))
     hm = has[..., None]
     weight = torch.where(hm, torch.stack(w, -1), 0.0)
     depth = torch.where(has, best_z, float(far))
     face_inv = torch.where(hm, rw[..., ROW_INV:ROW_INV + 9], 0.0)
     zcorn = torch.where(hm, rw[..., 2:9:3], 1.0)
     face_index = torch.where(has, best_f, -1).to(torch.int32)
-    if whole:
-        return (face_index.reshape(B, is_, is_), weight.reshape(B, is_, is_, 3),
-                depth.reshape(B, is_, is_), face_inv.reshape(B, is_, is_, 9),
-                zcorn.reshape(B, is_, is_, 3))
     return face_index, weight, depth, face_inv, zcorn
 
 

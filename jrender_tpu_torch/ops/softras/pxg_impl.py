@@ -43,9 +43,11 @@ Kernels and wrappers (each wrapper counts its launches in ``.launches``):
                                                    candidate depths when asked
   ``launch_pxg_combine``  csrc/softras_pxg_fwd.cu  the partials merged per tile:
                                                    image, aggregates, counts
-  ``launch_pxg_thr``      csrc/softras_pxg_thr.cu  the top-K threshold on the
-                                                   tiles where a pixel has more
-                                                   than K candidates
+  ``launch_pxg_thr``      csrc/softras_pxg_thr.cu  the top-K threshold over
+                                                   every tile (``far`` where no
+                                                   pixel has more than K
+                                                   candidates), with no host
+                                                   read
   ``launch_pxg_bwd``      csrc/softras_pxg_bwd.cu  one gradient row per entry
                                                    (tile, face), over the
                                                    work items (``tiled``'s
@@ -443,9 +445,9 @@ class _PxgCombineArgs(ctypes.Structure):
 class _PxgThrArgs(ctypes.Structure):
     """Mirror of ``softras::PxgThrArgs`` in csrc/softras_pxg_thr.cu."""
     _fields_ = [(n, ctypes.c_void_p) for n in ('rows', 'entries', 'tile_off', 'item_off',
-                                               'depths', 'tiles', 'counts', 'thr')] + \
-        [(n, ctypes.c_int) for n in ('n_tiles', 'F', 'row', 'image_size', 'tiles_x', 'chunk',
-                                     'K', 'dist_func')] + [('s', _Scalars)]
+                                               'depths', 'counts', 'thr')] + \
+        [(n, ctypes.c_int) for n in ('first_tile', 'n_tiles', 'F', 'row', 'image_size',
+                                     'tiles_x', 'chunk', 'K', 'dist_func')] + [('s', _Scalars)]
 
 
 def _check_inputs(pin: PxgInputs, p: SoftRasParams):
@@ -572,13 +574,12 @@ def launch_pxg_combine(pin: PxgInputs, parts: torch.Tensor, p: SoftRasParams):
 launch_pxg_combine.launches = 0
 
 
-def launch_pxg_thr(pin: PxgInputs, depths, counts: torch.Tensor, p: SoftRasParams):
-    """Launch the threshold kernel on the current stream over the overfull
-    tiles (``overfull_tiles``): a pixel's K-th smallest candidate depth,
-    merged from its items' lists (``depths``, K <= 32) or bisected over the
-    tile's list (``depths`` None); ``far`` at every pixel with at most K
-    candidates.  Returns thr [B,H,W].  Without an overfull tile nothing is
-    launched.  ``launch_pxg_thr.launches`` counts the launches."""
+def thr_args(pin: PxgInputs, depths, counts: torch.Tensor, p: SoftRasParams,
+             first_tile: int = 0, n_tiles: int | None = None):
+    """The threshold kernel's checked arguments and its output (thr
+    [B,H,W], which the kernel writes on tiles first_tile .. first_tile +
+    n_tiles - 1, all B*NT by default), allocated on the inputs' card: what
+    ``launch_pxg_thr`` hands to the kernel."""
     dev, B, F, row, NT = _check_inputs(pin, p)
     K = p.max_faces_id
     if K < 1:
@@ -589,23 +590,70 @@ def launch_pxg_thr(pin: PxgInputs, depths, counts: torch.Tensor, p: SoftRasParam
         raise ValueError(f'the depth lists come with K <= {LIST_MAX} and only then, K={K}')
     if depths is not None:
         _check(depths, 'depths', torch.float32, (pin.items.shape[0], K, PIXELS), dev)
-    thr = torch.full((B, is_, is_), p.far, dtype=torch.float32, device=dev)
-    over = overfull_tiles(pin, counts, p)
-    if over.numel() == 0:
-        return thr
-    fn = _entry('softras_pxg_thr', 'softras_pxg_thr', _PxgThrArgs)
+    n_tiles = B * NT - first_tile if n_tiles is None else n_tiles
+    if not (0 <= first_tile and n_tiles >= 1 and first_tile + n_tiles <= B * NT):
+        raise ValueError(f'tiles {first_tile} + {n_tiles} outside the {B * NT} of the image')
+    thr = torch.empty((B, is_, is_), dtype=torch.float32, device=dev)
     args = _PxgThrArgs(
         pin.rows.data_ptr(), pin.entries.data_ptr(), pin.tile_off.data_ptr(),
         pin.item_off.data_ptr(), None if depths is None else depths.data_ptr(),
-        over.data_ptr(), counts.data_ptr(), thr.data_ptr(), over.numel(), F, row, is_,
-        tiles_for(is_), cuda_impl.chunk_for(ROW_BASE), K, p.dist_func_id,
-        _scalars(p, pin.tex_res))
-    _run(fn, 'softras_pxg_thr', args, dev)
+        counts.data_ptr(), thr.data_ptr(), first_tile, n_tiles, F, row, is_, tiles_for(is_),
+        cuda_impl.chunk_for(ROW_BASE), K, p.dist_func_id, _scalars(p, pin.tex_res))
+    return args, thr
+
+
+def launch_pxg_thr(pin: PxgInputs, depths, counts: torch.Tensor, p: SoftRasParams):
+    """Launch the threshold kernel on the current stream over every tile: a
+    block whose pixels all have at most K candidates writes ``far``; the
+    others take a pixel's K-th smallest candidate depth, merged from its
+    items' lists (``depths``, K <= 32) or bisected over the tile's list
+    (``depths`` None).  No host read.  Returns thr [B,H,W].
+    ``launch_pxg_thr.launches`` counts the launches."""
+    args, thr = thr_args(pin, depths, counts, p)
+    _run(_entry('softras_pxg_thr', 'softras_pxg_thr', _PxgThrArgs), 'softras_pxg_thr', args,
+         pin.rows.device)
     launch_pxg_thr.launches += 1
     return thr
 
 
 launch_pxg_thr.launches = 0
+
+# The threshold kernel's builds that the card's checks hold bit-equal to the
+# default one, named by one digit (``thr_defines``): threads a pixel in the
+# bisection.  The default build is THR_BUILD.
+THR_BUILD = '4'
+THR_BUILDS = ('1', '2', '4')
+
+
+def thr_defines(build: str):
+    """The macro of a threshold build named by one digit: the threads a
+    pixel in the bisection at K > 32 (1, 2 or 4)."""
+    if build not in ('1', '2', '4'):
+        raise ValueError(f'a threshold build is 1, 2 or 4 threads a pixel, got {build!r}')
+    return (('SOFTRAS_PXG_THR_WAYS', int(build)),)
+
+
+def thr_variant(defines=()):
+    """The threshold kernel's entry point built with other compile-time
+    choices (``thr_defines``), to time the alternatives to the default
+    build; call it with ``thr_args`` through ``_run``.  The wrapper launches
+    the default build only."""
+    return _entry('softras_pxg_thr', 'softras_pxg_thr', _PxgThrArgs,
+                  lib=_build.load('softras_pxg_thr', tuple(defines)))
+
+
+def thr_occupancy(args, defines=()) -> dict:
+    """Registers, local (spill) bytes and blocks an SM of the threshold
+    kernel that ``args`` (``thr_args``) launch, in the build with
+    ``defines``, from the CUDA runtime."""
+    fn = _build.load('softras_pxg_thr', tuple(defines)).softras_pxg_thr_occupancy
+    fn.argtypes = [ctypes.POINTER(_PxgThrArgs), ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    err = fn(ctypes.byref(args), out)
+    if err != 0:
+        raise RuntimeError(f'softras_pxg_thr occupancy query failed: CUDA error {err}')
+    return {'registers': out[0], 'local_bytes': out[1], 'blocks_per_sm': out[2]}
 
 
 def launch_pxg_bwd(pin: PxgInputs, images, aggrs, thr, grad_images, p: SoftRasParams):

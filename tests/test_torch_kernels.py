@@ -648,6 +648,29 @@ def test_n3mr_maps_kernel_matches_plain(is_, ts, special):
         assert int(lists.gcount.min()) >= 10
         big = ncuda.launch_maps(rows, lists, tex, is_, 0.1, 100.0, 1e-3)
         assert all(torch.equal(a, b) for a, b in zip(got, big))
+    # every build of MAPS_BUILDS (1 to 8 tiles a cluster), twice: the
+    # default build's maps, bit for bit; and on the last tile's cluster
+    # alone (past the image at 72 px), its tiles' maps
+    from jrender_tpu_torch import _build
+    _build.build([('n3mr_maps', ncuda.maps_defines(b)) for b in ncuda.MAPS_BUILDS])
+    lists = ncuda.tile_lists(face, is_)
+    tiles = -(-is_ // ncuda.TILE)
+    for b in ncuda.MAPS_BUILDS:
+        defines = ncuda.maps_defines(b)
+        for _ in range(2):
+            args, out = ncuda.maps_args(rows, lists, tex, is_, 0.1, 100.0, 1e-3)
+            cuda_impl._run(ncuda.maps_variant(defines), 'n3mr_maps', args, rows.device)
+            torch.cuda.synchronize()
+            assert all((x is None and y is None) or torch.equal(x, y)
+                       for x, y in zip(out, got)), b
+        args, out = ncuda.maps_args(rows, lists, tex, is_, 0.1, 100.0, 1e-3,
+                                    tile=tiles * tiles - 1)
+        cuda_impl._run(ncuda.maps_variant(defines), 'n3mr_maps', args, rows.device)
+        torch.cuda.synchronize()
+        y0, x0 = (tiles - 1 - (tiles - 1) % int(b)) * ncuda.TILE, (tiles - 1) * ncuda.TILE
+        assert all((x is None and y is None) or torch.equal(x[:, y0:, x0:], y[:, y0:, x0:])
+                   for x, y in zip(out, got)), b
+        assert ncuda.maps_occupancy(defines)['blocks_per_sm'] >= 1, b
 
 
 @pytest.mark.gpu
@@ -1609,6 +1632,72 @@ def test_softras_pxg_fwd_builds_agree(kind):
             if lists:
                 assert torch.equal(depths_b, depths), b
             assert pxg_impl.fwd_occupancy(args, defines)['blocks_per_sm'] >= 1, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kind,K', [('surface', 16), ('surface', 40), ('hard', 16),
+                                    ('hard', 4)])
+def test_softras_pxg_thr_builds_agree(kind, K):
+    """K8: the default build twice and every build of ``pxg_impl.THR_BUILDS``
+    give the same threshold map, bit for bit, equal to the plain merge (K <=
+    32: the register list at K = 16, the shared one at K = 4; the bisection
+    at K = 40); one tile alone (``thr_args``' first_tile) gives that tile's
+    pixels of the map."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    import dataclasses
+    from jrender_tpu_torch import _build
+    from jrender_tpu_torch.ops.softras import pxg_impl
+    _build.build([('softras_pxg_thr', pxg_impl.thr_defines(b)) for b in pxg_impl.THR_BUILDS])
+    pin, _, _, _, _, p = pxg_case(kind)
+    p = dataclasses.replace(p, max_faces_id=K)
+    parts, depths = pxg_impl.launch_pxg_fwd(pin, p, True)
+    _, _, cnt = pxg_impl.launch_pxg_combine(pin, parts, p)
+    thr = pxg_impl.launch_pxg_thr(pin, depths, cnt, p)
+    again = pxg_impl.launch_pxg_thr(pin, depths, cnt, p)
+    torch.cuda.synchronize()
+    assert torch.equal(thr, again)
+    assert (cnt > K).any() and (thr[cnt <= K] == p.far).all()
+    if depths is not None:
+        assert torch.equal(thr, pxg_impl.thr_plain(pin, depths, cnt, p))
+    for b in pxg_impl.THR_BUILDS:
+        defines = pxg_impl.thr_defines(b)
+        for _ in range(2):
+            args, thr_b = pxg_impl.thr_args(pin, depths, cnt, p)
+            cuda_impl._run(pxg_impl.thr_variant(defines), 'softras_pxg_thr', args, thr.device)
+            torch.cuda.synchronize()
+            assert torch.equal(thr_b, thr), b
+        assert pxg_impl.thr_occupancy(args, defines)['blocks_per_sm'] >= 1, b
+    over = pxg_impl.overfull_tiles(pin, cnt, p).long()
+    t = int(over[0])
+    args, thr_1 = pxg_impl.thr_args(pin, depths, cnt, p, t, 1)
+    cuda_impl._run(pxg_impl.thr_variant(), 'softras_pxg_thr', args, thr.device)
+    torch.cuda.synchronize()
+    tiles = pxg_impl.tiles_for(p.image_size)
+    ty, tx = divmod(t % (tiles * tiles), tiles)
+    sl = (t // (tiles * tiles), slice(ty * 16, ty * 16 + 16), slice(tx * 16, tx * 16 + 16))
+    assert torch.equal(thr_1[sl], thr[sl])
+
+
+@pytest.mark.gpu
+def test_softras_pxg_thr_reads_nothing_to_the_host():
+    """The pxg forward after the prep, the threshold included, runs under
+    ``torch.cuda.set_sync_debug_mode('error')``: no host synchronisation."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.softras import pxg_impl
+    pin, _, _, _, _, p = pxg_case('surface')
+    for with_thr in (True, False):
+        pxg_impl.forward(pin, p, with_thr)            # built and warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        img, ag, cnt, thr = pxg_impl.forward(pin, p, True)
+        thr2 = pxg_impl.launch_pxg_thr(pin, pxg_impl.launch_pxg_fwd(pin, p, True)[1], cnt, p)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    assert torch.equal(thr, thr2) and (cnt > p.max_faces_id).any()
 
 
 @pytest.mark.gpu

@@ -34,16 +34,22 @@ in the turns parent, change, change, parent:
     face sum after it, and times both on the softmax frame;
   * runs the pxg route's kernels (``pxg``), softmax and hard rgb at K = 16:
     the partials with the depth lists (K7, ``launch_pxg_fwd``), the combine,
-    the threshold (K8) on them, and the backward (K9, ``launch_pxg_bwd``)
-    with the face sum on common forward outputs, threshold and a seeded
-    incoming gradient; times K7 with and without the depth lists, the
-    combine, K8, K9 and the face sum on the softmax frame, and K7 and K9
-    on the busiest tile's work items alone (the items of that tile on the
-    frame's inputs);
-  * runs and times N3MR's edge gradient (``n3mr.cuda_impl.launch_edgebwd``,
-    what the tree launches for it) on common maps of the same sphere at
-    1024 px (phase 9 of ``chip_smoke.py``: 2x2x2 texels, a seeded incoming
-    rgb gradient, its inputs from ``edge_inputs``);
+    the threshold (K8) on them (and at K = 40, its bisection), and the
+    backward (K9, ``launch_pxg_bwd``) with the face sum on common forward
+    outputs, threshold and a seeded incoming gradient; times K7 with and
+    without the depth lists, the combine, K8's wrapper (``launch_pxg_thr``)
+    and K8 alone (its arguments made before the timing, ``thr_kernel``), K8
+    at K = 40, K9 and the face sum on the softmax frame, K7 and K9 on the
+    busiest tile's work items alone (the items of that tile on the frame's
+    inputs) and K8 alone on the overfull tile of the most items;
+  * runs N3MR's z-buffer (K12, ``n3mr.cuda_impl.launch_maps``) and edge
+    gradient (``launch_edgebwd``, what the tree launches for it) on the
+    sphere at 1024 px (phase 9 of ``chip_smoke.py``: 2x2x2 texels; the edge
+    gradient on common maps, a seeded incoming rgb gradient, its inputs
+    from ``edge_inputs``); times both, and the z-buffer on the busiest
+    tile's list alone (the whole grid, every other list empty), on empty
+    lists and, where the tree's ``maps_args`` takes ``tile``, on the
+    busiest tile's cluster alone (``n3mr_maps``);
   * times the steps that run them: ``soft_rasterize(...).sum().backward()``
     (CUDA events), and ``Renderer.render_mesh`` frames and forward +
     backward steps (host clock around work that ends in a synchronize;
@@ -63,9 +69,10 @@ bit, the f_px and px_f counts, hard winners (ids and depths) and px_f
 threshold maps (K = 16 and 40) bit for bit and their largest image
 difference, K4's and K6's entry rows and face sums bit for bit, K7's
 partial rows and depth lists, the combine's image, aggregates and counts,
-K8's threshold maps, K9's entry rows and face sums bit for bit (softmax
-and hard rgb), each tree's two turns bit for bit, and the largest
-difference of the
+K8's threshold maps (K = 16 and 40), K9's entry rows and face sums bit
+for bit (softmax and hard rgb), K12's six maps bit for bit, each tree's
+two turns bit for bit, the census of N3MR's tile lists (entries and front
+faces), and the largest difference of the
 two trees' edge gradients as a share of its largest entry (they sum in
 another order where the kernel was redesigned).
 
@@ -75,6 +82,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
 import subprocess
 import sys
@@ -187,10 +195,12 @@ def step_times(torch, np, fv, tex, timed, parts):
 N3MR_EPS = 1e-4   # rasterize's default
 
 
-def n3mr_edge_inputs(torch, dev, v, f, gen):
-    """The edge gradient's inputs of chip_smoke.py's phase 9: the sphere in
-    front of the camera at 1024 px, 2x2x2 texels a face, the z-buffer's maps
-    and a seeded incoming rgb gradient, alpha taking none."""
+def n3mr_inputs(torch, dev, v, f, gen):
+    """The z-buffer's and the edge gradient's inputs of chip_smoke.py's
+    phase 9: the sphere in front of the camera at 1024 px, 2x2x2 texels a
+    face; the edge gradient's from the z-buffer's maps and a seeded incoming
+    rgb gradient, alpha taking none.  Returns (faces, textures, edge
+    inputs)."""
     from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda
     from jrender_tpu_torch.structures import face_vertices
     from jrender_tpu_torch.transform import look_at, perspective
@@ -200,7 +210,51 @@ def n3mr_edge_inputs(torch, dev, v, f, gen):
     _, fi, _, _, _, _, rgb = ncuda.forward_maps(fv, tex, 1024, 0.1, 100.0, N3MR_EPS)
     g_rgb = torch.randn(rgb.shape, generator=gen, device=dev)
     alpha = (fi >= 0).float()
-    return ncuda.edge_inputs(fv, fi, rgb, alpha, g_rgb, alpha, 1024, True, False)
+    return fv, tex, ncuda.edge_inputs(fv, fi, rgb, alpha, g_rgb, alpha, 1024, True, False)
+
+
+MAPS = ('face_index', 'weight', 'depth', 'face_inv', 'zcorn', 'rgb')
+
+
+def n3mr_maps(torch, fv, tex, times, timed, digest):
+    """The z-buffer (K12, ``n3mr.cuda_impl.launch_maps``) of this tree on
+    the sphere at 1024 px: its six maps as digests; adds to ``times`` its
+    time on the frame, on the busiest tile's list alone (every other tile's
+    list empty, the whole grid launched), on empty lists (the epilogue and
+    the writes alone) and, where ``maps_args`` takes ``tile``, on the
+    busiest tile's cluster alone (a grid of that one cluster, on the
+    frame's lists; its arguments made before the timing).
+    Returns (digests, census): the census counts the tile lists' entries
+    and their front faces, of all tiles and of the busiest."""
+    from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda, torch_impl as nplain
+    rows = nplain.face_rows(fv, 1024)
+    lists = ncuda.tile_lists(fv, 1024)
+    maps = ncuda.launch_maps(rows, lists, tex, 1024, 0.1, 100.0, N3MR_EPS)
+    torch.cuda.synchronize()
+    busy = int(lists.counts[0].argmax())
+    rc = lists.run_counts
+    one = lists._replace(run_counts=torch.where(
+        torch.arange(rc.shape[1], device=rc.device) == busy, rc, 0).contiguous())
+    empty = lists._replace(run_counts=torch.zeros_like(rc), gcount=torch.zeros_like(lists.gcount))
+    for tag, cl in (('', lists), ('_busiest_tile', one), ('_empty_lists', empty)):
+        times[f'n3mr_maps{tag}_ms'] = timed(
+            lambda cl=cl: ncuda.launch_maps(rows, cl, tex, 1024, 0.1, 100.0, N3MR_EPS))
+    if hasattr(ncuda, 'maps_args') and 'tile' in inspect.signature(ncuda.maps_args).parameters:
+        from jrender_tpu_torch.ops.softras import cuda_impl
+        args, _ = ncuda.maps_args(rows, lists, tex, 1024, 0.1, 100.0, N3MR_EPS, tile=busy)
+        fn = ncuda.maps_variant()
+        times['n3mr_maps_busiest_cluster_ms'] = timed(
+            lambda: cuda_impl._run(fn, 'n3mr_maps', args, rows.device))
+    front = rows[0, :, nplain.ROW_FRONT] > 0.5
+    ids = lists.faces_sorted[0, :int(rc.sum())].long()
+    s = int(lists.starts[0, busy])
+    ids_b = lists.faces_sorted[0, s:s + int(rc[0, busy])].long()
+    census = {'faces': int(fv.shape[1]), 'front_faces': int(front.sum()),
+              'big_faces': int(lists.gcount.sum()), 'list_entries': ids.numel(),
+              'list_front_entries': int(front[ids].sum()), 'busiest_tile': busy,
+              'busiest_tile_entries': ids_b.numel(),
+              'busiest_tile_front_entries': int(front[ids_b].sum())}
+    return {k: digest(m) for k, m in zip(MAPS, maps)}, census
 
 
 def tiled_forwards(torch, fv, tex, times, timed):
@@ -305,6 +359,37 @@ def pxg_inputs(torch, fv, tex, gen):
     return out
 
 
+def thr_kernel(torch, pxg_impl, pin, depths, cnt, p, tile=None):
+    """A callable that launches the pxg threshold kernel (K8) alone, its
+    arguments made beforehand: on every tile (``tile`` None) or on that one
+    global tile alone.  Through ``pxg_impl.thr_args`` where the tree has it;
+    a tree whose wrapper finds the overfull tiles with a host read gets them
+    here, before the timing, as its wrapper would (and ``tile`` alone)."""
+    from jrender_tpu_torch.ops.softras import cuda_impl
+    dev = pin.rows.device
+    if hasattr(pxg_impl, 'thr_args'):
+        args, *keep = pxg_impl.thr_args(pin, depths, cnt, p, *(() if tile is None else (tile, 1)))
+    else:
+        is_ = p.image_size
+        over = (pxg_impl.overfull_tiles(pin, cnt, p) if tile is None else
+                torch.tensor([tile], dtype=torch.int32, device=dev))
+        thr = torch.full((pin.rows.shape[0], is_, is_), p.far, dtype=torch.float32, device=dev)
+        args = pxg_impl._PxgThrArgs(
+            pin.rows.data_ptr(), pin.entries.data_ptr(), pin.tile_off.data_ptr(),
+            pin.item_off.data_ptr(), None if depths is None else depths.data_ptr(),
+            over.data_ptr(), cnt.data_ptr(), thr.data_ptr(), over.numel(), pin.rows.shape[1],
+            pin.rows.shape[2], is_, pxg_impl.tiles_for(is_),
+            cuda_impl.chunk_for(cuda_impl.ROW_BASE), p.max_faces_id, p.dist_func_id,
+            cuda_impl._scalars(p, pin.tex_res))
+        keep = [over, thr]
+    fn = cuda_impl._entry('softras_pxg_thr', 'softras_pxg_thr', pxg_impl._PxgThrArgs)
+
+    def run():
+        cuda_impl._run(fn, 'softras_pxg_thr', args, dev)
+    run.keep = keep      # the tensors that args point into
+    return run
+
+
 def pxg_kernels(torch, fv, tex, common, times, timed, digest):
     """The pxg kernels of this tree on the faces at 1024 px: K7's partial
     rows and depth lists, the combine's outputs and K8's threshold from
@@ -316,19 +401,34 @@ def pxg_kernels(torch, fv, tex, common, times, timed, digest):
     for key, kw in PXG.items():
         p = make_params(image_size=1024, **kw)
         img_c, ag_c, thr_c, g = common[key]
+        p40 = make_params(image_size=1024, max_faces_per_pixel_for_grad=40, **kw)
         pin = pxg_impl.prep_pxg(fv, tex, p, for_grad=True)
         parts, depths = pxg_impl.launch_pxg_fwd(pin, p, True)
         img, ag, cnt = pxg_impl.launch_pxg_combine(pin, parts, p)
         thr = pxg_impl.launch_pxg_thr(pin, depths, cnt, p)
+        thr40 = pxg_impl.launch_pxg_thr(pin, None, cnt, p40)
         rows = pxg_impl.launch_pxg_bwd(pin, img_c, ag_c, thr_c, g, p)
         gf, gt = tiled.face_sum(pin, rows, p)
         torch.cuda.synchronize()
         out[key] = {'parts': digest(parts), 'depths': digest(depths), 'image': digest(img),
                     'aggrs': digest(ag), 'counts': digest(cnt), 'thr': digest(thr),
-                    'bwd_rows': digest(rows), 'bwd_face_sums': digest(gf, gt)}
+                    'thr_k40': digest(thr40), 'bwd_rows': digest(rows),
+                    'bwd_face_sums': digest(gf, gt)}
         if key != 'pxg_softmax':
             continue
+        # K8: the wrapper, and the kernel alone on every tile and on the
+        # overfull tile of the most work items
+        n_it = (pin.item_off[1:] - pin.item_off[:-1]).long()
+        over = pxg_impl.overfull_tiles(pin, cnt, p).long()
+        busy_o = int(over[n_it[over].argmax()])
         times.update({
+            'pxg_thr_kernel_ms': timed(thr_kernel(torch, pxg_impl, pin, depths, cnt, p)),
+            'pxg_thr_busiest_tile_ms': timed(thr_kernel(torch, pxg_impl, pin, depths, cnt, p,
+                                                        busy_o)),
+            'pxg_thr_k40_ms': timed(lambda: pxg_impl.launch_pxg_thr(pin, None, cnt, p40),
+                                    reps=5),
+            'pxg_overfull_tiles': over.numel(),
+            'pxg_thr_busiest_tile_items': int(n_it[busy_o]),
             'pxg_fwd_ms': timed(lambda: pxg_impl.launch_pxg_fwd(pin, p, True)),
             'pxg_fwd_nothr_ms': timed(lambda: pxg_impl.launch_pxg_fwd(pin, p, False)),
             'pxg_combine_ms': timed(lambda: pxg_impl.launch_pxg_combine(pin, parts, p)),
@@ -375,7 +475,7 @@ def worker(repo: str, inputs: str, out: str, make: bool, parts) -> int:
         thr = cuda_impl.launch_thr(inp, cnt, p)
         g = torch.randn(img.shape, generator=gen, device=dev)
         torch.save({'fv': fv, 'tex': tex, 'img': img, 'ag': ag, 'cnt': cnt, 'thr': thr,
-                    'g': g, 'edge_in': n3mr_edge_inputs(torch, dev, v, f, gen),
+                    'g': g, 'n3mr_in': n3mr_inputs(torch, dev, v, f, gen),
                     'tiled_bwd_in': tiled_bwd_inputs(torch, fv, tex, gen),
                     'pxg_in': pxg_inputs(torch, fv, tex, gen)}, inputs)
         return 0
@@ -445,7 +545,8 @@ def worker(repo: str, inputs: str, out: str, make: bool, parts) -> int:
         res['pxg'] = pxg_kernels(torch, fv, tex, d['pxg_in'], times, timed, digest)
     if 'n3mr' in parts:
         from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda
-        edge_in = d['edge_in']
+        fv_n, tex_n, edge_in = d['n3mr_in']
+        res['maps'], res['n3mr_census'] = n3mr_maps(torch, fv_n, tex_n, times, timed, digest)
         res['edge'] = ncuda.launch_edgebwd(*edge_in, N3MR_EPS, True, False)
         times['n3mr_edgebwd_ms'] = timed(
             lambda: ncuda.launch_edgebwd(*edge_in, N3MR_EPS, True, False))
@@ -509,6 +610,9 @@ def agreement(par, chg, turns, first, parts):
                                          and torch.equal(r['thr40'], first[t]['thr40'])
                                          for t, r in turns)})
     if 'n3mr' in parts:
+        same.update({f'n3mr_{k}_equal': par['maps'][k] == chg['maps'][k] for k in MAPS})
+        same['n3mr_maps_each_tree_twice_equal'] = all(r['maps'] == first[t]['maps']
+                                                      for t, r in turns)
         same['edge_each_tree_twice_equal'] = all(torch.equal(r['edge'], first[t]['edge'])
                                                  for t, r in turns)
         same['edge_max_diff_of_scale'] = ((par['edge'] - chg['edge']).abs().max()
@@ -560,6 +664,7 @@ def main() -> int:
     same = agreement(first['parent'], first['change'], turns, first, parts)
     print(json.dumps({'device': smi, 'trees': trees, 'parts': parts,
                       'busiest_tile_faces': first['change'].get('busiest_faces'),
+                      'n3mr_census': first['change'].get('n3mr_census'),
                       'agree': same,
                       'turns': [{'tree': t, **r['times']} for t, r in turns]}), flush=True)
     return 0
