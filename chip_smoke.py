@@ -95,9 +95,14 @@ of which raises on failure:
         against the plain versions; each kernel timed alone and bounded
         from this run's pair counts; the steps and frames on both routes in
         turns; then all of it again on the 3,330-face ``uv_sphere(38, 45)``;
+        then both kernels alone on phase 4's 39,474-face sphere; on each,
+        the backward's work items against their plain rule, the bytes of its
+        partial rows, the peak memory of one call, both kernels bit-equal
+        twice, and in the steps the backward's wait on the item count;
      c. demo 2's trainer (phase 7's configuration) on the dir route: the
         first step's gradient against phase 7's binned one, 20 steps, the
-        loss must fall, the step time beside phase 7's;
+        loss must fall, the step time beside phase 7's; both kernels alone
+        on the first step's inputs, as in b;
  12. the pxg route, which ``JR_LAYOUT=pxg`` opens (phases 3-11 run with it
      unset and assert that no pxg kernel ran):
      a. the pxg kernels (partials, combine, threshold, backward, face sum)
@@ -397,7 +402,8 @@ def main() -> int:
                 'softras_bwd': cuda_impl.launch_bwd,
                 'softras_bwd_reduce': cuda_impl.launch_reduce}
 
-    dir_wrappers = {'softras_dir_fwd': dir_impl.launch_dir_fwd,
+    dir_wrappers = {'softras_dir_prep': dir_impl.launch_dir_prep,
+                    'softras_dir_fwd': dir_impl.launch_dir_fwd,
                     'softras_dir_bwd': dir_impl.launch_dir_bwd}
     pxg_wrappers = {'softras_pxg_fwd': pxg_impl.launch_pxg_fwd,
                     'softras_pxg_combine': pxg_impl.launch_pxg_combine,
@@ -1720,7 +1726,7 @@ def main() -> int:
         if surface:
             tex = tie_symmetric(tex)
         with_thr = torch_impl.use_threshold(p, fv.shape[1])
-        table = dir_impl.prep_dir(fv, tex, p)
+        table = dir_impl.prep_dir(fv, tex, p, for_grad=True)   # the prep kernel's items
         img, ag, cnt, thr = dir_impl.launch_dir_fwd(table, p, with_thr)
         torch.cuda.synchronize()
         want, ag_w, cnt_w, thr_w = dir_impl.fwd_plain(table, p, with_thr, chunk_pairs=1 << 24)
@@ -1838,6 +1844,69 @@ def main() -> int:
 
     log('phase 11b: the dir route at full width, render_mesh and steps at 1024 px')
 
+    def dir_alone(tag, table, img, ag, thr, p):
+        """K10 (with the threshold and without it) and K11 alone on a table
+        prepared with its items: their times (CUDA events), K11's items, the
+        bytes of its partial rows and the peak memory above the start of one
+        call, both kernels bit-equal twice."""
+        # the prep kernel on the table's bboxes, gathered by a permutation
+        # (the inverse order), against its plain version to the bit
+        ids_p = table.inv
+        got_p = dir_impl.launch_dir_prep(table.bbox, ids_p, p.image_size, True)
+        want_p = dir_impl.prep_plain(table.bbox, ids_p, p.image_size, True)
+        if not (torch.equal(got_p[0], want_p[0]) and torch.equal(got_p[1], want_p[1])
+                and all(torch.equal(x, y) for x, y in zip(got_p[2][:3], want_p[2][:3]))
+                and dir_impl.item_count(got_p[2]) == dir_impl.item_count(want_p[2])):
+            raise AssertionError(f'{tag}: the dir prep kernel differs from its plain version')
+        B_, F_ = table.ids.shape
+        U_ = -(-F_ // dir_impl.WINDOW)
+        g = torch.ones_like(img)
+        out = {'prep_kernel_ms': timed(lambda: dir_impl.launch_dir_prep(
+                   table.bbox, ids_p, p.image_size, True), reps=30),
+               'prep_plain_ms': timed(lambda: dir_impl.prep_plain(
+                   table.bbox, ids_p, p.image_size, True), reps=5),
+               # bboxes and ids in once; sorted bboxes, unions, offsets and
+               # counters out once
+               'prep_bound': bound(0, 4 * B_ * F_ * (4 + 1) + 4 * B_ * F_ * (4 + 1 + 1)
+                                   + 4 * (4 * B_ * U_ + B_ * U_ + 1)),
+               'fwd_ms': timed(lambda: dir_impl.launch_dir_fwd(table, p, True), reps=30),
+               'fwd_nothr_ms': timed(lambda: dir_impl.launch_dir_fwd(table, p, False), reps=30),
+               'bwd_ms': timed(lambda: dir_impl.launch_dir_bwd(table, img, ag, thr, g, p),
+                               reps=30)}
+        a = dir_impl.launch_dir_fwd(table, p, True)
+        b = dir_impl.launch_dir_fwd(table, p, True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        gf, gt = dir_impl.launch_dir_bwd(table, img, ag, thr, g, p)
+        torch.cuda.synchronize()
+        out['bwd_peak_bytes'] = torch.cuda.max_memory_allocated() - m0
+        gf2, gt2 = dir_impl.launch_dir_bwd(table, img, ag, thr, g, p)
+        torch.cuda.synchronize()
+        if not (all(torch.equal(x, y) for x, y in zip(a, b))
+                and torch.equal(gf, gf2) and torch.equal(gt, gt2)):
+            raise AssertionError(f'{tag}: two runs of a dir kernel differ in their bits')
+        B, F = table.rows.shape[:2]
+        items = dir_impl.item_count(table.items)
+        live = dir_impl.bwd_items_plain(table.bbox, p.image_size)[0].numel()
+        if items != live:
+            raise AssertionError(f'{tag}: {items} backward items, the plain rule {live}')
+        GC = cuda_impl._grad_columns(p, table.tex_res)
+        out.update({'bwd_items': items, 'bwd_part_bytes': 4 * items * GC,
+                    'bwd_first_design_warps': B * F * table.items.splits,
+                    'bwd_first_design_part_bytes': 4 * B * F * table.items.splits * GC})
+        log(f'  {tag} prep kernel {out["prep_kernel_ms"]:.4f} ms (plain '
+            f'{out["prep_plain_ms"]:.4f}, bound {out["prep_bound"][0]:.6f} ms by '
+            f'{out["prep_bound"][1]}), equal to its plain version  [{smi}]')
+        log(f'  {tag} kernels alone: forward {out["fwd_ms"]:.4f} ms (without the threshold '
+            f'{out["fwd_nothr_ms"]:.4f}), backward {out["bwd_ms"]:.4f} ms; the backward\'s '
+            f'{items:,} items of {B * F:,} faces (the first design launched '
+            f'{out["bwd_first_design_warps"]:,} warps), partial rows {out["bwd_part_bytes"]:,} '
+            f'bytes (the first design {out["bwd_first_design_part_bytes"]:,}), peak '
+            f'{out["bwd_peak_bytes"]:,} bytes above the start of one call; both bit-equal '
+            f'twice  [{smi}]')
+        return out
+
     def dir_full_width(tag, rings, segs):
         """bench.py's row on a UV sphere at 1024 px on the dir route: 8
         frames, 8 steps of soft_rasterize and of render_mesh, one launch of
@@ -1860,7 +1929,8 @@ def main() -> int:
                     if not (torch.isfinite(alpha).all() and alpha.gt(0.5).float().mean() > 0.05):
                         raise AssertionError(f'{tag} azimuth {az}: non-finite or empty frame')
             torch.cuda.synchronize()
-            if read_dir() != {'softras_dir_fwd': FRAMES, 'softras_dir_bwd': 0} \
+            if read_dir() != {'softras_dir_prep': FRAMES, 'softras_dir_fwd': FRAMES,
+                              'softras_dir_bwd': 0} \
                     or any(read_counts().values()):
                 raise AssertionError(f'{tag}: launches of {FRAMES} frames: {read_dir()}, '
                                      f'{read_counts()}')
@@ -1893,15 +1963,18 @@ def main() -> int:
             for name, step, grads in (('soft_rasterize', raster_step, (fv_l, tx_l)),
                                       ('render_mesh', mesh_step, (v_l, t_l))):
                 zero_counts()
+                waits = []
                 for i in range(STEPS):
                     step(i)
-                    want = {'softras_dir_fwd': i + 1, 'softras_dir_bwd': i + 1}
+                    waits.append(dir_impl.launch_dir_bwd.wait_ms)
+                    want = dict.fromkeys(dir_wrappers, i + 1)
                     if read_dir() != want or any(read_counts().values()):
                         raise AssertionError(f'{tag} {name}: launches after step {i + 1}: '
                                              f'{read_dir()}, {read_counts()}')
                     no_pxg(f'phase 11b {tag} {name}')
                 torch.cuda.synchronize()
                 out[f'{name}_launches'] = read_dir()
+                out[f'{name}_wait_ms'] = float(np.median(waits))
                 for leaf in grads:
                     if leaf.grad is None or not (torch.isfinite(leaf.grad).all()
                                                  and leaf.grad.abs().max() > 0):
@@ -1911,7 +1984,7 @@ def main() -> int:
             # 4,096 pixels of the step's frame and their gradient
             p_m = make_params(image_size=1024)
             tex_s = tie_symmetric(tex_l)
-            table = dir_impl.prep_dir(fv_m, tex_s, p_m)
+            table = dir_impl.prep_dir(fv_m, tex_s, p_m, for_grad=True)
             img, ag, cnt, thr = dir_impl.launch_dir_fwd(table, p_m, True)
             face_t, tex_t = dir_impl.table_faces(table, p_m)
             idx = torch.unique(sample_pixels(1024)[0])
@@ -1964,13 +2037,9 @@ def main() -> int:
                 f'(max {e_f:.2g} of scale), texture {f_t:.6f} (max {e_t:.2g})')
 
             # each kernel alone, its plain version on the sample, the prep
-            g_ones = torch.ones_like(img)
-            out['fwd_ms'] = timed(lambda: dir_impl.launch_dir_fwd(table, p_m, True), reps=30)
-            out['fwd_nothr_ms'] = timed(lambda: dir_impl.launch_dir_fwd(table, p_m, False),
-                                        reps=30)
-            out['bwd_ms'] = timed(lambda: dir_impl.launch_dir_bwd(table, img, ag, thr, g_ones,
-                                                                  p_m), reps=30)
+            out.update(dir_alone(tag, table, img, ag, thr, p_m))
             out['prep_ms'] = timed(lambda: dir_impl.prep_dir(fv_m, tex_s, p_m))
+            out['prep_grad_ms'] = timed(lambda: dir_impl.prep_dir(fv_m, tex_s, p_m, True))
             out['fwd_plain_ms'] = timed(plain_fwd, reps=2, warm=1)
             out['bwd_plain_ms'] = timed(plain_bwd, reps=2, warm=1)
             out['plain_on'] = f'{idx.numel()} of {1024 * 1024} pixels'
@@ -2019,10 +2088,11 @@ def main() -> int:
         for name in ('fwd', 'bwd'):
             b = out[f'{name}_bound']
             log(f'  {tag} bound softras_dir_{name}: {b[0]:.6f} ms by {b[1]}: {b[2]}')
-        log(f'  {tag} kernels alone: forward {out["fwd_ms"]:.4f} ms (without the threshold '
-            f'{out["fwd_nothr_ms"]:.4f}), backward {out["bwd_ms"]:.4f} ms; prep '
-            f'{out["prep_ms"]:.4f} ms; plain on {out["plain_on"]}: forward '
-            f'{out["fwd_plain_ms"]:.1f} ms, backward {out["bwd_plain_ms"]:.1f} ms  [{smi}]')
+        log(f'  {tag}: prep {out["prep_ms"]:.4f} ms ({out["prep_grad_ms"]:.4f} with the '
+            f'backward\'s items); plain on {out["plain_on"]}: forward '
+            f'{out["fwd_plain_ms"]:.1f} ms, backward {out["bwd_plain_ms"]:.1f} ms; the '
+            f'backward\'s wait on the item count in a step {out["soft_rasterize_wait_ms"]:.4f} ms '
+            f'(render_mesh {out["render_mesh_wait_ms"]:.4f}, host clock)  [{smi}]')
         log(f'  {tag} in turns (binned, dir, dir, binned), ms: soft_rasterize step / '
             f'render_mesh step / render_mesh frame: {times}; medians binned {med["binned"]}, '
             f'dir {med["dir"]}  [{smi}]')
@@ -2031,6 +2101,11 @@ def main() -> int:
     small = dir_full_width('288 faces', 13, 12)
     dir_counts = small['soft_rasterize_launches']
     middle = dir_full_width('3,330 faces', 38, 45)
+    # bench.py's headline sphere (phase 4's inputs) on the dir kernels alone
+    table_l = dir_impl.prep_dir(fv_full, tex_sym, p_full, for_grad=True)
+    img_l, ag_l, _, thr_l = dir_impl.launch_dir_fwd(table_l, p_full, True)
+    large = dir_alone(f'{fv_full.shape[1]:,} faces', table_l, img_l, ag_l, thr_l, p_full)
+    del table_l, img_l, ag_l, thr_l
 
     log('phase 11c: demo 2 on the dir route, 120 views at 64 px, 1,300 faces')
     with dir_impl.with_dir_max(4096):
@@ -2057,8 +2132,9 @@ def main() -> int:
         no_pxg('phase 11c')
     # the two routes' stages on the rasterizer's inputs of the first step
     tex_ts = tie_symmetric(tex_t)
-    tab_t = dir_impl.prep_dir(fv_t, tex_ts, p_t)
+    tab_t = dir_impl.prep_dir(fv_t, tex_ts, p_t, for_grad=True)
     img_t, ag_t, _, thr_t = dir_impl.launch_dir_fwd(tab_t, p_t, True)
+    demo_d = dir_alone(f'demo 2, B={VIEWS}', tab_t, img_t, ag_t, thr_t, p_t)
     in_t = cuda_impl.prepare(fv_t, tex_ts, p_t, for_grad=True)
     bimg_t, bag_t, bcnt_t = cuda_impl.launch(in_t, p_t)
     bthr_t = cuda_impl.launch_thr(in_t, bcnt_t, p_t)
@@ -3231,12 +3307,31 @@ def main() -> int:
                  f'{ids_n.numel()} of {F_n} faces', edgebwd_bound),
          'band_rows': ncuda.EDGE_BAND, 'band_bytes_ms': band_bytes_ms,
          'ms_2048': edgebwd_aa_ms, 'bound_ms_2048': edgebwd_aa_bound[0]},
-        entry('softras_dir_fwd', 'softras_dir_fwd.cu', 'jrender_tpu/ops/softras/dir_impl.py:202',
-              max(d_err['fwd'], small['fwd_err']), small['fwd_ms'],
-              small['fwd_plain_ms'], small['plain_on'], small['fwd_bound']),
-        entry('softras_dir_bwd', 'softras_dir_bwd.cu', 'jrender_tpu/ops/softras/dir_impl.py:480',
-              max(d_err['bwd'], small['bwd_err']), small['bwd_ms'], small['bwd_plain_ms'],
-              small['plain_on'], small['bwd_bound']),
+        {**entry('softras_dir_prep', 'softras_dir_prep.cu',
+                 'jrender_tpu/ops/softras/dir_impl.py:99', 0.0, small['prep_kernel_ms'],
+                 small['prep_plain_ms'], 'the whole table', small['prep_bound']),
+         'faces': small['faces'], 'ms_3330': middle['prep_kernel_ms'],
+         'ms_39474': large['prep_kernel_ms'], 'ms_demo2': demo_d['prep_kernel_ms']},
+        {**entry('softras_dir_fwd', 'softras_dir_fwd.cu',
+                 'jrender_tpu/ops/softras/dir_impl.py:202', max(d_err['fwd'], small['fwd_err']),
+                 small['fwd_ms'], small['fwd_plain_ms'], small['plain_on'], small['fwd_bound']),
+         'faces': small['faces'], 'ms_nothr': small['fwd_nothr_ms'],
+         'ms_3330': middle['fwd_ms'], 'bound_ms_3330': middle['fwd_bound'][0],
+         'ms_39474': large['fwd_ms'], 'ms_demo2': demo_d['fwd_ms']},
+        {**entry('softras_dir_bwd', 'softras_dir_bwd.cu',
+                 'jrender_tpu/ops/softras/dir_impl.py:480', max(d_err['bwd'], small['bwd_err']),
+                 small['bwd_ms'], small['bwd_plain_ms'], small['plain_on'], small['bwd_bound']),
+         'faces': small['faces'], 'ms_3330': middle['bwd_ms'],
+         'bound_ms_3330': middle['bwd_bound'][0], 'ms_39474': large['bwd_ms'],
+         'ms_demo2': demo_d['bwd_ms'],
+         'items': {k: r['bwd_items'] for k, r in (('288', small), ('3330', middle),
+                                                  ('39474', large), ('demo2', demo_d))},
+         'part_bytes': {k: r['bwd_part_bytes'] for k, r in (
+             ('288', small), ('3330', middle), ('39474', large), ('demo2', demo_d))},
+         'peak_bytes': {k: r['bwd_peak_bytes'] for k, r in (
+             ('288', small), ('3330', middle), ('39474', large), ('demo2', demo_d))},
+         'first_design_part_bytes_39474': large['bwd_first_design_part_bytes'],
+         'wait_ms': small['soft_rasterize_wait_ms']},
         *({**entry(f'softras_pxg_{k}', src, rep, g_err[k], gm[k], gm_plain[k], gm_on[k], gb[k],
                    gm_lib.get(k)), **pxg_extra.get(k, {})}
           for k, src, rep in (

@@ -1,7 +1,8 @@
 // SoftRas per-(pixel, face) gradient terms as CUDA device functions.
 //
 // The backward part of the pair math, shared by the binned backward
-// (softras_bwd.cu, K2) and the dir backward (softras_dir_bwd.cu, K11):
+// (softras_bwd.cu, K2), the tile backward (softras_tile_bwd.cuh: K4, K6,
+// K9) and the dir backward (softras_dir_bwd.cu, K11):
 // the terms of pxt_impl.py:900-1038 and dir_impl.py:521-670 of the JAX
 // package, which are the reference's soft_rasterize.py:523-1358.  The
 // forward part (pair_terms, clipped_depth) is in softras_pair.cuh, so the
@@ -167,10 +168,72 @@ __device__ __forceinline__ void add_pair(const float* r, int fid, bool active,
   }
 }
 
+// add_pair with the texel adds of the step in rounds: the lanes that
+// select the same texel form a group (__match_any_sync), and round r adds
+// each group's r-th lane, in as many rounds as the largest group has
+// lanes.  The 9 face sums and the vertex colours' sums are add_pair's; a
+// surface texel receives the values of the lanes that select it in
+// ascending lane order, as in add_pair, so its sums have the same bits.
+// The tile backward (softras_tile_bwd.cuh) and the dir backward
+// (softras_dir_bwd.cu) share it.  Every lane of the warp must call it.
+template <int DIST, bool SURFACE>
+__device__ __forceinline__ void add_pair_rounds(const float* r, int fid, bool active,
+                                                float xp, float yp, const PixelIn& px,
+                                                const GradCfg& a, int lane, float acc[9],
+                                                float tacc[9], float* wtex) {
+  PairGrad g;
+  const bool valid = active && pair_grad<DIST>(r, fid, xp, yp, px, a, &g);
+  if (valid) {
+#pragma unroll
+    for (int c = 0; c < 9; ++c) acc[c] += g.gv[c];
+  }
+  if (!SURFACE) {
+    if (valid) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) tacc[3 * k + c] += g.tc[c] * g.wc[k];
+    }
+    return;
+  }
+  const unsigned same = __match_any_sync(0xffffffffu, valid ? g.idx : -1);
+  const int rounds = (int)__reduce_max_sync(0xffffffffu, valid ? (unsigned)__popc(same) : 0u);
+  const int rank = __popc(same & ((1u << lane) - 1u));
+  for (int q = 0; q < rounds; ++q) {
+    if (valid && rank == q) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) wtex[3 * g.idx + c] += g.tc[c];
+    }
+    __syncwarp();
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// The pixels whose centres may lie in an inflated bbox q (xmin, xmax,
+// ymin, ymax) on an is x is screen, or false: none, or a NaN in q.  The
+// dir route's rule (its prep and backward, softras_dir_{prep,bwd}.cu, and
+// dir_impl.face_pixel_boxes), rounded operation by operation as the plain
+// version: col = (x * is + is - 1) / 2 and row = (is - 1 - y * is) / 2,
+// floored at the low end and ceiled at the high end, then clamped.
+__device__ __forceinline__ bool bbox_pixels(float4 q, int image_size, int* c0, int* c1,
+                                            int* r0, int* r1) {
+  if (!(q.x <= q.y && q.z <= q.w)) return false;
+  const float isf = (float)image_size;
+  const float m1 = isf - 1.0f;
+  const float cx0 = __fmul_rn(__fsub_rn(__fadd_rn(__fmul_rn(q.x, isf), isf), 1.0f), 0.5f);
+  const float cx1 = __fmul_rn(__fsub_rn(__fadd_rn(__fmul_rn(q.y, isf), isf), 1.0f), 0.5f);
+  const float ry0 = __fmul_rn(__fsub_rn(m1, __fmul_rn(q.w, isf)), 0.5f);
+  const float ry1 = __fmul_rn(__fsub_rn(m1, __fmul_rn(q.z, isf)), 0.5f);
+  *c0 = (int)fminf(fmaxf(floorf(cx0), 0.0f), isf);
+  *c1 = (int)fmaxf(fminf(ceilf(cx1), m1), -1.0f);
+  *r0 = (int)fminf(fmaxf(floorf(ry0), 0.0f), isf);
+  *r1 = (int)fmaxf(fminf(ceilf(ry1), m1), -1.0f);
+  return *c0 <= *c1 && *r0 <= *r1;
 }
 
 // Pixels whose centres may lie in the face's inflated bbox, clipped to

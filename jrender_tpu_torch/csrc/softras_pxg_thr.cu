@@ -56,7 +56,6 @@ constexpr int kPixels = kTile * kTile;
 constexpr int kWays = SOFTRAS_PXG_THR_WAYS;
 constexpr int kBisectThreads = kPixels * kWays;
 constexpr int kGeom = kTex;   // floats of a row that hold geometry
-constexpr int kRegK = 16;     // the register list's K
 constexpr size_t kSmemDefault = 48 * 1024;
 static_assert(kWays == 1 || kWays == 2 || kWays == 4, "1, 2 or 4 threads a pixel");
 
@@ -70,18 +69,6 @@ struct PxgThrArgs {
   float* thr;             // [B, H, W], written on the launched tiles
   int first_tile, n_tiles, F, row, image_size, tiles_x, chunk, K, dist_func;
   Scalars s;
-};
-
-// The K = 16 smallest depths seen so far, sorted, in registers: a depth
-// below the largest moves the larger ones up one place.
-struct RegSmallest16 {
-  float d[kRegK];
-  __device__ __forceinline__ void operator()(float z) {
-    if (!(z < d[kRegK - 1])) return;
-#pragma unroll
-    for (int i = kRegK - 1; i > 0; --i) d[i] = z < d[i - 1] ? d[i - 1] : (z < d[i] ? z : d[i]);
-    d[0] = z < d[0] ? z : d[0];
-  }
 };
 
 // A block's pixel: where it lies, and whether it has more than K candidates.
@@ -150,8 +137,7 @@ __global__ void __launch_bounds__(kPixels) softras_pxg_thr_lists_kernel(const Px
   float thr;
   if (K == kRegK) {
     RegSmallest16 l;
-#pragma unroll
-    for (int i = 0; i < kRegK; ++i) l.d[i] = __int_as_float(0x7f800000);
+    l.clear();
     each_entry<kRegK>(d, i0, i1, K, l);
     thr = l.d[kRegK - 1];
   } else {

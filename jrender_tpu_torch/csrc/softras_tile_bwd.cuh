@@ -95,43 +95,6 @@ __host__ __device__ inline size_t tile_bwd_smem(const TileBwdArgs& a, bool surfa
   return 4 * f + 16;
 }
 
-// add_pair (softras_grad.cuh) with the texel adds of the step in rounds
-// (SOFTRAS_TILE_BWD_TEXEL): the 9 face sums and the vertex colours' sums
-// are add_pair's; a surface texel receives the values of the lanes that
-// select it in ascending lane order, as in add_pair, so its sums have the
-// same bits.  Every lane of the warp must call it.
-template <int DIST, bool SURFACE>
-__device__ __forceinline__ void add_pair_rounds(const float* r, int fid, bool active,
-                                                float xp, float yp, const PixelIn& px,
-                                                const GradCfg& a, int lane, float acc[9],
-                                                float tacc[9], float* wtex) {
-  PairGrad g;
-  const bool valid = active && pair_grad<DIST>(r, fid, xp, yp, px, a, &g);
-  if (valid) {
-#pragma unroll
-    for (int c = 0; c < 9; ++c) acc[c] += g.gv[c];
-  }
-  if (!SURFACE) {
-    if (valid) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k)
-#pragma unroll
-        for (int c = 0; c < 3; ++c) tacc[3 * k + c] += g.tc[c] * g.wc[k];
-    }
-    return;
-  }
-  const unsigned same = __match_any_sync(0xffffffffu, valid ? g.idx : -1);
-  const int rounds = (int)__reduce_max_sync(0xffffffffu, valid ? (unsigned)__popc(same) : 0u);
-  const int rank = __popc(same & ((1u << lane) - 1u));
-  for (int q = 0; q < rounds; ++q) {
-    if (valid && rank == q) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) wtex[3 * g.idx + c] += g.tc[c];
-    }
-    __syncwarp();
-  }
-}
-
 // Where a warp finds the item's tile and its maps.
 struct TileView {
   int b, tc0, tc1, tr0, tr1, row0;

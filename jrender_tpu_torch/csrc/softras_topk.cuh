@@ -1,7 +1,8 @@
 // The top-K depth threshold's pieces as CUDA device code, shared by the
 // binned threshold kernel (softras_thr.cu), the px_f forward
-// (softras_tile_fwd.cuh) and the dir forward (softras_dir_fwd.cu), which
-// find the threshold in their own walks.
+// (softras_tile_fwd.cuh), the dir forward (softras_dir_fwd.cu), which
+// find the threshold in their own walks, and the pxg threshold
+// (softras_pxg_thr.cu), which merges the pxg partials' lists.
 //
 // The threshold of a pixel is the K-th smallest depth among its candidate
 // pairs, counted with multiplicity.  A thread meets its candidates one
@@ -16,6 +17,7 @@
 namespace softras {
 
 constexpr int kListMax = 32;  // depths a thread's list holds
+constexpr int kRegK = 16;     // the register list's K
 
 // order-preserving map of a float onto unsigned integers
 __device__ __forceinline__ unsigned depth_key(float z) {
@@ -43,6 +45,23 @@ struct SmallestK {
         if (d[i] > d[m]) m = i;
       imax = m;
     }
+  }
+};
+
+// The K = 16 smallest depths seen so far, sorted, in registers: a depth
+// below the largest moves the larger ones up one place.  d[kRegK - 1] is
+// the K-th smallest once K depths were seen (+inf before).
+struct RegSmallest16 {
+  float d[kRegK];
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int i = 0; i < kRegK; ++i) d[i] = __int_as_float(0x7f800000);
+  }
+  __device__ __forceinline__ void operator()(float z) {
+    if (!(z < d[kRegK - 1])) return;
+#pragma unroll
+    for (int i = kRegK - 1; i > 0; --i) d[i] = z < d[i - 1] ? d[i - 1] : (z < d[i] ? z : d[i]);
+    d[0] = z < d[0] ? z : d[0];
   }
 };
 

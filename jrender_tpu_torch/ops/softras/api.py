@@ -97,7 +97,7 @@ _TABLED = {'dir': dir_impl, 'pxg': pxg_impl, 'f_px': fpx_impl, 'px_f': pxf_impl}
 def _prep(r: str, face_vertices, textures, p: SoftRasParams, for_grad: bool):
     """The table of route ``r``; ``for_grad`` adds what its backward reads."""
     if r == 'dir':
-        return dir_impl.prep_dir(face_vertices, textures, p)
+        return dir_impl.prep_dir(face_vertices, textures, p, for_grad=for_grad)
     prep = {'pxg': pxg_impl.prep_pxg, 'f_px': fpx_impl.prep_fpx, 'px_f': pxf_impl.prep_pxf}[r]
     return prep(face_vertices, textures, p, for_grad=for_grad)
 

@@ -35,6 +35,7 @@ from jrender_tpu.ops.softras import make_params as jax_params
 
 from jrender_tpu_torch.ops.softras import (cuda_impl, dir_impl, make_params, route,
                                            soft_rasterize, torch_impl)
+from jrender_tpu_torch.ops.softras import geometry as G
 from jrender_tpu_torch.ops.softras.api import soft_rasterize_with_aux
 from jrender_tpu_torch.utils.checks import fold_ties, tie_soup, tie_symmetric
 
@@ -399,9 +400,12 @@ def test_dir_wrappers_refuse_cpu_tensors(rng):
     assert before == (dir_impl.launch_dir_fwd.launches, dir_impl.launch_dir_bwd.launches)
     for row in (31 + 3, 31 + 9, 31 + 75, 31 + 3 * 64):
         # the forward's dynamic shared memory: rows and ids of a chunk, the
-        # list of 256 places, 8 warp counts
+        # list of up to 4 x 256 places, 4 x 8 warp counts; where warps stage
+        # their own rows, each warp's rows, 32 kept places and their ids
         c = cuda_impl.chunk_for(row, dir_impl.FWD_RESERVED_BYTES)
-        assert c * 4 * row + 4 * (256 + c + 8) <= cuda_impl.SMEM_BYTES
+        assert c * 4 * row + 4 * (4 * 256 + c + 4 * 8) <= cuda_impl.SMEM_BYTES
+        w = dir_impl.fwd_warp_chunk(row)
+        assert 8 * w * 4 * row + 4 * (4 * 256 + 4 * 8 + 8 * 64) <= cuda_impl.SMEM_BYTES
 
 
 def test_with_dir_max_sets_and_restores(monkeypatch):
@@ -415,3 +419,211 @@ def test_with_dir_max_sets_and_restores(monkeypatch):
             assert dir_impl.dir_max_faces() == 0
             raise RuntimeError
     assert 'JR_DIR_MAX' not in os.environ
+
+
+# --------------------------------------------------------------------------
+# the kernels' work rules: the backward's items, its sum by item, the
+# forward's warp cull and window unions
+# --------------------------------------------------------------------------
+
+def _special_soup(rng, F=40):
+    """A soup with a screen-filling face, one-pixel faces, off-screen faces
+    and a NaN face beside ordinary ones."""
+    fv, tex = soup(rng, F=F, T=4)
+    fv[0, 0] = [-1.2, -1.1, 2.5, 1.3, -1.0, 2.6, 0.0, 1.4, 2.4]            # fills the screen
+    fv[0, 1] = [0.01, 0.01, 2.5, 0.0102, 0.01, 2.5, 0.01, 0.0102, 2.5]     # a pixel or so
+    fv[0, 2] = [-0.5, 0.3, 2.5, -0.4999, 0.3, 2.5, -0.5, 0.3001, 2.5]
+    fv[0, 3] = [3.0, 3.0, 2.5, 3.5, 3.0, 2.5, 3.0, 3.5, 2.5]                # off-screen
+    fv[0, 4] = [-3.0, 0.0, 2.5, -2.5, 0.0, 2.5, -3.0, 0.5, 2.5]
+    fv[0, 5, 1] = np.nan                                                     # a NaN face
+    return fv, tex
+
+
+def _items_brute_force(bbox, image_size, splits):
+    """Every (place b * F + f, split) with split < min(splits, chunks of 32
+    pixels of the face's pixel bbox), face by face in numpy float32, with
+    the kernels' rounding (bbox_pixels, csrc/softras_grad.cuh)."""
+    isf = np.float32(image_size)
+    one, half = np.float32(1.0), np.float32(0.5)
+    out = []
+    for flat, (x0, x1, y0, y1) in enumerate(np.asarray(bbox, np.float32).reshape(-1, 4)):
+        if not (x0 <= x1 and y0 <= y1):
+            continue
+        c0 = min(max(np.floor((x0 * isf + isf - one) * half), 0), isf)
+        c1 = max(min(np.ceil((x1 * isf + isf - one) * half), isf - 1), -1)
+        r0 = min(max(np.floor(((isf - one) - y1 * isf) * half), 0), isf)
+        r1 = max(min(np.ceil(((isf - one) - y0 * isf) * half), isf - 1), -1)
+        if c0 > c1 or r0 > r1:
+            continue
+        chunks = -(-int((c1 - c0 + 1) * (r1 - r0 + 1)) // 32)
+        out += [(flat, j) for j in range(min(splits, chunks))]
+    return out
+
+
+@pytest.mark.parametrize('size,splits', [(32, None), (32, 3), (64, 5), (256, None), (24, 2)])
+def test_bwd_items_match_brute_force(size, splits, rng):
+    """``bwd_items_plain`` lists each (face, split) with split < min(splits,
+    chunks) exactly once, in order, as a brute-force enumeration from the
+    bboxes finds them; the prep's offsets and count say the same."""
+    fv, tex = _special_soup(rng)
+    fv2, tex2 = soup(rng, F=40, T=4)
+    fv, tex = np.concatenate([fv, fv2]), np.concatenate([tex, tex2])   # B = 2
+    p = make_params(image_size=size, sigma_val=1e-3)
+    table = dir_impl.prep_dir(torch.tensor(fv), torch.tensor(tex), p, for_grad=True)
+    sp = dir_impl.bwd_splits(size) if splits is None else splits
+    face, split = dir_impl.bwd_items_plain(table.bbox, size, splits)
+    want = _items_brute_force(table.bbox.numpy(), size, sp)
+    assert list(zip(face.tolist(), split.tolist())) == want
+    assert len(set(want)) == len(want) and len(want) > 0
+    places = {f for f, _ in want}
+    nan_place = int(table.inv[0, 5])
+    assert nan_place not in places                          # the NaN face has no item
+    assert int(table.inv[0, 3]) not in places               # nor an off-screen one
+    assert int(table.inv[0, 0]) in places                   # the screen-filling face has
+    if splits is None:
+        items = table.items
+        assert items.splits == sp and items.image_size == size
+        n = np.bincount(face.numpy(), minlength=2 * 40)
+        np.testing.assert_array_equal(dir_impl.item_offsets(items, 2, 40).numpy(),
+                                      np.concatenate([[0], np.cumsum(n)]))
+        assert dir_impl.item_count(items) == len(want)
+        # the screen-filling face has as many items as it may
+        assert n[int(table.inv[0, 0])] == min(sp, -(-size * size // 32))
+
+
+@pytest.mark.parametrize('kind', ['K4', 'full', 'vertex', 'hard', 'special'])
+@pytest.mark.parametrize('splits', [None, 3])
+def test_bwd_split_plain_matches_bwd_plain(kind, splits, rng):
+    """The backward summed item by item in ascending split order (the
+    kernel's sums) agrees with ``bwd_plain`` to 1e-5 of the largest entry:
+    the two differ in the order of their sums only."""
+    kw = dict(image_size=32, sigma_val=1e-3, gamma_val=1e-3)
+    fv, tex = (_special_soup(rng) if kind == 'special' else soup(rng, F=40, T=4))
+    if kind == 'special':
+        fv = fv.copy()
+        fv[0, 5, 1] = 0.2                     # the NaN face would poison the plain sums
+    kw.update({'K4': dict(max_faces_per_pixel_for_grad=4), 'full': dict(grad_mode='full'),
+               'vertex': dict(texture_type='vertex'), 'special': {},
+               'hard': dict(dist_func='hard', aggr_func_rgb='hard',
+                            aggr_func_alpha='hard')}[kind])
+    p = make_params(**kw)
+    if kind == 'vertex':
+        tex = rng.uniform(size=(1, 40, 3, 3)).astype(np.float32)
+    table = dir_impl.prep_dir(torch.tensor(fv), torch.tensor(tex), p)
+    with_thr = torch_impl.use_threshold(p, 40)
+    img, ag, _, thr = dir_impl.fwd_plain(table, p, with_thr)
+    g = torch.tensor(rng.randn(*img.shape).astype(np.float32))
+    want = dir_impl.bwd_plain(table, img, ag, thr, g, p)
+    got = dir_impl.bwd_split_plain(table, img, ag, thr, g, p, splits=splits)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert (a - b).abs().max() <= 1e-5 * max(b.abs().max().item(), 1e-30)
+    assert want[0].abs().max() > 0 or want[1].abs().max() > 0
+
+
+@pytest.mark.parametrize('case', ['multichunk-B2', 'hard', 'topk-K4'])
+def test_bwd_split_plain_against_jax_dir_layout(case, rng, dir_on):
+    """The backward summed item by item against the JAX package's dir
+    layout run in interpret mode, at ``test_against_jax_dir_layout``'s
+    tolerances, with three splits a face."""
+    B, F, T = 1, 40, 4
+    kw = dict(image_size=32, sigma_val=1e-3, gamma_val=1e-3)
+    if case == 'multichunk-B2':
+        B, F = 2, 150
+        kw['max_faces_per_pixel_for_grad'] = F
+    elif case == 'hard':
+        F = 140
+        kw.update(dist_func='hard', aggr_func_rgb='hard', aggr_func_alpha='hard',
+                  max_faces_per_pixel_for_grad=F)
+    else:
+        kw['max_faces_per_pixel_for_grad'] = 4
+    fv, tex = soup(rng, F=F, B=B, T=T, radius=(0.05, 0.2) if F > 100 else (0.15, 0.45))
+    tex = tie_symmetric(tex)
+    g = rng.randn(B, 4, 32, 32).astype(np.float32)
+    pj, pt = jax_params(**kw), make_params(**kw)
+    with_thr = torch_impl.use_threshold(pt, F)
+    fj, tj = jnp.asarray(fv), jnp.asarray(tex)
+    oj, aj, auxj = jax_dir.soft_rasterize_fwd_dir(fj, tj, pj, with_thr)
+    gfj, gtj = jax_dir.soft_rasterize_bwd_dir(fj, tj, oj, aj, auxj, jnp.asarray(g), pj)
+    table = dir_impl.prep_dir(torch.tensor(fv), torch.tensor(tex), pt)
+    ot, at, _, tt = dir_impl.forward(table, pt, with_thr)
+    gf, gt = dir_impl.bwd_split_plain(table, ot, at, tt, torch.tensor(g), pt, splits=3)
+    assert_grad_close(gf.numpy(), np.asarray(gfj))
+    assert_grad_close(fold_ties(gt.numpy()), fold_ties(np.asarray(gtj)))
+
+
+def _knife_edge_bboxes(rng, size, n=400):
+    """Bboxes [1, n, 4] whose edges sit on pixel centres or one ulp either
+    side of one, beside random ones and a NaN one."""
+    centres = (2.0 * np.arange(size, dtype=np.float32) + 1 - size) / np.float32(size)
+    pick = rng.choice(centres, (n, 4)).astype(np.float32)
+    nudge = rng.choice([-1, 0, 1], (n, 4))
+    edge = np.where(nudge < 0, np.nextafter(pick, np.float32(-2)),
+                    np.where(nudge > 0, np.nextafter(pick, np.float32(2)), pick))
+    lo = np.minimum(edge[:, [0, 2]], edge[:, [1, 3]])
+    hi = np.maximum(edge[:, [0, 2]], edge[:, [1, 3]])
+    box = np.stack([lo[:, 0], hi[:, 0], lo[:, 1], hi[:, 1]], -1).astype(np.float32)
+    box[: n // 4] = np.sort(rng.uniform(-1.2, 1.2, (n // 4, 2, 2)), -1).reshape(-1, 4)
+    box[n // 4] = np.nan
+    return torch.tensor(box[None])
+
+
+@pytest.mark.parametrize('size', [32, 40, 64])
+def test_warp_cull_keeps_every_face_a_warp_needs(size, rng):
+    """The forward's warp cull (``warp_cull_plain``) keeps every face whose
+    bbox test passes at some pixel of the 8 x 4 warp, on knife-edge bboxes
+    (edges on pixel centres and an ulp either side), and drops the faces
+    that pass at none of them where the bbox misses the warp's extent."""
+    bbox = _knife_edge_bboxes(rng, size)
+    keep = dir_impl.warp_cull_plain(bbox, size)                     # [1, n, H/4, W/8]
+    rows, cols = torch.meshgrid(torch.arange(size), torch.arange(size), indexing='ij')
+    xp, yp = torch_impl.pixel_centers(rows, cols, size)
+    q = bbox[0, :, None, None, :]
+    passes = (xp <= q[..., 1]) & (xp >= q[..., 0]) & (yp <= q[..., 3]) & (yp >= q[..., 2])
+    per_warp = passes.reshape(-1, size // 4, 4, size // 8, 8).any(4).any(2)
+    assert (keep[0] | ~per_warp).all()                       # nothing a pixel needs is culled
+    assert per_warp.any() and (~keep[0]).any()
+    # a kept face's bbox meets the warp's extent: the cull is the exact
+    # extent test (a face kept with no pixel passing lies between centres)
+    assert not keep[0, 400 // 4].any()                       # the NaN face
+
+
+def test_warp_cull_keeps_every_passing_pair(rng):
+    """On a soup of real faces, every (pixel, face) pair that the pair math
+    passes lies in a warp that keeps the face."""
+    size = 48
+    fv, tex = _special_soup(rng, F=60)
+    fv[0, 5, 1] = 0.3
+    p = make_params(image_size=size, sigma_val=1e-3)
+    table = dir_impl.prep_dir(torch.tensor(fv), torch.tensor(tex), p)
+    keep = dir_impl.warp_cull_plain(table.bbox, size)[0]           # [F, H/4, W/8]
+    face, _ = dir_impl.table_faces(table, p)
+    xp, yp = torch_impl.pixel_grid(size)
+    inv, sym, obt = G.face_info_preprocess(face[0])
+    terms = torch_impl._pairwise_terms(face[0], inv, sym, obt, xp, yp, p)
+    passing = terms['alpha_valid'].T.reshape(-1, size // 4, 4, size // 8, 8).any(4).any(2)
+    assert passing.any()
+    assert (keep | ~passing).all()
+
+
+def test_window_boxes_hold_their_faces(rng):
+    """Each union of ``window_boxes`` holds every finite bbox of its 256
+    places (so a tile that misses a union misses each of them), a NaN face
+    counts in none, and a union of only NaN faces is empty."""
+    fv, tex = soup(rng, F=600, B=2, T=1, centre=(-1.1, 1.1))
+    fv[1, 300:] = np.nan
+    fv[0, 7, 0] = np.nan
+    table = dir_impl.prep_dir(torch.tensor(fv), torch.tensor(tex), make_params(image_size=64))
+    wb = table.wbox
+    assert wb.shape == (2, 3, 4)
+    box = table.bbox
+    ok = ~torch.isnan(box).any(-1)
+    for b in range(2):
+        for u in range(3):
+            q, m = box[b, 256 * u:256 * (u + 1)], ok[b, 256 * u:256 * (u + 1)]
+            if not m.any():
+                assert wb[b, u, 0] == np.inf and wb[b, u, 1] == -np.inf
+                continue
+            assert torch.equal(wb[b, u, 0], q[m, 0].min()) and torch.equal(wb[b, u, 1], q[m, 1].max())
+            assert torch.equal(wb[b, u, 2], q[m, 2].min()) and torch.equal(wb[b, u, 3], q[m, 3].max())
+    assert torch.isfinite(wb[0]).all()

@@ -897,7 +897,7 @@ def test_softras_dir_kernels_match_plain_and_binned(kw, size):
     t = t.reshape(2, F, 3, 3) if vertex else tie_symmetric(t)
     p = make_params(image_size=size, **{'sigma_val': 1e-3, 'gamma_val': 1e-3, **kw})
     with_thr = torch_impl.use_threshold(p, F)
-    table = dir_impl.prep_dir(x, t, p)
+    table = dir_impl.prep_dir(x, t, p, for_grad=True)     # the prep kernel's items
     img, ag, cnt, thr = dir_impl.launch_dir_fwd(table, p, with_thr)
     torch.cuda.synchronize()
     want, ag_w, cnt_w, thr_w = dir_impl.fwd_plain(table, p, with_thr)
@@ -992,6 +992,174 @@ def test_softras_dir_wrappers_check_their_inputs():
         dir_impl.launch_dir_bwd(table, img, ag, thr, g[:, :3], p)
     with pytest.raises(ValueError):
         dir_impl.launch_dir_bwd(table, img.cpu(), ag, thr, g, p)
+    # the backward needs the prep kernel's items, of this image size
+    with pytest.raises(ValueError, match='for_grad'):
+        dir_impl.launch_dir_bwd(table, img, ag, thr, g, p)
+    other = dir_impl.prep_dir(x, t, make_params(image_size=64), for_grad=True)
+    with pytest.raises(ValueError, match='for_grad'):
+        dir_impl.launch_dir_bwd(other, img, ag, thr, g, p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kw', [
+    dict(),
+    dict(aggr_func_rgb='hard', max_faces_per_pixel_for_grad=4),
+    dict(texture_type='vertex', grad_mode='full', gamma_val=0.1),
+    dict(max_faces_per_pixel_for_grad=40),
+], ids=['default-K16', 'hard-K4', 'vertex-full', 'K40'])
+def test_softras_dir_builds_agree(kw):
+    """K10 and K11 twice give the same outputs bit for bit (image,
+    aggregates, counts, threshold; face and texture gradients), and K10
+    gives them with its rows staged by the block and by warps with the
+    cull, each twice, on 600 faces with two screen-filling ones over two
+    batch elements at 128 px (splits 1) and 256 px (4 splits a face); the
+    wrappers' outputs are held to the plain versions by
+    ``test_softras_dir_kernels_match_plain_and_binned``."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.softras import dir_impl
+    vertex = kw.get('texture_type') == 'vertex'
+    x, t = soup(8, F=600, B=2, T=3 if vertex else 25, radius=(0.03, 0.3))
+    x = with_big_faces(x)
+    t = t.reshape(2, 600, 3, 3) if vertex else t
+    fwd = cuda_impl._entry('softras_dir_fwd', 'softras_dir_fwd', dir_impl._DirFwdArgs)
+    bwd = cuda_impl._entry('softras_dir_bwd', 'softras_dir_bwd', dir_impl._DirBwdArgs)
+    for size in (128, 256):
+        p = make_params(image_size=size, **{'sigma_val': 1e-3, 'gamma_val': 1e-3, **kw})
+        with_thr = torch_impl.use_threshold(p, 600)
+        table = dir_impl.prep_dir(x, t, p, for_grad=True)
+        out = dir_impl.launch_dir_fwd(table, p, with_thr)
+        again = dir_impl.launch_dir_fwd(table, p, with_thr)
+        img, ag, cnt, thr = out
+        gen = torch.Generator(device='cuda').manual_seed(size)
+        g = torch.randn(img.shape, generator=gen, device='cuda')
+        grads = dir_impl.launch_dir_bwd(table, img, ag, thr, g, p)
+        grads2 = dir_impl.launch_dir_bwd(table, img, ag, thr, g, p)
+        torch.cuda.synchronize()
+
+        def same(got, want):
+            return all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, want))
+
+        assert same(again, out) and same(grads2, grads)
+        assert not with_thr or (cnt > p.max_faces_id).any()
+        for warp_rows in (False, True, False, True):   # both ways of staging, twice
+            args, got = dir_impl.fwd_args(table, p, with_thr, warp_rows)
+            cuda_impl._run(fwd, 'softras_dir_fwd', args, x.device)
+            torch.cuda.synchronize()
+            assert same(got, out), (size, warp_rows)
+            assert dir_impl.fwd_occupancy(args)['blocks_per_sm'] >= 1
+        for _ in range(2):
+            args, got = dir_impl.bwd_args(table, img, ag, thr, g, p)
+            cuda_impl._run(bwd, 'softras_dir_bwd', args, x.device)
+            torch.cuda.synchronize()
+            assert same(got, grads), size
+        assert dir_impl.bwd_occupancy(args)['blocks_per_sm'] >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('B,F,size', [(1, 288, 1024), (2, 700, 256), (3, 1300, 64), (1, 5, 32)])
+def test_softras_dir_prep_matches_plain(B, F, size):
+    """The prep kernel (csrc/softras_dir_prep.cu) against ``prep_plain`` to
+    the bit, twice: the bboxes gathered by a permutation, the unions of
+    every 256 places, the items' offsets and count and the zeroed
+    counters; a NaN face and off-screen faces among them."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.softras import dir_impl
+    gen = torch.Generator(device='cuda').manual_seed(F)
+    lo = torch.rand((B, F, 2), generator=gen, device='cuda') * 2.6 - 1.3
+    ext = torch.rand((B, F, 2), generator=gen, device='cuda') ** 4 * 2.0
+    bbox = torch.stack([lo[..., 0], lo[..., 0] + ext[..., 0], lo[..., 1], lo[..., 1] + ext[..., 1]],
+                       dim=-1).contiguous()
+    bbox[0, F // 2, 1] = float('nan')
+    ids = torch.stack([torch.randperm(F, generator=gen, device='cuda') for _ in range(B)]).int()
+    want = dir_impl.prep_plain(bbox, ids, size, True)
+
+    def bits(t):           # the NaN face's bbox compares by its bits
+        return t.view(torch.int32)
+
+    for _ in range(2):
+        got = dir_impl.launch_dir_prep(bbox, ids, size, True)
+        assert torch.equal(bits(got[0]), bits(want[0])) and torch.equal(got[1], want[1])
+        for a, b in zip(got[2][:3], want[2][:3]):
+            assert torch.equal(a, b)
+        assert dir_impl.item_count(got[2]) == dir_impl.item_count(want[2]) > 0
+    frame = dir_impl.launch_dir_prep(bbox, ids, size, False)
+    assert torch.equal(bits(frame[0]), bits(want[0])) and torch.equal(frame[1], want[1])
+    assert frame[2] is None
+
+
+@pytest.mark.gpu
+def test_softras_dir_preps_on_two_streams():
+    """Preps launched on two streams at once share no state (the grid
+    barrier is each launch's own): each, on a table of its own, equals
+    ``prep_plain`` to the bit, five times over."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.softras import dir_impl
+    gen = torch.Generator(device='cuda').manual_seed(17)
+    cases = []
+    for B, F, size in ((40, 3000, 64), (3, 20000, 1024)):
+        lo = torch.rand((B, F, 2), generator=gen, device='cuda') * 2.6 - 1.3
+        ext = torch.rand((B, F, 2), generator=gen, device='cuda') ** 4 * 2.0
+        bbox = torch.stack([lo[..., 0], lo[..., 0] + ext[..., 0], lo[..., 1],
+                            lo[..., 1] + ext[..., 1]], dim=-1).contiguous()
+        ids = torch.stack([torch.randperm(F, generator=gen, device='cuda')
+                           for _ in range(B)]).int()
+        cases.append((bbox, ids, size, dir_impl.prep_plain(bbox, ids, size, True)))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    for _ in range(5):
+        got = []
+        for (bbox, ids, size, _), st in zip(cases, streams):
+            with torch.cuda.stream(st):
+                got.append(dir_impl.launch_dir_prep(bbox, ids, size, True))
+        torch.cuda.synchronize()
+        for (_, _, _, want), g in zip(cases, got):
+            assert torch.equal(g[0], want[0]) and torch.equal(g[1], want[1])
+            for a, b in zip(g[2][:3], want[2][:3]):
+                assert torch.equal(a, b)
+            assert dir_impl.item_count(g[2]) == dir_impl.item_count(want[2]) > 0
+
+
+@pytest.mark.gpu
+def test_softras_dir_bwd_runs_on_the_live_items():
+    """K11's work items on the card are the plain rule's (offsets and count),
+    its partial rows one an item; the forward after a prep with the items
+    reads nothing to the host (``set_sync_debug_mode('error')``), and the
+    backward's wait on the count is timed."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.ops.softras import dir_impl
+    x, t = soup(9, F=300, B=2, T=4)
+    x = with_big_faces(x)
+    x[0, 5, 1] = float('nan')
+    x[1, 6, 0::3] = 5.0                                   # off the screen
+    p = make_params(image_size=256, sigma_val=1e-3)
+    dir_impl.launch_dir_fwd(dir_impl.prep_dir(x, t, p, for_grad=True), p, True)   # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        table = dir_impl.prep_dir(x, t, p, for_grad=True)
+        img, ag, cnt, thr = dir_impl.launch_dir_fwd(table, p, True)
+        frame = dir_impl.launch_dir_fwd(dir_impl.prep_dir(x, t, p), p, False)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    assert torch.equal(frame[0], dir_impl.launch_dir_fwd(table, p, False)[0])
+    face, split = dir_impl.bwd_items_plain(table.bbox.cpu(), 256)
+    n = np.bincount(face.numpy(), minlength=2 * 300)
+    assert dir_impl.item_count(table.items) == face.numel() == int(n.sum())
+    np.testing.assert_array_equal(dir_impl.item_offsets(table.items, 2, 300).cpu().numpy(),
+                                  np.concatenate([[0], np.cumsum(n)]))
+    assert table.items.splits == 4 and n.max() == 4 and (n == 0).sum() >= 2
+    args, (gf, gt) = dir_impl.bwd_args(table, img, ag, thr, torch.ones_like(img), p)
+    assert args.items == face.numel() and args.keep[1].shape == (face.numel(), 9 + 12)
+    gf2, gt2 = dir_impl.launch_dir_bwd(table, img, ag, thr, torch.ones_like(img), p)
+    torch.cuda.synchronize()
+    assert dir_impl.launch_dir_bwd.wait_ms >= 0.0
+    assert torch.isfinite(gf2[0, torch.arange(300, device='cuda') != 5]).all()
+    assert (gf2[1, 6] == 0).all() and (gt2[1, 6] == 0).all()     # no item: a zero row
 
 
 # ---- the pxg route: K7 partials and combine, K8 threshold, K9 backward and sum --

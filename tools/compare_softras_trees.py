@@ -4,7 +4,7 @@ against each other on one CUDA card: their outputs bit for bit and their
 times in turns.
 
     python3 tools/compare_softras_trees.py --parent PATH [--change PATH]
-                                           [--parts binned,tiled,pxg,n3mr]
+                                           [--parts binned,tiled,pxg,n3mr,dir]
 
 PATH is another checkout of the port (for example ``git archive`` of the
 parent commit unpacked into a git-ignored directory); ``--change`` is this
@@ -50,6 +50,19 @@ in the turns parent, change, change, parent:
     tile's list alone (the whole grid, every other list empty), on empty
     lists and, where the tree's ``maps_args`` takes ``tile``, on the
     busiest tile's cluster alone (``n3mr_maps``);
+  * runs the dir route's kernels (``dir``) on four inputs: the 288-,
+    3,330- and 39,474-face spheres (``uv_sphere(13, 12)``, ``(38, 45)``,
+    ``(130, 153)``) at 1024 px with the renderer's defaults, and demo 2's
+    first step (120 views at 64 px, 1,300 faces; ``chip_smoke.py`` phase 7):
+    the forward (K10) with the threshold at K = 16 and at K = 40 (its
+    bisection) and without it, and the backward (K11) at K = 16 and at
+    ``grad_mode='full'`` on common forward outputs and a seeded incoming
+    gradient; times each (K = 40 over fewer launches), reads K11's launched
+    warps, its live (face, split) items, the bytes of its partial rows and
+    ``torch.cuda.max_memory_allocated`` above the start around one call,
+    and the wait of a step's backward on the item count where the tree has
+    one; on the 288-face sphere, the device time and kernel launches of a
+    dir ``soft_rasterize`` step (torch.profiler);
   * times the steps that run them: ``soft_rasterize(...).sum().backward()``
     (CUDA events), and ``Renderer.render_mesh`` frames and forward +
     backward steps (host clock around work that ends in a synchronize;
@@ -70,7 +83,10 @@ threshold maps (K = 16 and 40) bit for bit and their largest image
 difference, K4's and K6's entry rows and face sums bit for bit, K7's
 partial rows and depth lists, the combine's image, aggregates and counts,
 K8's threshold maps (K = 16 and 40), K9's entry rows and face sums bit
-for bit (softmax and hard rgb), K12's six maps bit for bit, each tree's
+for bit (softmax and hard rgb), K12's six maps bit for bit, K10's image,
+aggregates, counts and thresholds (K = 16, 40 and none) and K11's face and
+texture gradients (K = 16 and ``grad_mode='full'``) bit for bit on each
+dir input, each tree's
 two turns bit for bit, the census of N3MR's tile lists (entries and front
 faces), and the largest difference of the
 two trees' edge gradients as a share of its largest entry (they sum in
@@ -450,7 +466,174 @@ def pxg_kernels(torch, fv, tex, common, times, timed, digest):
     return out
 
 
-PARTS = ('binned', 'tiled', 'pxg', 'n3mr')
+DIR_SPHERES = {'dir_288': (13, 12), 'dir_3330': (38, 45), 'dir_39474': (130, 153)}
+DEMO2_VIEWS = 120
+
+
+def demo2_inputs(torch, dev):
+    """The rasterizer's inputs of demo 2's first step (``chip_smoke.py``
+    phase 7): 120 views at 64 px of the 1,300-face template, and its
+    parameters."""
+    import numpy as np
+    from jrender_tpu_torch import Mesh, Renderer, deform
+    from jrender_tpu_torch.ops.softras import make_params
+    from jrender_tpu_torch.utils.primitives import uv_sphere
+    v_s, f_s = uv_sphere(26, 26)
+    v_s = v_s * np.float32(0.5 / 0.85)
+    rng = np.random.RandomState(4)
+    cams = (np.full(DEMO2_VIEWS, 2.732, np.float32),
+            rng.uniform(-30, 60, DEMO2_VIEWS).astype(np.float32),
+            rng.uniform(0, 360, DEMO2_VIEWS).astype(np.float32))
+    trainer = Renderer(image_size=64, sigma_val=1e-4, aggr_func_rgb='hard',
+                       camera_mode='look_at', viewing_angle=15, device=dev)
+    trainer.transform.set_eyes_from_angles(*(torch.tensor(c, device=dev) for c in cams))
+    model = deform.DeformModel(v_s, f_s).to(dev)
+    with torch.no_grad():
+        v0 = model.vertices()
+        lit = trainer.transform(trainer.lighting(
+            Mesh(v0.expand(DEMO2_VIEWS, -1, -1), model.faces.expand(DEMO2_VIEWS, -1, -1),
+                 device=dev), trainer.transform.eyes))
+    r = trainer.rasterizer
+    kw = dict(image_size=r.image_size, background_color=r.background_color, near=r.near,
+              far=r.far, fill_back=r.fill_back, eps=r.eps, sigma_val=r.sigma_val,
+              dist_func=r.dist_func, dist_eps=r.dist_eps, gamma_val=r.gamma_val,
+              aggr_func_rgb=r.aggr_func_rgb, aggr_func_alpha=r.aggr_func_alpha,
+              texture_type=r.texture_type)
+    return (lit.face_vertices.reshape(DEMO2_VIEWS, -1, 9).contiguous(),
+            lit.face_textures.contiguous(), kw)
+
+
+def dir_inputs(torch, dev, gen):
+    """The dir part's four inputs by key: face vertices, textures, the
+    parameters' keywords and the common inputs of both trees' backwards
+    (this tree's forward outputs at K = 16 and a seeded incoming
+    gradient)."""
+    from jrender_tpu_torch import Mesh
+    from jrender_tpu_torch.ops.softras import dir_impl, make_params
+    from jrender_tpu_torch.utils.primitives import uv_sphere
+    out = {}
+    _, _, _, renderer, _ = scene(torch, dev)
+    for key, (rings, segs) in DIR_SPHERES.items():
+        v, f = uv_sphere(rings, segs)
+        tex = torch.rand((1, f.shape[0], 25, 3), generator=gen, device=dev)
+        with torch.no_grad():
+            lit = renderer.transform(renderer.lighting(Mesh(v, f, textures=tex, texture_res=5),
+                                                       renderer.transform.eyes))
+        out[key] = (lit.face_vertices.reshape(1, -1, 9).contiguous(),
+                    lit.face_textures.contiguous(), dict(image_size=1024))
+    out['dir_demo2'] = demo2_inputs(torch, dev)
+    for key, (fv, tex, kw) in out.items():
+        p = make_params(**kw)
+        img, ag, _, thr = dir_impl.launch_dir_fwd(dir_impl.prep_dir(fv, tex, p), p, True)
+        out[key] += (img, ag, thr, torch.randn(img.shape, generator=gen, device=dev))
+    return out
+
+
+def live_items(torch, bbox, image_size, splits):
+    """The (face, split) pairs with split < min(splits, chunks of 32 pixels
+    in the face's pixel bbox): the backward's live work, counted here on
+    its own from the bboxes (the rounding of ``bbox_pixels`` in
+    csrc/softras_grad.cuh)."""
+    isf = float(image_size)
+    x0, x1, y0, y1 = bbox.unbind(-1)
+    c0 = torch.floor((x0 * isf + isf - 1.0) * 0.5).clamp(0, isf)
+    c1 = torch.ceil((x1 * isf + isf - 1.0) * 0.5).clamp(-1, isf - 1)
+    r0 = torch.floor(((isf - 1.0) - y1 * isf) * 0.5).clamp(0, isf)
+    r1 = torch.ceil(((isf - 1.0) - y0 * isf) * 0.5).clamp(-1, isf - 1)
+    ok = (x0 <= x1) & (y0 <= y1) & (c0 <= c1) & (r0 <= r1)
+    chunks = (((c1 - c0 + 1) * (r1 - r0 + 1)).long() + 31) // 32
+    return int(torch.where(ok, chunks.clamp(max=splits), 0).sum())
+
+
+def dir_kernels(torch, common, times, timed, digest):
+    """The dir kernels of this tree on the four inputs: K10's outputs at K =
+    16, 40 and without the threshold and K11's gradients at K = 16 and
+    ``grad_mode='full'`` on the common inputs, as digests by input; adds to
+    ``times`` each kernel's time, K11's launched warps, live items, partial
+    rows' bytes and peak memory above the start around one call, and, where
+    the tree waits on an item count, that wait in a step."""
+    import dataclasses
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from jrender_tpu_torch.ops.softras import cuda_impl, dir_impl, make_params, soft_rasterize
+    grad_prep = 'for_grad' in inspect.signature(dir_impl.prep_dir).parameters
+    out = {}
+    for key, (fv, tex, kw, img_c, ag_c, thr_c, g) in common.items():
+        p = make_params(**kw)
+        p40 = dataclasses.replace(p, max_faces_id=40)
+        p_full = make_params(**kw, grad_mode='full')
+        table = (dir_impl.prep_dir(fv, tex, p, for_grad=True) if grad_prep
+                 else dir_impl.prep_dir(fv, tex, p))
+        res = {}
+        for tag, pp, thr_on in (('k16', p, True), ('k40', p40, True), ('nothr', p, False)):
+            img, ag, cnt, thr = dir_impl.launch_dir_fwd(table, pp, thr_on)
+            res[f'fwd_{tag}'] = digest(img, ag, cnt, *(() if thr is None else (thr,)))
+        for tag, pp, thr in (('k16', p, thr_c), ('full', p_full, None)):
+            res[f'bwd_{tag}'] = digest(*dir_impl.launch_dir_bwd(table, img_c, ag_c, thr, g, pp))
+        torch.cuda.synchronize()
+        out[key] = res
+        B, F = fv.shape[:2]
+        is_ = p.image_size
+        splits = max(1, min(is_ * is_ // dir_impl.SPLIT_PIXELS, dir_impl.MAX_SPLITS))
+        GC = cuda_impl._grad_columns(p, table.tex_res)
+        n_live = live_items(torch, table.bbox, is_, splits)
+        if hasattr(dir_impl, 'item_count'):
+            n_items = dir_impl.item_count(table.items)
+            if n_items != n_live:
+                raise AssertionError(f'{key}: the prep counts {n_items} items, the bboxes '
+                                     f'{n_live}')
+            launched, part = n_items, n_items * GC * 4
+        else:
+            launched, part = B * F * splits, B * F * splits * GC * 4
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        dir_impl.launch_dir_bwd(table, img_c, ag_c, thr_c, g, p)
+        torch.cuda.synchronize()
+        big = key == 'dir_39474'
+        times.update({
+            f'{key}_fwd_ms': timed(lambda: dir_impl.launch_dir_fwd(table, p, True)),
+            f'{key}_fwd_nothr_ms': timed(lambda: dir_impl.launch_dir_fwd(table, p, False)),
+            f'{key}_fwd_k40_ms': timed(lambda: dir_impl.launch_dir_fwd(table, p40, True),
+                                       reps=2 if big else 5, rounds=3),
+            f'{key}_bwd_ms': timed(lambda: dir_impl.launch_dir_bwd(table, img_c, ag_c, thr_c,
+                                                                   g, p)),
+            f'{key}_bwd_full_ms': timed(lambda: dir_impl.launch_dir_bwd(table, img_c, ag_c, None,
+                                                                        g, p_full)),
+            f'{key}_bwd_peak_bytes': torch.cuda.max_memory_allocated() - m0,
+            f'{key}_bwd_part_bytes': part, f'{key}_bwd_launched_warps': launched,
+            f'{key}_bwd_live_items': n_live, f'{key}_faces': F, f'{key}_views': B})
+    # a dir soft_rasterize step on the 288-face sphere: device time, kernel
+    # launches and the backward's wait on the item count
+    fv, tex, kw = common['dir_288'][:3]
+    fv_l = fv.detach().clone().requires_grad_(True)
+    tex_l = tex.detach().clone().requires_grad_(True)
+
+    def step():
+        fv_l.grad = tex_l.grad = None
+        soft_rasterize(fv_l, tex_l, **kw).sum().backward()
+
+    with dir_impl.with_dir_max(4096):
+        times['dir_288_step_ms'] = timed(step, reps=10)
+        waits = []
+        for _ in range(10):
+            step()
+            waits.append(getattr(dir_impl.launch_dir_bwd, 'wait_ms', float('nan')))
+        times['dir_288_step_bwd_wait_ms'] = float(np.median(waits))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                step()
+            torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    times['dir_288_step_device_ms'] = sum(e.self_device_time_total for e in ev) / 1e3 / 4
+    times['dir_288_step_device_launches'] = sum(e.count for e in ev) / 4
+    times['dir_288_step_kernels_device_ms'] = {e.key: e.self_device_time_total / 1e3 / 4
+                                               for e in ev if 'softras' in e.key}
+    return out
+
+
+PARTS = ('binned', 'tiled', 'pxg', 'n3mr', 'dir')
 
 
 def worker(repo: str, inputs: str, out: str, make: bool, parts) -> int:
@@ -464,24 +647,29 @@ def worker(repo: str, inputs: str, out: str, make: bool, parts) -> int:
     dev = torch.device('cuda')
     p = make_params(image_size=1024)
     if make:
-        v, f, tex, renderer, gen = scene(torch, dev)
-        mesh = Mesh(v, f, textures=tex, texture_res=5)
-        with torch.no_grad():
-            lit = renderer.transform(renderer.lighting(mesh, renderer.transform.eyes))
-        fv = lit.face_vertices.reshape(1, -1, 9).contiguous()
-        tex = lit.face_textures.contiguous()
-        inp = cuda_impl.prepare(fv, tex, p, for_grad=True)
-        img, ag, cnt = cuda_impl.launch(inp, p)
-        thr = cuda_impl.launch_thr(inp, cnt, p)
-        g = torch.randn(img.shape, generator=gen, device=dev)
-        torch.save({'fv': fv, 'tex': tex, 'img': img, 'ag': ag, 'cnt': cnt, 'thr': thr,
-                    'g': g, 'n3mr_in': n3mr_inputs(torch, dev, v, f, gen),
-                    'tiled_bwd_in': tiled_bwd_inputs(torch, fv, tex, gen),
-                    'pxg_in': pxg_inputs(torch, fv, tex, gen)}, inputs)
+        made = {}
+        if set(parts) - {'dir'}:
+            v, f, tex, renderer, gen = scene(torch, dev)
+            mesh = Mesh(v, f, textures=tex, texture_res=5)
+            with torch.no_grad():
+                lit = renderer.transform(renderer.lighting(mesh, renderer.transform.eyes))
+            fv = lit.face_vertices.reshape(1, -1, 9).contiguous()
+            tex = lit.face_textures.contiguous()
+            inp = cuda_impl.prepare(fv, tex, p, for_grad=True)
+            img, ag, cnt = cuda_impl.launch(inp, p)
+            thr = cuda_impl.launch_thr(inp, cnt, p)
+            g = torch.randn(img.shape, generator=gen, device=dev)
+            made.update({'fv': fv, 'tex': tex, 'img': img, 'ag': ag, 'cnt': cnt, 'thr': thr,
+                         'g': g, 'n3mr_in': n3mr_inputs(torch, dev, v, f, gen),
+                         'tiled_bwd_in': tiled_bwd_inputs(torch, fv, tex, gen),
+                         'pxg_in': pxg_inputs(torch, fv, tex, gen)})
+        if 'dir' in parts:
+            made['dir_in'] = dir_inputs(torch, dev, torch.Generator(device=dev).manual_seed(13))
+        torch.save(made, inputs)
         return 0
 
     d = torch.load(inputs, map_location=dev)
-    fv, tex = d['fv'], d['tex']
+    fv, tex = d.get('fv'), d.get('tex')
 
     def digest(*ts):
         h = hashlib.sha256()
@@ -543,6 +731,8 @@ def worker(repo: str, inputs: str, out: str, make: bool, parts) -> int:
                                            digest)
     if 'pxg' in parts:
         res['pxg'] = pxg_kernels(torch, fv, tex, d['pxg_in'], times, timed, digest)
+    if 'dir' in parts:
+        res['dir'] = dir_kernels(torch, d['dir_in'], times, timed, digest)
     if 'n3mr' in parts:
         from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda
         fv_n, tex_n, edge_in = d['n3mr_in']
@@ -550,7 +740,8 @@ def worker(repo: str, inputs: str, out: str, make: bool, parts) -> int:
         res['edge'] = ncuda.launch_edgebwd(*edge_in, N3MR_EPS, True, False)
         times['n3mr_edgebwd_ms'] = timed(
             lambda: ncuda.launch_edgebwd(*edge_in, N3MR_EPS, True, False))
-    times.update(step_times(torch, np, fv, tex, timed, parts))
+    if set(parts) - {'dir', 'n3mr'}:
+        times.update(step_times(torch, np, fv, tex, timed, parts))
     torch.save({**res, 'times': times}, out)
     return 0
 
@@ -609,6 +800,10 @@ def agreement(par, chg, turns, first, parts):
                                          and torch.equal(r['thr'], first[t]['thr'])
                                          and torch.equal(r['thr40'], first[t]['thr40'])
                                          for t, r in turns)})
+    if 'dir' in parts:
+        same.update({f'{k}_{what}_equal': par['dir'][k][what] == chg['dir'][k][what]
+                     for k in par['dir'] for what in par['dir'][k]})
+        same['dir_each_tree_twice_equal'] = all(r['dir'] == first[t]['dir'] for t, r in turns)
     if 'n3mr' in parts:
         same.update({f'n3mr_{k}_equal': par['maps'][k] == chg['maps'][k] for k in MAPS})
         same['n3mr_maps_each_tree_twice_equal'] = all(r['maps'] == first[t]['maps']

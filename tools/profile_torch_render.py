@@ -336,7 +336,7 @@ def main() -> int:
 
     fv, tex, raster_step, render_step, frame = route_steps(13, 12)
     F = fv.shape[1]
-    table, t_prep = timed(lambda: dir_impl.prep_dir(fv, tex, p))
+    table, t_prep = timed(lambda: dir_impl.prep_dir(fv, tex, p, for_grad=True))
     (img, ag, cnt, thr), t_dfwd_thr = timed(lambda: dir_impl.launch_dir_fwd(table, p, True),
                                             reps=30)
     _, t_dfwd = timed(lambda: dir_impl.launch_dir_fwd(table, p, False), reps=30)
