@@ -25,7 +25,9 @@ of which raises on failure:
      the backward and its face reduction at 128 px over distance x rgb x
      alpha, texture sizes, vertex colours, batches, a ragged size,
      ``grad_mode='full'``, big faces, rows past 48 KB and runs of many
-     chunks a rank; forward and backward each run twice for bit equality;
+     chunks a rank, and big faces at B = 2 with T = 1, 4, 9 and 25 (the
+     reduction's instances); forward and backward each run twice for bit
+     equality, the reduction bit-equal to its plain version;
   4. the render path at full width: ``Renderer(image_size=1024)`` renders
      8 frames of the 39,474-face UV sphere with 5x5 texels per face,
      demo 1's camera; the launch count must equal the frames; 4,096
@@ -53,8 +55,11 @@ of which raises on failure:
      and 2, ``fill_back``, a ragged size, a zero-area face, a NaN face and
      a face that spans most of the screen, and triangles whose long edges
      take the edge gradient's global list; the edge gradient with rgb,
-     alpha and both, its band keys equal to the plain version's; each
-     backward run twice for bit equality;
+     alpha and both, its band keys equal to the plain version's; the
+     texture gradient's instances at 72 px, B = 2, on the screen-filling,
+     zero-area and NaN faces: texture sizes 1, 2 and 4 (sums in registers),
+     6, 7 and 9 (in shared memory, one walk and several); each backward run
+     twice for bit equality;
   9. the N3MR path at full width: ``Renderer(dr_type='n3mr',
      image_size=1024).render_mesh`` renders 8 frames of the 39,474-face
      sphere with 2x2x2 texels per face (rgb, then silhouettes and depth);
@@ -168,8 +173,11 @@ of which raises on failure:
         rows (bit for bit); each kernel timed alone and bounded, K5 also on
         the busiest tile alone and at 2, 4 and 8 blocks per tile, K6 as K4
         in 13b; the steps on both routes in turns;
- 15. one JSON line of the kernels (19 of them); the last line is the device
-     JSON.
+ 15. one JSON line of the kernels (20 of them), each with ``ms`` (its
+     wrapper, CUDA events around calls) and ``device_ms`` (the kernel's own
+     device time per launch in the steps its route's phase runs,
+     torch.profiler: jrender_tpu_torch/utils/device_time.py); the last
+     line is the device JSON.
 
 The meshes, textures, cameras and pixel samples come from fixed seeds.
 
@@ -187,9 +195,10 @@ own computes.  In the backward checks the surface textures are equal on
 the two sides of the texel selector's diagonal tie and the texture
 gradients are folded over each tie pair
 (jrender_tpu_torch/utils/checks.py), and each side computes the
-threshold its own way (see tests/test_torch_kernels.py).  In the kernels
-line, ``max_abs_err`` of the backward and of the reduction is a share of
-max|grad|; ``plain_on`` says what the plain version's time covers: it
+threshold its own way (see tests/test_torch_kernels.py).  The reduction's
+plain version adds each face's rows in the kernel's order: the two agree
+bit for bit.  In the kernels line, ``max_abs_err`` of the backward is a
+share of max|grad|, the reduction's is 0; ``plain_on`` says what the plain version's time covers: it
 runs on a sample of the frame's pixels, the whole frame being a matter of
 minutes.
 
@@ -394,6 +403,7 @@ def main() -> int:
     from jrender_tpu_torch.structures import vertex_normals_fn
     from jrender_tpu_torch.utils.checks import (fold_ties, grad_beyond, grad_unexplained,
                                                 tie_soup, tie_symmetric)
+    from jrender_tpu_torch.utils.device_time import device_ms
     from jrender_tpu_torch.utils.primitives import uv_sphere
 
     dev = torch.device('cuda')
@@ -449,6 +459,30 @@ def main() -> int:
         if any(read_pxg().values()) or any(read_tiled().values()):
             raise AssertionError(f'{tag}: the pxg, f_px or px_f kernels ran with JR_LAYOUT '
                                  f'unset: {read_pxg()}, {read_tiled()}')
+
+    # each wrapper's kernels (the names of their __global__ functions), whose
+    # own device time per launch the kernels line reports as device_ms: read
+    # with torch.profiler over the steps each route's phase runs
+    dev_ms = {}
+    binned_kernels = {'softras_fwd': ('softras_fwd_kernel',),
+                      'softras_thr': ('softras_thr_kernel',),
+                      'softras_bwd': ('softras_bwd_kernel', 'softras_bwd_big_kernel'),
+                      'softras_bwd_reduce': ('softras_bwd_reduce_kernel',)}
+    n3mr_kernels = {'n3mr_maps': ('n3mr_maps_kernel',), 'n3mr_texbwd': ('n3mr_texbwd_kernel',),
+                    'n3mr_edge_bands': ('n3mr_edge_bands_kernel',),
+                    'n3mr_edgebwd': ('n3mr_edgebwd_band_kernel', 'n3mr_edgebwd_global_kernel',
+                                     'n3mr_edgebwd_sum_kernel')}
+    dir_kernels = {k: (f'{k}_kernel',) for k in dir_wrappers}
+    pxg_kernels = {'softras_pxg_fwd': ('softras_pxg_fwd_kernel',),
+                   'softras_pxg_combine': ('softras_pxg_combine_kernel',),
+                   'softras_pxg_thr': ('softras_pxg_thr_lists_kernel',
+                                       'softras_pxg_thr_bisect_kernel'),
+                   'softras_pxg_bwd': ('softras_tile_bwd_kernel',),
+                   'segment_sum': ('segment_sum_kernel',)}
+
+    def tiled_kernels(r):
+        return {f'softras_{r}_fwd': ('softras_tile_fwd_kernel',),
+                f'softras_{r}_bwd': ('softras_tile_bwd_kernel',)}
 
     # ---- 1. device ------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -629,11 +663,13 @@ def main() -> int:
         torch.cuda.synchronize()
         if not (torch.equal(gf, gf2) and torch.equal(gt, gt2.reshape(gt.shape))):
             raise AssertionError(f'{tag}: two runs of the backward differ in their bits')
-        # the reduction alone against its plain version, on the same rows
+        # the reduction alone against its plain version, on the same rows: the
+        # plain version adds each face's rows in the kernel's order, bit for bit
         rf, rt = cuda_impl.reduce_rows_plain(inputs, rows, p)
-        (f_rf, e_rf), (f_rt, e_rt) = grad_beyond(gf, rf), grad_beyond(gt, rt)
-        f_red, e_red = max(f_rf, f_rt), max(e_rf, e_rt)
-        check(f'{tag} reduction', f_red, 0.0)
+        e_red = max((gf - rf).abs().max().item(), (gt - rt).abs().max().item())
+        if not (torch.equal(gf, rf) and torch.equal(gt, rt)):
+            raise AssertionError(f'{tag}: the reduction differs from its plain version '
+                                 f'(max {e_red:.3g})')
         # the whole backward against the plain one with its own threshold
         thr_plain = None if thr is None else torch_impl.topk_threshold_plain(
             fv, p, chunk_pairs=1 << 24)
@@ -657,8 +693,8 @@ def main() -> int:
             raise AssertionError(f'{tag}: zero face gradient')
         big = int(inputs.lists.gcount.sum().item())
         log(f'  {tag}: face grad {f_f:.6f} beyond (max {e_f:.2g} of scale), texture grad '
-            f'{f_t:.6f} (max {e_t:.2g}), reduction max {e_red:.2g}, big faces {big} '
-            f'(none beyond), bit-equal twice')
+            f'{f_t:.6f} (max {e_t:.2g}), reduction bit-equal to its plain version, big faces '
+            f'{big} (none beyond), bit-equal twice')
         return max(e_f, e_t), e_red
 
     # ---- 3. kernels vs plain, whole images -------------------------------
@@ -806,6 +842,13 @@ def main() -> int:
                         texture_type='vertex'), mt=16)
     run_bwd('soup 128 T=324, rows past 48 KB', fv_big_t, tex_big_t,
             make_params(image_size=128, sigma_val=1e-4, gamma_val=1e-3))
+    # the reduction's instances with big faces and B = 2: T = 1 (12 columns,
+    # eight faces a warp), T = 4 (21, scalar columns), T = 9 (36, float4,
+    # two faces a warp), T = 25 (84, float4, a warp a face)
+    for T in (1, 4, 9, 25):
+        fv, tex = soup(400, 2, T, SEED + 50 + T)
+        run_bwd(f'soup 128 B=2 T={T} big faces', fv, tex,
+                make_params(image_size=128, sigma_val=1e-4, gamma_val=1e-3), mt=4)
     # runs of many chunks for each of the backward's BWD_SPLIT ranks, and
     # with an emit cap of 2 tiles most faces big
     for mt in (None, 2):
@@ -920,6 +963,7 @@ def main() -> int:
         return read_counts()
 
     step_counts = drive('soft_rasterize', lambda i: bench_step())
+    dev_ms.update(device_ms(bench_step, binned_kernels, reps=STEPS))
     for name, g in (('face_vertices', fv_leaf.grad), ('textures', tex_leaf.grad)):
         if not (torch.isfinite(g).all() and g.abs().max() > 0):
             raise AssertionError(f'gradient of {name}: non-finite or zero')
@@ -1066,7 +1110,8 @@ def main() -> int:
                     ('softras_bwd', bwd_bound), ('softras_bwd_reduce', red_bound)):
         log(f'  bound {name}: {b[0]:.6f} ms by {b[1]}: {b[2]}')
     log(f'  kernels alone: forward {fwd_ms:.4f} ms, threshold {thr_ms:.4f} ms, backward '
-        f'{bwd_ms:.4f} ms, reduction {red_ms:.4f} ms  [{smi}]')
+        f'{bwd_ms:.4f} ms, reduction {red_ms:.4f} ms (wrappers, CUDA events); device time '
+        f'in the step: {({k: dev_ms[k] for k in binned_kernels})}  [{smi}]')
     log(f'  plain versions on {some}: forward {fwd_plain_ms:.1f} ms, '
         f'threshold {thr_plain_ms:.1f} ms, backward {bwd_plain_ms:.1f} ms; reduction (all rows) '
         f'{red_plain_ms:.3f} ms, index_add_ {red_lib_ms:.3f} ms  [{smi}]')
@@ -1347,6 +1392,28 @@ def main() -> int:
         raise AssertionError('special faces: the big face is missing or a degenerate face won')
     log(f'  big-face list of {int(lists_sp.gcount.min())} faces: the same maps; the '
         f'zero-area and NaN faces win no pixel')
+    # the texture gradient's instances: sums in registers (ts 1, 2, 4), in
+    # shared memory in one walk (6) and in several (7, 9); on the screen-
+    # filling, zero-area and NaN faces, B = 2, a 72-px image
+    tex_errs = {}
+    for ts in (1, 2, 4, 6, 7, 9):
+        tex_k13 = n3mr_texture(2, 300, ts, SEED + 30 + ts)
+        rows_k13, *maps_k13 = ncuda.forward_maps(fv_sp, tex_k13, 72, 0.1, 100.0, 1e-3)
+        fi_k13, wt_k13, dp_k13, _, zc_k13, rgb_k13 = maps_k13
+        gen.manual_seed(SEED + 40 + ts)
+        gr_k13 = torch.randn(rgb_k13.shape, generator=gen, device=dev)
+        in_k13 = (tex_k13.shape, fi_k13, wt_k13, dp_k13, zc_k13, gr_k13, 1e-3)
+        g_k13 = twice(f'72 px ts={ts} texture gradient',
+                      lambda: ncuda.backward_textures(rows_k13, *in_k13))
+        e_k13 = scaled_err(g_k13, nplain.backward_textures(*in_k13))
+        check(f'72 px ts={ts} texture gradient', e_k13, N3MR_SUM_TOL)
+        if not (g_k13[:, 0].abs().max() > 0 and (g_k13[:, 1:3] == 0).all()):
+            raise AssertionError(f'72 px ts={ts}: the screen-filling face has no texture '
+                                 'gradient, or a degenerate face has one')
+        n_err['n3mr_texbwd'] = max(n_err['n3mr_texbwd'], e_k13)
+        tex_errs[ts] = e_k13
+    log(f'  texture gradient at 72 px, B = 2, special faces, by texture size: {tex_errs} of '
+        f'scale; bit-equal twice')
 
     # ---- 9. the N3MR path at full width -------------------------------------
     log('phase 9: N3MR at 1024 px, 39,474 faces, 2x2x2 texels per face')
@@ -1408,6 +1475,7 @@ def main() -> int:
             raise AssertionError(f'N3MR launches after step {i + 1}: {n_read_counts()}')
     torch.cuda.synchronize()
     n_step_counts = n_read_counts()
+    dev_ms.update(device_ms(n3mr_step, n3mr_kernels, reps=STEPS))
     n3mr_grads_ok('rasterize step')
     log(f'  rasterize: launches {n_step_counts} for {STEPS} steps; '
         f'max |d faces| {fv_leaf_n.grad.abs().max().item():.4g}, '
@@ -1975,6 +2043,8 @@ def main() -> int:
                 torch.cuda.synchronize()
                 out[f'{name}_launches'] = read_dir()
                 out[f'{name}_wait_ms'] = float(np.median(waits))
+                if name == 'soft_rasterize':
+                    out['device_ms'] = device_ms(raster_step, dir_kernels, reps=STEPS)
                 for leaf in grads:
                     if leaf.grad is None or not (torch.isfinite(leaf.grad).all()
                                                  and leaf.grad.abs().max() > 0):
@@ -2099,6 +2169,7 @@ def main() -> int:
         return out
 
     small = dir_full_width('288 faces', 13, 12)
+    dev_ms.update(small['device_ms'])
     dir_counts = small['soft_rasterize_launches']
     middle = dir_full_width('3,330 faces', 38, 45)
     # bench.py's headline sphere (phase 4's inputs) on the dir kernels alone
@@ -2356,6 +2427,7 @@ def main() -> int:
             return {**read_pxg(), 'segment_sum': read_sum()}
 
         pxg_counts = pxg_steps('soft_rasterize', lambda i: bench_step())
+        dev_ms.update(device_ms(bench_step, pxg_kernels, reps=STEPS))
         for name, g in (('face_vertices', fv_leaf.grad), ('textures', tex_leaf.grad)):
             if not (torch.isfinite(g).all() and g.abs().max() > 0):
                 raise AssertionError(f'pxg gradient of {name}: non-finite or zero')
@@ -2933,6 +3005,7 @@ def main() -> int:
         only_tiled(f'f_px {FRAMES} frames', {'softras_fpx_fwd': FRAMES})
         frame_fpx = {**{n: read_tiled()[n] for n in fpx_names}, 'segment_sum': read_sum()}
         fpx_counts = tiled_steps("f_px grad_mode='full' soft_rasterize", full_step, fpx_names)
+        dev_ms.update(device_ms(full_step, tiled_kernels('fpx'), reps=STEPS))
         for nm, g in (('face_vertices', fv_leaf.grad), ('textures', tex_leaf.grad)):
             if not (torch.isfinite(g).all() and g.abs().max() > 0):
                 raise AssertionError(f'f_px gradient of {nm}: non-finite or zero')
@@ -3179,6 +3252,7 @@ def main() -> int:
         only_tiled(f'px_f {FRAMES} frames', {'softras_pxf_fwd': FRAMES})
         frame_pxf = {**{n: read_tiled()[n] for n in pxf_names}, 'segment_sum': read_sum()}
         pxf_counts = tiled_steps('px_f soft_rasterize', lambda i: bench_step(), pxf_names)
+        dev_ms.update(device_ms(bench_step, tiled_kernels('pxf'), reps=STEPS))
         for nm, g in (('face_vertices', fv_leaf.grad), ('textures', tex_leaf.grad)):
             if not (torch.isfinite(g).all() and g.abs().max() > 0):
                 raise AssertionError(f'px_f gradient of {nm}: non-finite or zero')
@@ -3269,9 +3343,12 @@ def main() -> int:
                                                               pxf_counts))
 
     def entry(name, source, replaces, err, ms, plain_ms, plain_on, b, library_ms=None):
+        # ms: the wrapper, CUDA events around its calls; device_ms: the kernel's
+        # own device time per launch in its route's step (torch.profiler)
         return {'name': name, 'route': 'cuda',
                 'source': f'jrender_tpu_torch/csrc/{source}', 'replaces': replaces,
                 'launches': launches[name], 'max_abs_err': err, 'ms': ms,
+                'device_ms': dev_ms[name],
                 'plain_ms': plain_ms, 'plain_on': plain_on, 'bound_ms': b[0],
                 'bound_by': b[1], 'library_ms': library_ms}
 

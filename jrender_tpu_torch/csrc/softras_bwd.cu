@@ -53,11 +53,20 @@
 //    blocks past the list's length return at once (no host sync to learn
 //    the length).  A mesh made of a few screen-filling faces is served by
 //    few blocks: correct, and slow.
-//  softras_bwd_reduce_kernel: one warp per face sums the face's slots in
-//    ascending tile order through gsrc [B, F, mt], the inverse of the
-//    binning's sort (the analogue of the TPU path's prep['gsrc']), or
-//    takes the face's gbig row, and writes grad_face_vertices [B,F,9] and
-//    grad_textures [B,F,tex].
+//  softras_bwd_reduce_kernel: one warp per face (or 32 / G faces a warp,
+//    G = 4 or 16 lanes each, where a face's float4 columns need that few:
+//    T = 1 and T = 9) sums the
+//    face's slots in ascending tile order through gsrc [B, F, mt], the
+//    inverse of the binning's sort (the analogue of the TPU path's
+//    prep['gsrc']), or takes the face's gbig row, and writes
+//    grad_face_vertices [B,F,9] and grad_textures [B,F,tex].  It is bound
+//    by the slot rows' bytes; what held its first design back was latency:
+//    each lane read gsrc[j] and then that row, one row at a time, in each
+//    of ceil(GC / 32) passes.  So a face's lanes load a window of its gsrc
+//    entries at once and a ballot hands out the emitted ones, a lane
+//    starts kReduceRows rows' loads before it adds them (in ascending tile
+//    order: the same bits), and where GC % 4 == 0 and the rows are 16-byte
+//    aligned a lane loads 4 columns as one float4 (GC 84: one pass).
 //
 // The reduction is deterministic: no atomics anywhere, every sum in a
 // fixed order, so two runs give the same bits.  Scratch: L = F * mt slot
@@ -77,6 +86,8 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "softras_grad.cuh"
 
 // The blocks that share one tile's run, a compile-time constant (PERF.md
@@ -87,6 +98,7 @@
 
 namespace softras {
 
+constexpr int kReduceRows = 4;  // slot rows whose loads a lane starts before it adds them
 constexpr int kTile = 16;
 constexpr int kThreads = kTile * kTile;
 constexpr int kWarps = kThreads / 32;
@@ -371,31 +383,112 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    softras_bwd_reduce_kernel(const ReduceArgs a) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long gw = (long long)blockIdx.x * kWarps + warp;  // b * F + f
-  if (gw >= (long long)a.B * a.F) return;
-  const int b = (int)(gw / a.F);
-  const int g = a.gpos[gw];
-  const int T3 = a.GC - 9;
-  for (int c = lane; c < a.GC; c += 32) {
-    float v = 0.0f;
-    if (g >= 0) {
-      v = a.gbig[((size_t)b * a.F + g) * a.GC + c];
-    } else {
-      // the face's emitted pairs in ascending tile order
-      for (int j = 0; j < a.mt; ++j) {
-        const int sl = a.gsrc[gw * a.mt + j];
-        if (sl >= 0) v += a.gslots[((size_t)b * a.L + sl) * a.GC + c];
+// Lane l's W columns of a row: W = 4 as one 16-byte load
+template <int W>
+__device__ __forceinline__ void load_cols(const float* row, int c, int GC, float (&v)[W]) {
+  if constexpr (W == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(row + c);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else {
+    v[0] = c < GC ? row[c] : 0.0f;
+  }
+}
+
+// Add to acc the slot rows of the emitted pairs in `m` (bit l: slots[l]), in
+// ascending bit order, with the loads of kReduceRows rows in flight at once
+template <int W>
+__device__ __forceinline__ void add_rows(const ReduceArgs& a, int b, int c, unsigned m,
+                                         const int* slots, float (&acc)[W]) {
+  constexpr int R = kReduceRows;
+  while (m) {
+    int sl[R];
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      sl[u] = -1;
+      if (m) {
+        sl[u] = slots[__ffs(m) - 1];
+        m &= m - 1;
       }
     }
-    if (c < 9) {
-      a.grad_face[gw * 9 + c] = v;
-    } else {
-      a.grad_tex[gw * T3 + (c - 9)] = v;
+    float v[R][W];
+#pragma unroll
+    for (int u = 0; u < R; ++u)
+      if (sl[u] >= 0 && c < a.GC)
+        load_cols<W>(a.gslots + ((size_t)b * a.L + sl[u]) * a.GC, c, a.GC, v[u]);
+#pragma unroll
+    for (int u = 0; u < R; ++u)
+      if (sl[u] >= 0) {
+#pragma unroll
+        for (int w = 0; w < W; ++w) acc[w] += v[u][w];
+      }
+  }
+}
+
+// W: columns a lane loads at once (1, or 4 as a float4 where GC % 4 == 0 and
+// the rows are 16-byte aligned); G: lanes a face (32, or 4 or 16 to run
+// 32 / G faces a warp where a face's float4 columns need that few lanes)
+template <int W, int G>
+__global__ void __launch_bounds__(kThreads)
+    softras_bwd_reduce_kernel(const ReduceArgs a) {
+  __shared__ int s_slot[kWarps][32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = lane / G, lig = lane % G;
+  const long long gw = ((long long)blockIdx.x * kWarps + warp) * (32 / G) + grp;  // b*F + f
+  const bool live = gw < (long long)a.B * a.F;
+  const int b = live ? (int)(gw / a.F) : 0;
+  const int g = live ? a.gpos[gw] : -1;
+  const bool walk = live && g < 0;           // the face's emitted rows, not a big-face row
+  const int T3 = a.GC - 9;
+  for (int c0 = 0; c0 < a.GC; c0 += G * W) {
+    const int c = c0 + lig * W;
+    float acc[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) acc[w] = 0.0f;
+    // the face's emitted pairs in ascending tile order: a window of G of its
+    // gsrc entries loaded by its lanes at once, the emitted ones handed out
+    // through shared memory by a ballot (every lane of the warp takes part)
+    const unsigned gmask = G == 32 ? 0xffffffffu : (1u << G) - 1u;
+    for (int j0 = 0; j0 < a.mt; j0 += G) {
+      const int j = j0 + lig;
+      const int sl = walk && j < a.mt ? a.gsrc[gw * a.mt + j] : -1;
+      const unsigned m = (__ballot_sync(0xffffffffu, sl >= 0) >> (grp * G)) & gmask;
+      s_slot[warp][lane] = sl;
+      __syncwarp();
+      add_rows<W>(a, b, c, m, s_slot[warp] + grp * G, acc);
+      __syncwarp();
+    }
+    if (live && g >= 0 && c < a.GC)
+      load_cols<W>(a.gbig + ((size_t)b * a.F + g) * a.GC, c, a.GC, acc);
+    if (!live) continue;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const int col = c + w;
+      if (col >= a.GC) break;
+      if (col < 9) {
+        a.grad_face[gw * 9 + col] = acc[w];
+      } else {
+        a.grad_tex[gw * T3 + (col - 9)] = acc[w];
+      }
     }
   }
+}
+
+template <int W, int G>
+cudaError_t launch_reduce(const ReduceArgs& a, cudaStream_t stream) {
+  const long long faces = (long long)a.B * a.F;
+  const long long per_block = (long long)kWarps * (32 / G);
+  const unsigned blocks = (unsigned)((faces + per_block - 1) / per_block);
+  softras_bwd_reduce_kernel<W, G><<<blocks, kThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The float4 columns of a surface row: GC = 9 + 3T with GC % 4 == 0 takes
+// GC / 4 = 3 (T = 1), 9 (T = 9) or 21 and more lanes
+cudaError_t launch_reduce_vec(const ReduceArgs& a, cudaStream_t stream) {
+  const int lanes = a.GC / 4;
+  if (lanes <= 4) return launch_reduce<4, 4>(a, stream);
+  if (lanes <= 16) return launch_reduce<4, 16>(a, stream);
+  return launch_reduce<4, 32>(a, stream);
 }
 
 template <int DIST>
@@ -435,11 +528,13 @@ extern "C" int softras_bwd(const softras::BwdArgs* args, void* stream) {
 
 extern "C" int softras_bwd_reduce(const softras::ReduceArgs* args, void* stream) {
   using namespace softras;
-  const long long faces = (long long)args->B * args->F;
-  const unsigned blocks = (unsigned)((faces + kWarps - 1) / kWarps);
-  softras_bwd_reduce_kernel<<<blocks, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(*args);
-  return (int)cudaGetLastError();
+  const ReduceArgs& a = *args;
+  if ((long long)a.B * a.F == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = a.GC % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(a.gslots) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(a.gbig) % 16 == 0;
+  return (int)(vec ? launch_reduce_vec(a, st) : launch_reduce<1, 32>(a, st));
 }
 
 extern "C" int softras_bwd_args_size() { return (int)sizeof(softras::BwdArgs); }

@@ -39,6 +39,7 @@ import torch
 
 from ... import _build
 from ..softras import binning
+from ..softras import cuda_impl as softras_cuda
 from ..softras.cuda_impl import _c_int, _check, _entry, _run
 from . import torch_impl
 from .torch_impl import ROW
@@ -103,8 +104,7 @@ class EdgeBands(NamedTuple):
 
 
 def _device_of(t: torch.Tensor) -> torch.device:
-    if t.device.type != 'cuda':
-        raise ValueError(f'the CUDA kernel needs CUDA tensors, got {t.device}')
+    softras_cuda._need_cuda(t.device)
     return t.device
 
 
@@ -317,17 +317,17 @@ def maps_split_plain(face: torch.Tensor, is_: int, near: float, far: float, spli
     maps = torch_impl.maps_of_winners(rows, best_f, best_z, coords, far)
     return tuple(m.reshape(B, is_, is_, *m.shape[2:]) for m in maps)
 
-def launch_texbwd(rows, tex_shape, face_index, weight, depth, zcorn, grad_rgb,
-                  eps: float):
-    """Launch the texture-gradient kernel on the current stream: grad_tex
-    [B,F,ts,ts,ts,3] from the forward's rows [B,F,19] and maps and the rgb
-    gradient [B,H,W,3].  Any texture size is served: up to 6 in one walk of
-    a face's pixels, a larger one in several.  Deterministic: no atomics,
-    every sum in a fixed order.  ``launch_texbwd.launches`` counts the launches."""
+
+def texbwd_args(rows, tex_shape, face_index, weight, depth, zcorn, grad_rgb, eps: float):
+    """The texture-gradient kernel's checked arguments and its output
+    grad_tex [B,F,ts,ts,ts,3], allocated on the inputs' card: what
+    ``launch_texbwd`` hands to the kernel."""
     dev = _device_of(rows)
     B, F, ts = tex_shape[:3]
     if ts < 1:
         raise ValueError(f'the texture size must be at least 1, got {ts}')
+    if face_index.dim() != 3:
+        raise ValueError(f'face_index must be [B, is, is], got {tuple(face_index.shape)}')
     is_ = face_index.shape[1]
     _check(rows, 'rows', torch.float32, (B, F, ROW), dev)
     _check(face_index, 'face_index', torch.int32, (B, is_, is_), dev)
@@ -336,17 +336,42 @@ def launch_texbwd(rows, tex_shape, face_index, weight, depth, zcorn, grad_rgb,
     _check(zcorn, 'zcorn', torch.float32, (B, is_, is_, 3), dev)
     _check(grad_rgb, 'grad_rgb', torch.float32, (B, is_, is_, 3), dev)
     grad_tex = torch.empty((B, F, ts, ts, ts, 3), dtype=torch.float32, device=dev)
-
-    fn = _entry('n3mr_texbwd', 'n3mr_texbwd', _TexBwdArgs)
     args = _TexBwdArgs(rows.data_ptr(), face_index.data_ptr(), weight.data_ptr(),
                        depth.data_ptr(), zcorn.data_ptr(), grad_rgb.data_ptr(),
                        grad_tex.data_ptr(), B, F, is_, ts, eps)
-    _run(fn, 'n3mr_texbwd', args, dev)
+    return args, grad_tex
+
+
+def launch_texbwd(rows, tex_shape, face_index, weight, depth, zcorn, grad_rgb,
+                  eps: float):
+    """Launch the texture-gradient kernel on the current stream: grad_tex
+    [B,F,ts,ts,ts,3] from the forward's rows [B,F,19] and maps and the rgb
+    gradient [B,H,W,3].  Any texture size is served: up to 4 with the sums
+    in registers, up to 6 in one walk of a face's pixels, a larger one in
+    several.  Deterministic: no atomics, every sum in a fixed order.
+    ``launch_texbwd.launches`` counts the launches."""
+    args, grad_tex = texbwd_args(rows, tex_shape, face_index, weight, depth, zcorn, grad_rgb,
+                                 eps)
+    _run(_entry('n3mr_texbwd', 'n3mr_texbwd', _TexBwdArgs), 'n3mr_texbwd', args, rows.device)
     launch_texbwd.launches += 1
     return grad_tex
 
 
 launch_texbwd.launches = 0
+
+
+def texbwd_occupancy(ts: int) -> dict:
+    """Registers, local (spill) bytes and blocks an SM of the texture-gradient
+    kernel's instance for texture size ``ts`` (register sums up to 4, shared
+    ones above), from the CUDA runtime."""
+    fn = _build.load('n3mr_texbwd').n3mr_texbwd_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    err = fn(ts, out)
+    if err != 0:
+        raise RuntimeError(f'n3mr_texbwd occupancy query failed: CUDA error {err}')
+    return {'registers': out[0], 'local_bytes': out[1], 'blocks_per_sm': out[2]}
 
 
 def edge_inputs(face, face_index, rgb_map, alpha_map, grad_rgb, grad_alpha,
@@ -453,25 +478,34 @@ def _edge_lib(band: int):
     return lib
 
 
-def _band_keys(pp: torch.Tensor, is_: int, lib):
+def edge_bands_args(pp: torch.Tensor, is_: int, band: int = EDGE_BAND):
+    """The band-key kernel's checked arguments and its outputs (keys
+    [N * EDGE_SPAN] of ``key_dtype``, items [N, 3] int32: what
+    ``band_keys_plain`` returns), allocated on pp's card, for bands of
+    ``band`` rows: what ``launch_edge_bands`` hands to the kernel."""
     dev = _device_of(pp)
     if pp.dim() != 3:
         raise ValueError(f'pp must be [B, F, 7], got {tuple(pp.shape)}')
     B, F = pp.shape[:2]
     _check(pp, 'pp', torch.float32, (B, F, 7), dev)
+    keys = torch.empty((6 * B * F * EDGE_SPAN,), dtype=key_dtype(B, F, is_, band), device=dev)
+    items = torch.empty((6 * B * F, 3), dtype=torch.int32, device=dev)
+    args = _EdgeBandArgs(pp.data_ptr(), keys.data_ptr(), items.data_ptr(), B, F, is_,
+                         keys.element_size())
+    return args, (keys, items)
+
+
+def _band_keys(pp: torch.Tensor, is_: int, lib):
     band = _c_int(lib, 'n3mr_edgebwd_band')
+    args, out = edge_bands_args(pp, is_, band)
     gbase = lib.n3mr_edge_gbase
     gbase.argtypes, gbase.restype = [ctypes.c_int] * 3, ctypes.c_longlong
-    if gbase(B, F, is_) != key_layout(B, F, is_, band).gbase:
-        raise RuntimeError(f'n3mr_edge_bands puts the global keys at {gbase(B, F, is_)}, '
-                           f'key_layout at {key_layout(B, F, is_, band).gbase}')
-    dtype = key_dtype(B, F, is_, band)
-    keys = torch.empty((6 * B * F * EDGE_SPAN,), dtype=dtype, device=dev)
-    items = torch.empty((6 * B * F, 3), dtype=torch.int32, device=dev)
-    fn = _entry('n3mr_edgebwd', 'n3mr_edge_bands', _EdgeBandArgs, lib=lib)
-    _run(fn, 'n3mr_edge_bands', _EdgeBandArgs(pp.data_ptr(), keys.data_ptr(), items.data_ptr(),
-                                              B, F, is_, keys.element_size()), dev)
-    return keys, items
+    got, want = gbase(args.B, args.F, is_), key_layout(args.B, args.F, is_, band).gbase
+    if got != want:
+        raise RuntimeError(f'n3mr_edge_bands puts the global keys at {got}, key_layout at {want}')
+    _run(_entry('n3mr_edgebwd', 'n3mr_edge_bands', _EdgeBandArgs, lib=lib), 'n3mr_edge_bands',
+         args, pp.device)
+    return out
 
 
 def launch_edge_bands(pp: torch.Tensor, is_: int):

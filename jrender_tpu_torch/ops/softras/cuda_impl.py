@@ -164,6 +164,13 @@ def prepare(face_vertices: torch.Tensor, textures: torch.Tensor,
     return FwdInputs(face_rows(face, textures, p), lists, R)
 
 
+def _need_cuda(dev: torch.device) -> None:
+    """Raise unless ``dev`` is a CUDA card: the kernels' arguments point
+    into its memory."""
+    if dev.type != 'cuda':
+        raise ValueError(f'the CUDA kernel needs CUDA tensors, got {dev}')
+
+
 def _check(t: torch.Tensor, what: str, dtype, shape, device) -> None:
     if t.device != device:
         raise ValueError(f'{what} is on {t.device}, expected {device}')
@@ -227,8 +234,7 @@ def _check_inputs(inputs: FwdInputs, p: SoftRasParams):
     (device, B, F, row, L, tiles)."""
     rows, cl, R = inputs
     dev = rows.device
-    if dev.type != 'cuda':
-        raise ValueError(f'the CUDA kernel needs CUDA tensors, got {dev}')
+    _need_cuda(dev)
     if rows.dim() != 3:
         raise ValueError(f'rows must be [B, F, row], got {tuple(rows.shape)}')
     B, F, row = rows.shape
@@ -466,11 +472,11 @@ def launch_bwd(inputs: FwdInputs, images, aggrs, thr, grad_images,
 launch_bwd.launches = 0
 
 
-def launch_reduce(inputs: FwdInputs, grad_rows: GradRows, p: SoftRasParams):
-    """Launch the face reduction on the current stream: each face's rows
-    summed in ascending tile order (or its big-face row taken).  Returns
-    (grad_face_vertices [B,F,9], grad_textures [B,F,T,3] or [B,F,3,3]).
-    ``launch_reduce.launches`` counts the launches."""
+def reduce_args(inputs: FwdInputs, grad_rows: GradRows, p: SoftRasParams):
+    """The face reduction's checked arguments and its outputs
+    (grad_face_vertices [B,F,9], grad_textures [B,F,T,3] or [B,F,3,3]),
+    allocated on the inputs' card: what ``launch_reduce`` hands to the
+    kernel."""
     dev, B, F, row, L, tiles = _check_inputs(inputs, p)
     cl, R = inputs.lists, inputs.tex_res
     if cl.gsrc is None or cl.gpos is None:
@@ -487,29 +493,42 @@ def launch_reduce(inputs: FwdInputs, grad_rows: GradRows, p: SoftRasParams):
     grad_face = torch.empty((B, F, 9), dtype=torch.float32, device=dev)
     tex_shape = (B, F, R * R, 3) if p.texture_type_id == 0 else (B, F, 3, 3)
     grad_tex = torch.empty(tex_shape, dtype=torch.float32, device=dev)
-
-    fn = _entry('softras_bwd', 'softras_bwd_reduce', _ReduceArgs)
     args = _ReduceArgs(grad_rows.gslots.data_ptr(), grad_rows.gbig.data_ptr(),
                        cl.gsrc.data_ptr(), cl.gpos.data_ptr(),
                        grad_face.data_ptr(), grad_tex.data_ptr(), B, F, L, mt, GC)
-    _run(fn, 'softras_bwd_reduce', args, dev)
+    return args, (grad_face, grad_tex)
+
+
+def launch_reduce(inputs: FwdInputs, grad_rows: GradRows, p: SoftRasParams):
+    """Launch the face reduction on the current stream: each face's rows
+    summed in ascending tile order (or its big-face row taken).  Returns
+    (grad_face_vertices [B,F,9], grad_textures [B,F,T,3] or [B,F,3,3]).
+    ``launch_reduce.launches`` counts the launches."""
+    args, out = reduce_args(inputs, grad_rows, p)
+    _run(_entry('softras_bwd', 'softras_bwd_reduce', _ReduceArgs), 'softras_bwd_reduce', args,
+         inputs.rows.device)
     launch_reduce.launches += 1
-    return grad_face, grad_tex
+    return out
 
 
 launch_reduce.launches = 0
 
 
 def reduce_rows_plain(inputs: FwdInputs, grad_rows: GradRows, p: SoftRasParams):
-    """The plain version of the face reduction: gather each face's rows
-    through ``gsrc`` and sum them, or take the face's big-face row.
+    """The plain version of the face reduction: each face's rows added
+    through ``gsrc`` in ascending tile order from 0, as the kernel adds
+    them (a face's sum is never -0, so adding 0 for a pair not emitted
+    changes no bit: the kernel's bits), or the face's big-face row taken.
     Returns what ``launch_reduce`` returns."""
     cl, R = inputs.lists, inputs.tex_res
     B, F, mt = cl.gsrc.shape
     gsrc, gpos = cl.gsrc.long(), cl.gpos.long()
     b = torch.arange(B, device=gsrc.device)[:, None]
-    rows = grad_rows.gslots[b[..., None], gsrc.clamp_min(0)]        # [B,F,mt,GC]
-    total = torch.where((gsrc >= 0)[..., None], rows, 0.0).sum(dim=2)
+    total = grad_rows.gbig.new_zeros(grad_rows.gbig.shape)
+    for j in range(mt):
+        sl = gsrc[:, :, j]
+        total = total + torch.where((sl >= 0)[..., None], grad_rows.gslots[b, sl.clamp_min(0)],
+                                    0.0)
     total = torch.where((gpos >= 0)[..., None],
                         grad_rows.gbig[b, gpos.clamp_min(0)], total)
     tex_shape = (B, F, R * R, 3) if p.texture_type_id == 0 else (B, F, 3, 3)

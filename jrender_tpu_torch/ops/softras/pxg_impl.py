@@ -455,8 +455,7 @@ def _check_inputs(pin: PxgInputs, p: SoftRasParams):
     the kernels index.  Returns (device, B, F, row, NT)."""
     rows = pin.rows
     dev = rows.device
-    if dev.type != 'cuda':
-        raise ValueError(f'the CUDA kernel needs CUDA tensors, got {dev}')
+    cuda_impl._need_cuda(dev)
     if rows.dim() != 3:
         raise ValueError(f'rows must be [B, F, row], got {tuple(rows.shape)}')
     B, F, row = rows.shape
@@ -551,24 +550,32 @@ def fwd_occupancy(args, defines=()) -> dict:
     return {'registers': out[0], 'local_bytes': out[1], 'blocks_per_sm': out[2]}
 
 
-def launch_pxg_combine(pin: PxgInputs, parts: torch.Tensor, p: SoftRasParams):
-    """Launch the combine kernel on the current stream: a block per tile, a
-    thread per pixel walks the tile's items in order.  Returns (images
-    [B,4,H,W], aggrs [B,2,H,W], counts [B,H,W] int32), as the binned
-    forward does.  ``launch_pxg_combine.launches`` counts the launches."""
+def combine_args(pin: PxgInputs, parts: torch.Tensor, p: SoftRasParams):
+    """The combine kernel's checked arguments and its outputs (images
+    [B,4,H,W], aggrs [B,2,H,W], counts [B,H,W] int32), allocated on the
+    inputs' card: what ``launch_pxg_combine`` hands to the kernel."""
     dev, B, F, row, NT = _check_inputs(pin, p)
     _check(parts, 'parts', torch.float32, (pin.items.shape[0], PARTS, PIXELS), dev)
     is_ = p.image_size
     images = torch.empty((B, 4, is_, is_), dtype=torch.float32, device=dev)
     aggrs = torch.empty((B, 2, is_, is_), dtype=torch.float32, device=dev)
     counts = torch.empty((B, is_, is_), dtype=torch.int32, device=dev)
-    fn = _entry('softras_pxg_fwd', 'softras_pxg_combine', _PxgCombineArgs)
     args = _PxgCombineArgs(parts.data_ptr(), pin.item_off.data_ptr(), images.data_ptr(),
                            aggrs.data_ptr(), counts.data_ptr(), B, F, is_, tiles_for(is_),
                            p.rgb_func_id, p.alpha_func_id, _scalars(p, pin.tex_res))
-    _run(fn, 'softras_pxg_combine', args, dev)
+    return args, (images, aggrs, counts)
+
+
+def launch_pxg_combine(pin: PxgInputs, parts: torch.Tensor, p: SoftRasParams):
+    """Launch the combine kernel on the current stream: a block per tile, a
+    thread per pixel walks the tile's items in order.  Returns (images
+    [B,4,H,W], aggrs [B,2,H,W], counts [B,H,W] int32), as the binned
+    forward does.  ``launch_pxg_combine.launches`` counts the launches."""
+    args, out = combine_args(pin, parts, p)
+    _run(_entry('softras_pxg_fwd', 'softras_pxg_combine', _PxgCombineArgs),
+         'softras_pxg_combine', args, pin.rows.device)
     launch_pxg_combine.launches += 1
-    return images, aggrs, counts
+    return out
 
 
 launch_pxg_combine.launches = 0

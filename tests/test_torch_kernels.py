@@ -219,6 +219,39 @@ def test_softras_bwd_kernels_match_plain(kw):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize('T', [1, 4, 9, 25])
+def test_softras_bwd_reduce_kernel_matches_plain(T):
+    """The face reduction on the backward's slot rows, at T = 1 (12 columns:
+    four lanes a face, eight faces a warp), 4 (21: scalar columns), 9 (36:
+    float4 columns, 16 lanes a face, two faces a warp) and 25 (84: float4
+    columns, a warp a face), with big faces and B = 2: its plain version adds
+    each face's rows in the kernel's order, so the two agree bit for bit;
+    twice, the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    x, t = soup(7, F=300, B=2, T=T)
+    x = with_big_faces(x)
+    p = make_params(image_size=72, sigma_val=1e-3, gamma_val=1e-3)
+    inputs = cuda_impl.prepare(x, t, p, for_grad=True)
+    inputs = inputs._replace(lists=binning.build_tile_lists_compact(
+        x, 72, cuda_impl.TILE, cuda_impl.TILE, p.threshold, 6, with_inverse=True))
+    assert int(inputs.lists.gcount.min()) >= 2
+    img, ag, counts = cuda_impl.launch(inputs, p)
+    thr = cuda_impl.topk_threshold(x, p, inputs, counts)
+    g = torch.randn(img.shape, generator=torch.Generator(device='cuda').manual_seed(8),
+                    device='cuda')
+    rows = cuda_impl.launch_bwd(inputs, img, ag, thr, g, p)
+    got = cuda_impl.launch_reduce(inputs, rows, p)
+    again = cuda_impl.launch_reduce(inputs, rows, p)
+    want = cuda_impl.reduce_rows_plain(inputs, rows, p)
+    torch.cuda.synchronize()
+    assert rows.gslots.shape[2] == 9 + 3 * T
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b) and torch.equal(a, w)
+    assert got[0].abs().max() > 0 and got[1].abs().max() > 0
+
+
+@pytest.mark.gpu
 def test_soft_rasterize_backward_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
@@ -674,8 +707,10 @@ def test_n3mr_maps_kernel_matches_plain(is_, ts, special):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('ts', [1, 2, 4, 6, 7, 9])
+@pytest.mark.parametrize('ts', [1, 2, 3, 4, 6, 7, 9])
 def test_n3mr_texbwd_kernel_matches_plain(ts):
+    """Texture sizes 1 to 4 take the register sums, 6 the shared ones in
+    one walk, 7 and 9 several walks."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
     from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda, torch_impl as nplain

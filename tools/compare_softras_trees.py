@@ -28,6 +28,13 @@ in the turns parent, change, change, parent:
     kernels alone and
     the forward, threshold and backward on the busiest tile's faces alone
     (CUDA events, the median of 5 rounds of 20 launches after a warm-up);
+  * reads the reduction's device time alone: its arguments made once by
+    the tree's ``reduce_args`` (a tree without it: its wrapper, whose host
+    work the device time does not read), the kernel's own time per launch
+    from torch.profiler (this checkout's ``device_time.py``, the median
+    over 20 launches); and runs it, and reads it so, on the slot rows of three
+    more inputs: the 288- and 3,330-face spheres at 1024 px and demo 2's
+    first step (T = 1), each tree's forward and backward making the rows;
   * runs the f_px backward (K4, ``grad_mode='full'``) and the px_f
     backward (K6, K = 16), softmax and hard rgb, each on common forward
     outputs (this tree's K3 and K5) and a seeded incoming gradient, then the
@@ -41,7 +48,8 @@ in the turns parent, change, change, parent:
     and K8 alone (its arguments made before the timing, ``thr_kernel``), K8
     at K = 40, K9 and the face sum on the softmax frame, K7 and K9 on the
     busiest tile's work items alone (the items of that tile on the frame's
-    inputs) and K8 alone on the overfull tile of the most items;
+    inputs) and K8 alone on the overfull tile of the most items; the
+    combine's (``combine_args``) and the face sum's device time alone;
   * runs N3MR's z-buffer (K12, ``n3mr.cuda_impl.launch_maps``) and edge
     gradient (``launch_edgebwd``, what the tree launches for it) on the
     sphere at 1024 px (phase 9 of ``chip_smoke.py``: 2x2x2 texels; the edge
@@ -49,7 +57,13 @@ in the turns parent, change, change, parent:
     from ``edge_inputs``); times both, and the z-buffer on the busiest
     tile's list alone (the whole grid, every other list empty), on empty
     lists and, where the tree's ``maps_args`` takes ``tile``, on the
-    busiest tile's cluster alone (``n3mr_maps``);
+    busiest tile's cluster alone (``n3mr_maps``); the band keys' device
+    time alone; and the texture gradient (K13, ``launch_texbwd``) on common
+    maps and a seeded rgb gradient of four inputs: the 39,474-, 288- and
+    3,330-face spheres at 1024 px at texture sizes 2 and 4, and demo 4's
+    first fit step (256 px, 2,600 faces, size 4, caught on its way to the
+    wrapper), each held bit for bit between the trees and timed by its
+    wrapper and by its device time alone (``texbwd_args``);
   * runs the dir route's kernels (``dir``) on four inputs: the 288-,
     3,330- and 39,474-face spheres (``uv_sphere(13, 12)``, ``(38, 45)``,
     ``(130, 153)``) at 1024 px with the renderer's defaults, and demo 2's
@@ -83,7 +97,8 @@ threshold maps (K = 16 and 40) bit for bit and their largest image
 difference, K4's and K6's entry rows and face sums bit for bit, K7's
 partial rows and depth lists, the combine's image, aggregates and counts,
 K8's threshold maps (K = 16 and 40), K9's entry rows and face sums bit
-for bit (softmax and hard rgb), K12's six maps bit for bit, K10's image,
+for bit (softmax and hard rgb), K12's six maps bit for bit, K13's
+gradients and the reduction's on every input bit for bit, K10's image,
 aggregates, counts and thresholds (K = 16, 40 and none) and K11's face and
 texture gradients (K = 16 and ``grad_mode='full'``) bit for bit on each
 dir input, each tree's
@@ -106,6 +121,18 @@ import tempfile
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
+
+
+def _device_ms():
+    """``device_ms`` of this checkout's ``jrender_tpu_torch/utils/
+    device_time.py``, loaded from its file alone: both trees are timed by the
+    same timer, and the process imports no second ``jrender_tpu_torch``."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        '_device_time', REPO / 'jrender_tpu_torch' / 'utils' / 'device_time.py')
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.device_ms
 
 
 def scene(torch, dev):
@@ -227,6 +254,107 @@ def n3mr_inputs(torch, dev, v, f, gen):
     g_rgb = torch.randn(rgb.shape, generator=gen, device=dev)
     alpha = (fi >= 0).float()
     return fv, tex, ncuda.edge_inputs(fv, fi, rgb, alpha, g_rgb, alpha, 1024, True, False)
+
+
+def sphere_maps(torch, dev, v, f, gen, is_=1024):
+    """The texture gradient's inputs on a sphere in phase 9's camera at
+    ``is_`` px: the forward's rows and maps (``forward_maps``) and a seeded
+    incoming rgb gradient, with the eps they were made with."""
+    from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda
+    from jrender_tpu_torch.structures import face_vertices
+    from jrender_tpu_torch.transform import look_at, perspective
+    vt = perspective(look_at(torch.tensor(v, device=dev)[None], (0.0, 0.0, -2.732)), angle=30)
+    fv = face_vertices(vt, torch.tensor(f, device=dev)[None]).reshape(1, -1, 9)
+    rows, fi, wt, dp, _, zc, _ = ncuda.forward_maps(fv, None, is_, 0.1, 100.0, N3MR_EPS)
+    g_rgb = torch.randn(wt.shape, generator=gen, device=dev)
+    return rows, fi, wt, dp, zc, g_rgb, N3MR_EPS
+
+
+def demo4_maps(torch, dev):
+    """The texture gradient's inputs of demo 4's first fit step
+    (``chip_smoke.py`` phase 10: 256 px, the 1,300-face sphere, texture size
+    4, an orthographic camera): the arguments of its one
+    ``launch_texbwd`` call, caught on their way to the wrapper."""
+    import numpy as np
+    from jrender_tpu_torch import Renderer
+    from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda
+    from jrender_tpu_torch.utils.primitives import uv_sphere
+    v, f = uv_sphere(26, 26)
+    verts = torch.tensor(v * np.float32(0.5 / 0.85), device=dev)[None] * 0.6 / 0.5
+    faces = torch.tensor(f, device=dev)[None]
+    fitter = Renderer(camera_mode='look_at', perspective=False, light_intensity_directionals=0.0,
+                      light_intensity_ambient=1.0, dr_type='n3mr')
+    fitter.transform.set_eyes_from_angles(2.732, 0, float(np.random.RandomState(1).uniform(0, 360)))
+    gen = torch.Generator(device=dev).manual_seed(9)
+    with torch.no_grad():
+        goal = fitter(verts, faces, torch.rand((1, f.shape[0], 4, 4, 4, 3), generator=gen,
+                                               device=dev))
+    tex_fit = torch.ones((1, f.shape[0], 4, 4, 4, 3), device=dev, requires_grad=True)
+    caught, wrapper = [], ncuda.launch_texbwd
+
+    def catch(rows, tex_shape, fi, wt, dp, zc, g, eps):
+        caught.append((rows, fi, wt, dp, zc, g.contiguous(), eps))
+        return wrapper(rows, tex_shape, fi, wt, dp, zc, g, eps)
+
+    catch.launches = 0      # the wrapper counts its launches under its module name
+    ncuda.launch_texbwd = catch
+    try:
+        ((fitter(verts, faces, torch.tanh(tex_fit)) - goal) ** 2).sum().backward()
+    finally:
+        ncuda.launch_texbwd = wrapper
+    if len(caught) != 1:
+        raise AssertionError(f'demo 4 step: {len(caught)} texture-gradient launches')
+    return caught[0]
+
+
+# K13's inputs and the texture sizes each is read at
+TEX_INPUTS = {'tex_39474': ((130, 153), (2, 4)), 'tex_288': ((13, 12), (2, 4)),
+              'tex_3330': ((38, 45), (2, 4)), 'tex_demo4': (None, (4,))}
+
+
+def tex_inputs(torch, dev, gen):
+    """K13's common inputs by the keys of TEX_INPUTS: (rows, face_index,
+    weight, depth, zcorn, grad_rgb, eps)."""
+    from jrender_tpu_torch.utils.primitives import uv_sphere
+    return {key: sphere_maps(torch, dev, *uv_sphere(*rs), gen) if rs else demo4_maps(torch, dev)
+            for key, (rs, _) in TEX_INPUTS.items()}
+
+
+def alone(mod, args_fn, source, entry, args_type, dev, wrapper, *a):
+    """A callable that launches a kernel alone: its arguments made now by
+    ``mod.<args_fn>`` where the tree has that function, else (a tree before
+    the ``*_args`` functions) the wrapper ``wrapper(*a)``, whose host work
+    the device time does not read."""
+    if not hasattr(mod, args_fn):
+        return lambda: wrapper(*a)
+    from jrender_tpu_torch.ops.softras import cuda_impl
+    args, keep = getattr(mod, args_fn)(*a)
+    fn = cuda_impl._entry(source, entry, getattr(mod, args_type))
+
+    def run():
+        cuda_impl._run(fn, entry, args, dev)
+    run.keep = keep      # the tensors that args point into
+    return run
+
+
+def texbwd(torch, tex_in, times, timed, digest):
+    """K13 of this tree on its common inputs at the texture sizes of
+    TEX_INPUTS: the gradients as digests by '<key>_ts<ts>'; adds to
+    ``times`` the wrapper's time and the kernel's device time alone."""
+    device_ms = _device_ms()
+    from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda
+    out = {}
+    for key, (rows, fi, wt, dp, zc, g, eps) in tex_in.items():
+        for ts in TEX_INPUTS[key][1]:
+            a = (rows, (*rows.shape[:2], ts, ts, ts, 3), fi, wt, dp, zc, g, eps)
+            out[f'{key}_ts{ts}'] = digest(ncuda.launch_texbwd(*a))
+            times[f'{key}_texbwd_ts{ts}_ms'] = timed(lambda: ncuda.launch_texbwd(*a))
+            times[f'{key}_texbwd_ts{ts}_device_ms'] = device_ms(
+                alone(ncuda, 'texbwd_args', 'n3mr_texbwd', 'n3mr_texbwd', '_TexBwdArgs',
+                      rows.device, ncuda.launch_texbwd, *a), {'k': ('n3mr_texbwd_kernel',)})['k']
+        times[f'{key}_faces'] = rows.shape[1]
+    torch.cuda.synchronize()
+    return out
 
 
 MAPS = ('face_index', 'weight', 'depth', 'face_inv', 'zcorn', 'rgb')
@@ -412,6 +540,7 @@ def pxg_kernels(torch, fv, tex, common, times, timed, digest):
     them, and K9's entry rows and face sums on the common inputs, as
     digests by key; adds to ``times`` each kernel's time on the softmax
     frame and K7's and K9's on the busiest tile's work items alone."""
+    device_ms = _device_ms()
     from jrender_tpu_torch.ops.softras import make_params, pxg_impl, tiled
     out = {}
     for key, kw in PXG.items():
@@ -451,6 +580,12 @@ def pxg_kernels(torch, fv, tex, common, times, timed, digest):
             'pxg_thr_ms': timed(lambda: pxg_impl.launch_pxg_thr(pin, depths, cnt, p)),
             'pxg_bwd_ms': timed(lambda: pxg_impl.launch_pxg_bwd(pin, img_c, ag_c, thr_c, g, p)),
             'pxg_sum_ms': timed(lambda: tiled.face_sum(pin, rows, p)),
+            'pxg_combine_device_ms': device_ms(
+                alone(pxg_impl, 'combine_args', 'softras_pxg_fwd', 'softras_pxg_combine',
+                      '_PxgCombineArgs', fv.device, pxg_impl.launch_pxg_combine, pin, parts, p),
+                {'k': ('softras_pxg_combine_kernel',)})['k'],
+            'pxg_sum_device_ms': device_ms(lambda: tiled.face_sum(pin, rows, p),
+                                           {'k': ('segment_sum_kernel',)})['k'],
             'pxg_items': int(pin.items.shape[0])})
         # the busiest tile's items alone, on the frame's inputs
         busy = int((pin.tile_off[1:] - pin.tile_off[:-1]).argmax())
@@ -468,6 +603,55 @@ def pxg_kernels(torch, fv, tex, common, times, timed, digest):
 
 DIR_SPHERES = {'dir_288': (13, 12), 'dir_3330': (38, 45), 'dir_39474': (130, 153)}
 DEMO2_VIEWS = 120
+
+
+def reduce_inputs(torch, dev):
+    """The reduction's more inputs by key: the 288- and 3,330-face spheres
+    at 1024 px in the comparison's camera, 5x5 texels a face, and demo 2's
+    first step (T = 1): face vertices, textures and the parameters'
+    keywords."""
+    from jrender_tpu_torch import Mesh
+    from jrender_tpu_torch.utils.primitives import uv_sphere
+    _, _, _, renderer, gen = scene(torch, dev)
+    out = {}
+    for key, rs in (('red_288', (13, 12)), ('red_3330', (38, 45))):
+        v, f = uv_sphere(*rs)
+        tex = torch.rand((1, f.shape[0], 25, 3), generator=gen, device=dev)
+        with torch.no_grad():
+            lit = renderer.transform(renderer.lighting(Mesh(v, f, textures=tex, texture_res=5),
+                                                       renderer.transform.eyes))
+        out[key] = (lit.face_vertices.reshape(1, -1, 9).contiguous(),
+                    lit.face_textures.contiguous(), dict(image_size=1024))
+    out['red_demo2'] = demo2_inputs(torch, dev)
+    return out
+
+
+def reductions(torch, red_in, times, timed, digest):
+    """The face reduction (``launch_reduce``) of this tree on the slot rows
+    of each input of ``reduce_inputs`` (this tree's forward, threshold and
+    backward, all-ones incoming gradient): the gradients as digests by key;
+    adds to ``times`` the wrapper's time, the kernel's device time alone,
+    the slot rows and their columns."""
+    device_ms = _device_ms()
+    from jrender_tpu_torch.ops.softras import cuda_impl, make_params
+    out = {}
+    for key, (fv, tex, kw) in red_in.items():
+        p = make_params(**kw)
+        inp = cuda_impl.prepare(fv, tex, p, for_grad=True)
+        img, ag, cnt = cuda_impl.launch(inp, p)
+        thr = cuda_impl.topk_threshold(fv, p, inp, cnt)
+        rows = cuda_impl.launch_bwd(inp, img, ag, thr, torch.ones_like(img), p)
+        out[key] = digest(*cuda_impl.launch_reduce(inp, rows, p))
+        times.update({
+            f'{key}_reduce_ms': timed(lambda: cuda_impl.launch_reduce(inp, rows, p)),
+            f'{key}_reduce_device_ms': device_ms(
+                alone(cuda_impl, 'reduce_args', 'softras_bwd', 'softras_bwd_reduce',
+                      '_ReduceArgs', fv.device, cuda_impl.launch_reduce, inp, rows, p),
+                {'k': ('softras_bwd_reduce_kernel',)})['k'],
+            f'{key}_slot_rows': int(inp.lists.run_counts.sum()) + int(inp.lists.gcount.sum()),
+            f'{key}_columns': rows.gslots.shape[2], f'{key}_views': fv.shape[0]})
+    torch.cuda.synchronize()
+    return out
 
 
 def demo2_inputs(torch, dev):
@@ -644,6 +828,8 @@ def worker(repo: str, inputs: str, out: str, make: bool, parts) -> int:
     from jrender_tpu_torch import Mesh
     from jrender_tpu_torch.ops.softras import binning, cuda_impl, make_params
 
+    device_ms = _device_ms()
+
     dev = torch.device('cuda')
     p = make_params(image_size=1024)
     if make:
@@ -663,6 +849,10 @@ def worker(repo: str, inputs: str, out: str, make: bool, parts) -> int:
                          'g': g, 'n3mr_in': n3mr_inputs(torch, dev, v, f, gen),
                          'tiled_bwd_in': tiled_bwd_inputs(torch, fv, tex, gen),
                          'pxg_in': pxg_inputs(torch, fv, tex, gen)})
+        if 'n3mr' in parts:
+            made['tex_in'] = tex_inputs(torch, dev, torch.Generator(device=dev).manual_seed(14))
+        if 'binned' in parts:
+            made['red_in'] = reduce_inputs(torch, dev)
         if 'dir' in parts:
             made['dir_in'] = dir_inputs(torch, dev, torch.Generator(device=dev).manual_seed(13))
         torch.save(made, inputs)
@@ -710,7 +900,11 @@ def worker(repo: str, inputs: str, out: str, make: bool, parts) -> int:
             'thr_ms': timed(lambda: cuda_impl.launch_thr(inp, cnt, p)),
             'thr_k40_ms': timed(lambda: cuda_impl.launch_thr(inp, cnt, p40), reps=5),
             'bwd_ms': timed(lambda: cuda_impl.launch_bwd(inp, img, ag, d['thr'], ones, p)),
-            'reduce_ms': timed(lambda: cuda_impl.launch_reduce(inp, rows, p))})
+            'reduce_ms': timed(lambda: cuda_impl.launch_reduce(inp, rows, p)),
+            'reduce_device_ms': device_ms(
+                alone(cuda_impl, 'reduce_args', 'softras_bwd', 'softras_bwd_reduce',
+                      '_ReduceArgs', dev, cuda_impl.launch_reduce, inp, rows, p),
+                {'k': ('softras_bwd_reduce_kernel',)})['k']})
         busiest = int(inp.lists.counts[0].argmax())
         ids = binning.tile_list(inp.lists, 0, busiest, -(-1024 // cuda_impl.TILE)).long()
         sub = cuda_impl.prepare(fv[:, ids].contiguous(), tex[:, ids].contiguous(), p,
@@ -724,7 +918,8 @@ def worker(repo: str, inputs: str, out: str, make: bool, parts) -> int:
         res.update({'img': img, 'ag': ag, 'cnt': cnt, 'thr': thr, 'thr40': thr40,
                     'busiest_faces': ids.numel(),
                     'slot_rows': digest(rows.gslots[:, :n], rows.gbig[:, :nb]),
-                    'reduced': digest(gf, gt)})
+                    'reduced': digest(gf, gt),
+                    'reduced_more': reductions(torch, d['red_in'], times, timed, digest)})
     if 'tiled' in parts:
         res['tiled'] = tiled_forwards(torch, fv, tex, times, timed)
         res['tiled_bwd'] = tiled_backwards(torch, fv, tex, d['tiled_bwd_in'], times, timed,
@@ -740,6 +935,11 @@ def worker(repo: str, inputs: str, out: str, make: bool, parts) -> int:
         res['edge'] = ncuda.launch_edgebwd(*edge_in, N3MR_EPS, True, False)
         times['n3mr_edgebwd_ms'] = timed(
             lambda: ncuda.launch_edgebwd(*edge_in, N3MR_EPS, True, False))
+        times['n3mr_edge_bands_device_ms'] = device_ms(
+            alone(ncuda, 'edge_bands_args', 'n3mr_edgebwd', 'n3mr_edge_bands', '_EdgeBandArgs',
+                  dev, ncuda.launch_edge_bands, edge_in[0], 1024),
+            {'k': ('n3mr_edge_bands_kernel',)})['k']
+        res['texbwd'] = texbwd(torch, d['tex_in'], times, timed, digest)
     if set(parts) - {'dir', 'n3mr'}:
         times.update(step_times(torch, np, fv, tex, timed, parts))
     torch.save({**res, 'times': times}, out)
@@ -795,6 +995,11 @@ def agreement(par, chg, turns, first, parts):
             'thr_k40_equal': torch.equal(par['thr40'], chg['thr40']),
             'bwd_slot_rows_equal': par['slot_rows'] == chg['slot_rows'],
             'bwd_reduced_equal': par['reduced'] == chg['reduced'],
+            **{f'{k}_reduced_equal': par['reduced_more'][k] == chg['reduced_more'][k]
+               for k in par['reduced_more']},
+            'reduced_each_tree_twice_equal': all(
+                (r['reduced'], r['reduced_more']) == (first[t]['reduced'], first[t]['reduced_more'])
+                for t, r in turns),
             'each_tree_twice_equal': all(r['slot_rows'] == first[t]['slot_rows']
                                          and torch.equal(r['img'], first[t]['img'])
                                          and torch.equal(r['thr'], first[t]['thr'])
@@ -808,6 +1013,10 @@ def agreement(par, chg, turns, first, parts):
         same.update({f'n3mr_{k}_equal': par['maps'][k] == chg['maps'][k] for k in MAPS})
         same['n3mr_maps_each_tree_twice_equal'] = all(r['maps'] == first[t]['maps']
                                                       for t, r in turns)
+        same.update({f'{k}_texbwd_equal': par['texbwd'][k] == chg['texbwd'][k]
+                     for k in par['texbwd']})
+        same['texbwd_each_tree_twice_equal'] = all(r['texbwd'] == first[t]['texbwd']
+                                                   for t, r in turns)
         same['edge_each_tree_twice_equal'] = all(torch.equal(r['edge'], first[t]['edge'])
                                                  for t, r in turns)
         same['edge_max_diff_of_scale'] = ((par['edge'] - chg['edge']).abs().max()
