@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the port's SoftRas (binned, dir, pxg, f_px and px_f routes) and N3MR
-mesh paths on one CUDA card and check them.
+mesh paths, its file IO and its scene pipeline on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -173,11 +173,50 @@ of which raises on failure:
         rows (bit for bit); each kernel timed alone and bounded, K5 also on
         the busiest tile alone and at 2, 4 and 8 blocks per tile, K6 as K4
         in 13b; the steps on both routes in turns;
- 15. one JSON line of the kernels (20 of them), each with ``ms`` (its
+ 15. the files and the scene at full width, written from a seed into a
+     temporary directory (removed at the end); K1 runs on three new paths:
+     a. ``uv_sphere(130, 153)`` (39,474 faces) as an OBJ with vt (the
+        sphere's (u, v)) and vn, an MTL naming a seeded 1024 x 1024 RGB
+        ``map_Kd`` and a ``map_normal`` bump map, both PNGs of the port's
+        codec; the native parser (asserted built) and the Python parser
+        give the faces written, to the bit; the image library in use is
+        printed (imageio, PIL, else the codec);
+     b. demo 1's path: ``Mesh.from_obj(load_texture=True, texture_res=5)``
+        on the card, its textures within 1e-6 of the CPU load; 8 frames of
+        ``Renderer(image_size=1024).render_mesh`` (per-texel light through
+        the normal map), one K1 launch each, 4,096 pixels held as in phase
+        4; ``save_obj(save_texture=True)`` with a 32-px atlas tile and a
+        load: vertices and faces exact, textures within the atlas's 8 bits;
+     c. demo 1.5's path: ``with_SSS=True``, ``texture_res=15``,
+        ``normalization=True`` (textures [1, 39474, 225, 3]); 2 frames at
+        1024 px, each SSS's three UV maps at 2048 px on K1 (4 launches a
+        frame); 4,096 pixels of each map against the plain version; each SSS
+        stage timed (light, the three maps, the blur, the resampling); on
+        demo 2's 1,300-face sphere the three whole UV maps against the
+        plain version, and the SSS textures against the CPU's blur and
+        resampling of the same maps, within 1e-4 of max;
+     d. a scene OBJ/MTL (a textured floor, a mirror quad lying on it, the
+        39,474-face sphere, glossy, and a box) lit by a point light with
+        its shadow (PCF), an area light (VSSM), a directional light with
+        its shadow (PCF) and an ambient light: ``Render(image_size=1024)``
+        with ``ssr_mode`` naive and hiz, Cook-Torrance (mirror and glossy)
+        and Blinn-Phong (mirror only: SSSR reads the metallic-roughness
+        buffer, which Cook-Torrance alone fills), then SSAO and SSDO; every
+        G-buffer and depth map held on 4,096 pixels against the plain
+        version (rgb and depth within 1e-4, face ids equal, each on all but
+        1% of the pixels); K1 launches per ``deferred_render`` and the
+        host-clock ms of each stage (rasterizations, visibility, SSSR, SSR,
+        shading and FXAA, SSAO, SSDO); the whole pipeline at 128 px on the
+        3,330-face sphere against the port's CPU run on the same draws
+        (1e-4, all but 1% of the pixels and of the face ids);
+     e. ``Mesh.voxelize`` of the 39,474-face sphere at 32 on the card and
+        the CPU (equal grids) and at 128 twice on the card (equal, timed);
+ 16. one JSON line of the kernels (20 of them), each with ``ms`` (its
      wrapper, CUDA events around calls) and ``device_ms`` (the kernel's own
      device time per launch in the steps its route's phase runs,
-     torch.profiler: jrender_tpu_torch/utils/device_time.py); the last
-     line is the device JSON.
+     torch.profiler: jrender_tpu_torch/utils/device_time.py), K1's also
+     with its launches on phase 15's paths; the last line is the device
+     JSON.
 
 The meshes, textures, cameras and pixel samples come from fixed seeds.
 
@@ -385,6 +424,498 @@ def pair_census(face, p, lists, counts):
             'over_inside': int((inside & pair_over).sum().item()),
             'over_candidates': int(counts[0][over_px[:is_, :is_]].sum().item())}
 
+
+def sphere_obj_text(v, f, rings, segs, mtl=None, material='sphere'):
+    """OBJ text of ``uv_sphere(rings, segs)``: v, vt (the sphere's (u, v),
+    one column more than the vertices so that the seam's faces do not wrap)
+    and vn (the unit position), faces as v/vt/vn."""
+    fs = f % segs
+    wrap = (fs == 0) & (fs.max(axis=1, keepdims=True) == segs - 1)
+    col = np.where(wrap, segs, fs)
+    vt_id = (f // segs) * (segs + 1) + col
+    r, c = np.divmod(np.arange((rings + 1) * (segs + 1)), segs + 1)
+    vt = np.stack([c / segs, 1 - r / rings], 1)
+    vn = v / np.maximum(np.linalg.norm(v, axis=1, keepdims=True), 1e-12)
+    lines = [f'mtllib {mtl}'] if mtl else []
+    lines += ['v %.8f %.8f %.8f' % tuple(x) for x in v]
+    lines += ['vt %.8f %.8f' % tuple(x) for x in vt]
+    lines += ['vn %.8f %.8f %.8f' % tuple(x) for x in vn]
+    lines.append(f'usemtl {material}')
+    lines += ['f %d/%d/%d %d/%d/%d %d/%d/%d' % (
+        a + 1, ta + 1, a + 1, b + 1, tb + 1, b + 1, c_ + 1, tc + 1, c_ + 1)
+        for (a, b, c_), (ta, tb, tc) in zip(f.tolist(), vt_id.tolist())]
+    return '\n'.join(lines) + '\n'
+
+
+def seeded_pngs(codec, directory, rng, size=1024):
+    """A seeded RGB map_Kd (smooth colour waves and noise) and a gray bump
+    map written as RGB with equal channels, both by the port's PNG codec."""
+    y, x = np.mgrid[0:size, 0:size] / size
+    kd = np.stack([0.5 + 0.4 * np.sin(2 * np.pi * (3 * x + k * 0.3)) * np.cos(2 * np.pi * 2 * y)
+                   for k in range(3)], -1) + rng.uniform(-0.1, 0.1, (size, size, 3))
+    bump = 0.5 + 0.25 * np.sin(2 * np.pi * 8 * x) * np.sin(2 * np.pi * 6 * y) \
+        + rng.uniform(-0.05, 0.05, (size, size))
+    kd8 = (np.clip(kd, 0, 1) * 255).astype(np.uint8)
+    bump8 = (np.clip(bump, 0, 1) * 255).astype(np.uint8)
+    (directory / 'kd.png').write_bytes(codec.encode_png(kd8))
+    (directory / 'bump.png').write_bytes(codec.encode_png(np.stack([bump8] * 3, -1)))
+    return kd8
+
+
+def oriented(verts, tris, outward):
+    """Faces [n,3] wound so that each face's normal cross(v2-v1, v0-v1)
+    points along ``outward(centroid)``."""
+    fv = verts[tris]
+    n = np.cross(fv[:, 2] - fv[:, 1], fv[:, 0] - fv[:, 1])
+    flip = (n * outward(fv.mean(1))).sum(1) < 0
+    return np.where(flip[:, None], tris[:, ::-1], tris)
+
+
+def scene_obj_text(sphere_v, sphere_f):
+    """OBJ and MTL text of phase 15's scene: a textured floor, a mirror quad
+    lying on it, the sphere (lifted to stand on the floor) and a box."""
+    groups, verts = [], []
+
+    def add(name, v, f):
+        groups.append((name, f + sum(len(x) for x in verts)))
+        verts.append(v)
+
+    up = lambda c: np.array([0.0, 1.0, 0.0])                      # noqa: E731
+    quad = np.array([[0, 1, 2], [0, 2, 3]])
+    floor = np.array([[-3, -1, -2], [3, -1, -2], [3, -1, 5], [-3, -1, 5]], np.float32)
+    add('floor', floor, oriented(floor, quad, up))
+    mirror = np.array([[-1.6, -0.99, -0.6], [0.4, -0.99, -0.6], [0.4, -0.99, 0.6],
+                       [-1.6, -0.99, 0.6]], np.float32)
+    add('mirror', mirror, oriented(mirror, quad, up))
+    centre = np.array([-0.3, -0.15, 1.4], np.float32)
+    sv = sphere_v + centre
+    add('sphere', sv, oriented(sv, sphere_f, lambda c: c - centre))
+    lo, hi = np.array([0.8, -1.0, 0.2]), np.array([1.6, -0.2, 1.0])
+    box = np.array([[x, y, z] for x in (lo[0], hi[0]) for y in (lo[1], hi[1])
+                    for z in (lo[2], hi[2])], np.float32)
+    quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6), (0, 2, 6, 4), (1, 5, 7, 3)]
+    tris = np.array([t for a, b, c, d in quads for t in ([a, b, c], [a, c, d])])
+    add('box', box, oriented(box, tris, lambda c: c - (lo + hi) / 2))
+    allv = np.concatenate(verts)
+    lines = ['mtllib scene.mtl'] + ['v %.8f %.8f %.8f' % tuple(x) for x in allv]
+    lines += ['vt 0 0', 'vt 1 0', 'vt 1 1', 'vt 0 1']
+    for name, f in groups:
+        lines.append(f'usemtl {name}')
+        uv = [(1, 2, 3), (1, 3, 4)] if name == 'floor' else [(1, 2, 3)] * len(f)
+        lines += ['f %d/%d %d/%d %d/%d' % (a + 1, ta, b + 1, tb, c + 1, tc)
+                  for (a, b, c), (ta, tb, tc) in zip(f.tolist(), uv * (len(f) // len(uv)))]
+    mtl = ['newmtl floor', 'Kd 0.8 0.8 0.8', 'map_Kd kd.png', 'newmtl mirror', 'Kd 0.3 0.3 0.35',
+           'newmtl sphere', 'Kd 0.9 0.5 0.3', 'newmtl box', 'Kd 0.2 0.5 0.9']
+    return '\n'.join(lines) + '\n', '\n'.join(mtl) + '\n', [g[0] for g in groups]
+
+
+SCENE_LIGHTS = (
+    dict(type='point', position=[0.0, 3.0, -1.0], direction=[0.0, -1.0, 0.3], intensity=0.8,
+         shadow=True),
+    dict(type='area', position=[-2.0, 3.0, -1.0], direction=[0.5, -1.0, 0.5], intensity=0.6,
+         shadow=True),
+    dict(type='directional', position=[2.0, 4.0, -2.0], direction=[-0.4, -1.0, 0.4],
+         intensity=0.6, shadow=True, viewing_scale=0.25),
+    dict(type='ambient', intensity=0.2, shadow=False),
+)
+SCENE_CAMERA = dict(camera_mode='look', eye=[0.0, 1.0, -3.5], camera_direction=[0.0, -0.3, 1.0])
+
+
+class StageClock:
+    """Host-clock ms of named stages, each exclusive of the stages it calls
+    (synchronised before and after)."""
+
+    def __init__(self):
+        self.ms, self.stack = {}, []
+
+    def wrap(self, name, fn):
+        import torch
+
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.stack.append(0.0)
+            try:
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+            finally:
+                child = self.stack.pop()
+                dt = (time.perf_counter() - t0) * 1e3
+                self.ms[name] = self.ms.get(name, 0.0) + dt - child
+                if self.stack:
+                    self.stack[-1] += dt
+            return out
+        return run
+
+
+def files_and_scene(h):
+    """Phase 15: the files and the scene at full width (module docstring).
+    ``h``: main's helpers (dev, smi, timed, zero_counts, read_counts,
+    sample_pixels, pixels_vs_plain, no_dir, no_pxg).  Returns the numbers
+    the kernels line and the log report."""
+    import importlib
+    import shutil
+    import tempfile
+
+    import torch
+    from jrender_tpu_torch import Light, Mesh, Render, Renderer, Scene
+    from jrender_tpu_torch.io import image as codec
+    from jrender_tpu_torch.io.load_obj import parse_faces, parse_vertices
+    from jrender_tpu_torch.native import objloader
+    from jrender_tpu_torch.ops.softras import make_params, torch_impl
+    from jrender_tpu_torch.utils.primitives import uv_sphere
+
+    L = importlib.import_module('jrender_tpu_torch.lighting.lighting')   # SSS's stages
+    dev, smi = h['dev'], h['smi']
+    out = {'k1_launches': {}, 'ms': {}}
+    tmp = Path(tempfile.mkdtemp(prefix='chip_smoke_files_'))
+    try:
+        rng = np.random.RandomState(SEED + 15)
+        # ---- a. files ----------------------------------------------------
+        log('phase 15a: OBJ, MTL and PNG files of the 39,474-face sphere')
+        rings, segs = 130, 153
+        v, f = uv_sphere(rings, segs)
+        t0 = time.perf_counter()
+        (tmp / 'sphere.obj').write_text(sphere_obj_text(v, f, rings, segs, mtl='sphere.mtl'))
+        (tmp / 'sphere.mtl').write_text('newmtl sphere\nKd 1 1 1\nmap_Kd kd.png\n'
+                                        'map_normal -bm bump.png\n')
+        seeded_pngs(codec, tmp, rng)
+        out['ms']['write_files'] = (time.perf_counter() - t0) * 1e3
+        path = str(tmp / 'sphere.obj')
+        out['image_library'] = codec.library()
+        log(f'  image library: {out["image_library"]} (imageio, then PIL, then the codec)')
+        if not objloader.available():
+            raise AssertionError('the native OBJ parser did not build')
+        t0 = time.perf_counter()
+        parsed = objloader.parse_obj_native(path)
+        t_native = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        lines = open(path).readlines()
+        py_v, py_f = parse_vertices(lines), parse_faces(lines)
+        t_python = (time.perf_counter() - t0) * 1e3
+        if not (np.array_equal(parsed.faces, py_f) and np.array_equal(parsed.faces, f)):
+            raise AssertionError('the native and Python parsers disagree on the faces')
+        if not np.array_equal(parsed.vertices, py_v):
+            raise AssertionError('the native and Python parsers disagree on the vertices')
+        if not np.array_equal(parsed.vertices, np.float32([[float('%.8f' % x) for x in r]
+                                                           for r in v])):
+            raise AssertionError('the parsed vertices are not the written ones')
+        out['ms'].update(parse_native=t_native, parse_python=t_python)
+        log(f'  native parser {t_native:.1f} ms, Python parser {t_python:.1f} ms: faces equal '
+            f'to the bit ({f.shape[0]} faces), vertices equal  [{smi}]')
+
+        # ---- b. demo 1's path -------------------------------------------
+        log("phase 15b: demo 1's path, Mesh.from_obj(load_texture=True, texture_res=5) and "
+            "8 frames at 1024 px")
+        h['zero_counts']()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh = Mesh.from_obj(path, load_texture=True, texture_res=5, texture_type='surface')
+        torch.cuda.synchronize()
+        out['ms']['load_demo1'] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        cpu = Mesh.from_obj(path, load_texture=True, texture_res=5, device='cpu')
+        out['ms']['load_demo1_cpu'] = (time.perf_counter() - t0) * 1e3
+        load_err = {name: (getattr(mesh, name).cpu() - getattr(cpu, name)).abs().max().item()
+                    for name in ('textures', 'normal_textures', 'TBN')}
+        if not load_err['textures'] <= 1e-6:
+            raise AssertionError(f'demo 1 load: textures on the card {load_err} from the CPU')
+        renderer = Renderer(image_size=1024)
+        azimuths = [i * 360 // FRAMES for i in range(FRAMES)]
+        h['zero_counts']()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = []
+        with torch.no_grad():
+            for az in azimuths:
+                mesh.reset_()
+                renderer.transform.set_eyes_from_angles(2.732, 30, az)
+                frames.append(renderer.render_mesh(mesh, mode=None))
+        torch.cuda.synchronize()
+        out['ms']['demo1_frame'] = (time.perf_counter() - t0) * 1e3 / FRAMES
+        counts = h['read_counts']()
+        h['no_dir']('phase 15b')
+        h['no_pxg']('phase 15b')
+        if counts['softras_fwd'] != FRAMES:
+            raise AssertionError(f'demo 1 frames: {counts}')
+        out['k1_launches']['demo1_frames'] = counts['softras_fwd']
+        mesh.reset_()
+        renderer.transform.set_eyes_from_angles(2.732, 30, azimuths[1])
+        with torch.no_grad():
+            lit = renderer.transform(renderer.lighting(mesh, renderer.transform.eyes))
+        alpha1, rgb1 = frames[1]
+        out['err'] = h['pixels_vs_plain'](
+            'demo 1 frame 1 vs plain', lit.face_vertices.reshape(1, -1, 9).contiguous(),
+            lit.face_textures.contiguous(), make_params(image_size=1024),
+            torch.cat([rgb1, alpha1[:, None]], dim=1))
+        mesh.reset_()
+        t0 = time.perf_counter()
+        mesh.save_obj(str(tmp / 'saved.obj'), save_texture=True, texture_res_out=32)
+        back = Mesh.from_obj(str(tmp / 'saved.obj'), load_texture=True, texture_res=5)
+        torch.cuda.synchronize()
+        out['ms']['round_trip'] = (time.perf_counter() - t0) * 1e3
+        if not (torch.equal(back.vertices, mesh.vertices) and torch.equal(back.faces, mesh.faces)):
+            raise AssertionError('save_obj round trip: vertices or faces changed')
+        e_rt = (back.textures - mesh.textures).abs().max().item()
+        if not e_rt <= 1 / 255 + 1e-6:
+            raise AssertionError(f'save_obj round trip: textures {e_rt:.3g} apart')
+        log(f'  load {out["ms"]["load_demo1"]:.0f} ms on the card ({out["ms"]["load_demo1_cpu"]:.0f} '
+            f'on the CPU; the card from the CPU: {load_err}), {FRAMES} frames at '
+            f'{out["ms"]["demo1_frame"]:.2f} ms each (host clock), K1 launches {counts["softras_fwd"]}; '
+            f'save_obj(save_texture=True, 32-px atlas) and load: {out["ms"]["round_trip"]:.0f} ms, '
+            f'vertices and faces exact, textures within {e_rt:.3g} (8-bit atlas)  [{smi}]')
+        del cpu, back, frames, lit
+
+        # ---- c. demo 1.5's path: SSS ----------------------------------------
+        log("phase 15c: demo 1.5's path, with_SSS, texture_res=15, normalization, 1024 px")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sss_mesh = Mesh.from_obj(path, load_texture=True, texture_res=15, normalization=True,
+                                 with_SSS=True)
+        torch.cuda.synchronize()
+        out['ms']['load_demo15'] = (time.perf_counter() - t0) * 1e3
+        log(f'  textures {tuple(sss_mesh.textures.shape)}, '
+            f'{sss_mesh.textures.numel() * 4 / 1e6:.0f} MB, loaded in '
+            f'{out["ms"]["load_demo15"]:.0f} ms')
+        sss_renderer = Renderer(image_size=1024)
+        n_sss = 2
+        h['zero_counts']()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for az in azimuths[:n_sss]:
+                sss_mesh.reset_()
+                sss_renderer.transform.set_eyes_from_angles(2.732, 30, az)
+                alpha, rgb = sss_renderer.render_mesh(sss_mesh, mode=None)
+                if not (torch.isfinite(rgb).all() and alpha.gt(0.5).float().mean() > 0.05):
+                    raise AssertionError('demo 1.5 frame: non-finite or empty')
+        torch.cuda.synchronize()
+        out['ms']['demo15_frame'] = (time.perf_counter() - t0) * 1e3 / n_sss
+        counts = h['read_counts']()
+        if counts['softras_fwd'] != 4 * n_sss:
+            raise AssertionError(f'demo 1.5: {counts} for {n_sss} frames (3 UV maps + 1 each)')
+        out['k1_launches']['demo15_frames'] = counts['softras_fwd']
+
+        # the stages of one frame's SSS, each held and timed
+        sss_mesh.reset_()
+        sss_renderer.transform.set_eyes_from_angles(2.732, 30, azimuths[0])
+        clock = StageClock()
+        with torch.no_grad():
+            diffuse, specular = clock.wrap('light', sss_renderer.lighting.surface_terms)(
+                sss_mesh, sss_renderer.transform.eyes)
+            texs = L.sss_map_textures(diffuse, specular, sss_mesh)
+            maps = [clock.wrap(f'uv_map_{k}', L.sss_rasterize_uv)(sss_mesh.face_texcoords, t)
+                    for k, t in zip(('world', 'irradiance', 'specular'), texs)]
+            blurred = clock.wrap('blur', L.sss_blur)(maps[0], maps[1])
+            final = blurred * maps[1] + maps[2]
+            new_tex = clock.wrap('resample', L.sss_textures)(final, sss_mesh)
+            if not (torch.isfinite(new_tex).all() and new_tex.shape == sss_mesh.textures.shape):
+                raise AssertionError('SSS textures: non-finite or misshapen')
+        out['ms']['sss'] = dict(clock.ms)
+        uvf = L.sss_uv_faces(sss_mesh.face_texcoords)
+        p_sss = L.sss_params()
+        idx, (xp, yp) = h['sample_pixels'](L.SSS_IMAGE_SIZE)
+        for name, t, m in zip(('world', 'irradiance', 'specular'), texs, maps):
+            col, _, _ = torch_impl.forward_pixels(uvf, t, p_sss, xp, yp, chunk_pairs=1 << 24)
+            got = m.reshape(-1, 3)[idx]
+            # the world map holds 0-255 coordinates: its tolerance scales with them
+            tol = TOL * (255.0 if name == 'world' else 1.0)
+            f_b, e_b = beyond(got, col[0, :, :3], tol, pixel_dim=-1)
+            check(f'SSS {name} map', f_b)
+            log(f'  SSS {name} map at 2048 px: {SAMPLES} pixels, {f_b:.4f} beyond {tol:g} '
+                f'(max {e_b:.3g}) of the plain version')
+        log(f'  SSS stages of one frame, ms (host clock): '
+            f'{ {k: round(x, 3) for k, x in clock.ms.items()} }; frame with SSS '
+            f'{out["ms"]["demo15_frame"]:.1f} ms, K1 launches {counts["softras_fwd"]} for '
+            f'{n_sss} frames  [{smi}]')
+        del sss_mesh, texs, maps, blurred, final, new_tex, diffuse, specular
+
+        # SSS's whole texture step on demo 2's sphere: the card against the
+        # plain UV maps (on the card) and the blur and resampling on the CPU
+        v2, f2 = uv_sphere(26, 26)
+        (tmp / 'demo2.obj').write_text(sphere_obj_text(v2 * np.float32(0.5 / 0.85), f2, 26, 26,
+                                                       mtl='sphere.mtl'))
+        m2 = Mesh.from_obj(str(tmp / 'demo2.obj'), load_texture=True, texture_res=4,
+                           with_SSS=True)
+        with torch.no_grad():
+            d2, s2 = Renderer(image_size=256).lighting.surface_terms(m2, (0.0, 1.0, -2.7))
+            t2 = L.sss_map_textures(d2, s2, m2)
+            maps2 = [L.sss_rasterize_uv(m2.face_texcoords, t) for t in t2]
+            card = L.SSS(d2, s2, m2)
+            xg, yg = torch_impl.pixel_grid(L.SSS_IMAGE_SIZE, dev)
+            uvf2 = L.sss_uv_faces(m2.face_texcoords)
+            plain_maps = []
+            for t in t2:
+                col, _, _ = torch_impl.forward_pixels(uvf2, t, L.sss_params(), xg, yg,
+                                                      chunk_pairs=1 << 26)
+                plain_maps.append(col[0, :, :3].reshape(L.SSS_IMAGE_SIZE, L.SSS_IMAGE_SIZE, 3))
+            for name, got, want in zip(('world', 'irradiance', 'specular'), maps2, plain_maps):
+                tol = TOL * (255.0 if name == 'world' else 1.0)
+                f_b, e_b = beyond(got.reshape(-1, 3), want.reshape(-1, 3), tol, pixel_dim=-1)
+                check(f'demo 2 SSS {name} map, whole', f_b)
+            m2c = Mesh(m2.vertices.cpu(), m2.faces.cpu(), textures=m2.textures.cpu(),
+                       texture_res=4, face_texcoords=m2.face_texcoords.cpu(), with_SSS=True,
+                       device='cpu')
+            cpu_maps = [x.cpu() for x in maps2]
+            cpu_tex = L.sss_textures(L.sss_blur(cpu_maps[0], cpu_maps[1]) * cpu_maps[1]
+                                     + cpu_maps[2], m2c)
+        scale = cpu_tex.abs().max().item()
+        e_sss = (card.cpu() - cpu_tex).abs().max().item()
+        if not e_sss <= 1e-4 * scale:
+            raise AssertionError(f'demo 2 SSS textures: {e_sss:.3g} from the CPU run '
+                                 f'(max {scale:.3g})')
+        out['sss_demo2_err'] = e_sss / scale
+        log(f"  demo 2's sphere ({f2.shape[0]} faces): the three whole UV maps equal the plain "
+            f'version (all but {EDGE_FRAC} of pixels within tolerance); the textures of the '
+            f'blur and resampling from them within {e_sss / scale:.3g} of max of the CPU run')
+        del m2, m2c, maps2, plain_maps, card, cpu_tex, cpu_maps, t2
+
+        # ---- d. the scene at 1024 px ------------------------------------------
+        log('phase 15d: the scene (floor, mirror, glossy sphere, box; point, area, directional '
+            'and ambient lights) at 1024 px')
+        obj_text, mtl_text, names = scene_obj_text(v, f)
+        (tmp / 'scene.obj').write_text(obj_text)
+        (tmp / 'scene.mtl').write_text(mtl_text)
+        scene = Scene.load_scene_from_obj(str(tmp / 'scene.obj'))
+        for light in SCENE_LIGHTS:
+            scene.append_light(Light(**light))
+        idx_of = {n: scene.name_dic[n] for n in names}
+        scene.set_reflection(idx_of['mirror'], 'mirror')
+        scene.set_roughness(idx_of['sphere'], 0.3)
+        idx, (xp, yp) = h['sample_pixels'](1024)
+        scene_runs = {}
+        for ssr_mode in ('naive', 'hiz'):
+            for shading in ('Cook_Torrance', 'blinn_phong'):
+                scene.set_reflection(idx_of['sphere'],
+                                     'glossy' if shading == 'Cook_Torrance' else 'diffuse')
+                render = Render(image_size=1024, ssr_mode=ssr_mode, **SCENE_CAMERA)
+                clock = StageClock()
+                record = []
+                raster = render.Rasterize
+
+                def rasterize(face_proj, face_info, MSAA=False, fill_back=True,
+                              texture_type='vertex', _raster=raster, _r=render, _rec=record):
+                    img = _raster(face_proj, face_info, MSAA, fill_back, texture_type)
+                    _rec.append((face_proj, face_info, _r.raster_params(MSAA, fill_back,
+                                                                        texture_type),
+                                 img, _r._last_aggrs))
+                    return img
+                render.Rasterize = clock.wrap('rasterize', rasterize)
+                for name in ('light_visibility', 'SSR', 'SSSR', 'fragment_shader'):
+                    setattr(render, name, clock.wrap(name, getattr(render, name)))
+                scene.set_render(render)
+                h['zero_counts']()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    img = scene.deferred_render(shading=shading)
+                torch.cuda.synchronize()
+                total = (time.perf_counter() - t0) * 1e3
+                k1 = h['read_counts']()['softras_fwd']
+                h['no_dir']('phase 15d')
+                h['no_pxg']('phase 15d')
+                if k1 != len(record) or not torch.isfinite(img).all() or img.max() < 0.1:
+                    raise AssertionError(f'scene {ssr_mode} {shading}: K1 {k1}, '
+                                         f'{len(record)} rasterizations, max {img.max()}')
+                errs = []
+                for face_proj, face_info, p, got, aggrs in record:
+                    F = face_proj.shape[0]
+                    col, ag, _ = torch_impl.forward_pixels(
+                        face_proj.reshape(1, F, 9),
+                        face_info.reshape((1, F) + tuple(face_info.shape[1:])), p, xp, yp,
+                        chunk_pairs=1 << 24)
+                    f_rgb, e_rgb = beyond(got.reshape(-1, 3)[idx], col[0, :, :3], TOL,
+                                          pixel_dim=-1)
+                    depth = aggrs[0, 0].reshape(-1)[idx]
+                    f_z, _ = beyond(depth, ag[0, :, 0], TOL * (1 + ag[0, :, 0].abs()))
+                    f_id = (aggrs[0, 1].reshape(-1)[idx] != ag[0, :, 1]).float().mean().item()
+                    for what, frac in (('buffer', f_rgb), ('depth', f_z), ('face ids', f_id)):
+                        check(f'scene {ssr_mode} {shading} {what}', frac)
+                    errs.append(e_rgb)
+                    out['err'] = max(out['err'], e_rgb)
+                with torch.no_grad():
+                    t0 = time.perf_counter()
+                    ao = render.SSAO(img)
+                    torch.cuda.synchronize()
+                    t_ao = (time.perf_counter() - t0) * 1e3
+                    t0 = time.perf_counter()
+                    do = render.SSDO(img)
+                    torch.cuda.synchronize()
+                    t_do = (time.perf_counter() - t0) * 1e3
+                if not (torch.isfinite(ao).all() and torch.isfinite(do).all()):
+                    raise AssertionError('SSAO / SSDO: non-finite')
+                ms = {k: round(x, 2) for k, x in clock.ms.items()}
+                ms.update(total=round(total, 2), SSAO=round(t_ao, 2), SSDO=round(t_do, 2))
+                scene_runs[f'{ssr_mode}/{shading}'] = {'k1': k1, 'ms': ms}
+                log(f'  {ssr_mode} {shading}: K1 launches {k1} per deferred_render, '
+                    f'{len(record)} buffers and depth maps held on {SAMPLES} pixels each (max '
+                    f'rgb err {max(errs):.3g}); host-clock ms by stage {ms}  [{smi}]')
+        out['scene'] = scene_runs
+        out['k1_launches']['deferred_render'] = {k: r['k1'] for k, r in scene_runs.items()}
+        del scene, record, img
+
+        # the whole pipeline at 128 px on the 3,330-face sphere, card against CPU
+        v3, f3 = uv_sphere(38, 45)
+        obj_text, mtl_text, names = scene_obj_text(v3, f3)
+        (tmp / 'scene3330.obj').write_text(obj_text)
+        (tmp / 'scene.mtl').write_text(mtl_text)
+        gcpu = torch.Generator().manual_seed(SEED + 16)
+        draws = torch.rand((32, 2, 128, 128), generator=gcpu)
+        ao_draws = torch.rand((256, 3), generator=gcpu)
+        images = {}
+        for device in ('cuda', 'cpu'):
+            s = Scene.load_scene_from_obj(str(tmp / 'scene3330.obj'), device=device)
+            for light in SCENE_LIGHTS:
+                s.append_light(Light(**light))
+            s.set_reflection(s.name_dic['mirror'], 'mirror')
+            s.set_reflection(s.name_dic['sphere'], 'glossy')
+            s.set_roughness(s.name_dic['sphere'], 0.3)
+            s.set_render(Render(image_size=128, device=device, **SCENE_CAMERA))
+            s.render.sssr_samples = draws
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                img = s.deferred_render('Cook_Torrance')
+                img = s.render.SSAO(img, samples=ao_draws)
+            if device == 'cuda':
+                torch.cuda.synchronize()
+            images[device] = (img.cpu(), s.render.faces_ind_buffer.cpu(),
+                              (time.perf_counter() - t0) * 1e3)
+        f_img, e_img = beyond(images['cuda'][0], images['cpu'][0], 1e-4, pixel_dim=-1)
+        f_ids = (images['cuda'][1] != images['cpu'][1]).float().mean().item()
+        check('scene at 128 px, card vs CPU', f_img)
+        check('scene at 128 px face ids, card vs CPU', f_ids)
+        out['scene128'] = {'beyond': f_img, 'max': e_img, 'ids_beyond': f_ids,
+                           'ms_card': images['cuda'][2], 'ms_cpu': images['cpu'][2]}
+        log(f'  whole pipeline at 128 px, 3,330-face sphere (Cook-Torrance, SSAO): card vs CPU '
+            f'{f_img:.4f} of pixels beyond 1e-4 (max {e_img:.3g}), face ids {f_ids:.4f} apart; '
+            f'{images["cuda"][2]:.0f} ms on the card, {images["cpu"][2]:.0f} on the CPU')
+
+        # ---- e. voxels ----------------------------------------------------------
+        log('phase 15e: Mesh.voxelize of the 39,474-face sphere')
+        vs = v * np.float32(0.45 / 0.85)       # inside the grid's unit cube
+        vm = Mesh(vs, f)
+        vc = Mesh(vs, f, device='cpu')
+        t0 = time.perf_counter()
+        g32 = vm.voxelize(32)
+        torch.cuda.synchronize()
+        t32 = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(g32.cpu(), vc.voxelize(32)):
+            raise AssertionError('voxelize(32): the card and the CPU disagree')
+        grids, t128 = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            grids.append(vm.voxelize(128))
+            torch.cuda.synchronize()
+            t128.append((time.perf_counter() - t0) * 1e3)
+        if not torch.equal(grids[0], grids[1]):
+            raise AssertionError('voxelize(128): two runs disagree')
+        out['ms'].update(voxelize_32=t32, voxelize_128=t128)
+        log(f'  voxelize(32) {t32:.0f} ms, equal to the CPU grid ({int(g32.sum())} cells); '
+            f'voxelize(128) twice, equal: {t128[0]:.0f} / {t128[1]:.0f} ms '
+            f'({int(grids[0].sum())} cells)  [{smi}]')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
 
 def main() -> int:
     import torch
@@ -3335,7 +3866,13 @@ def main() -> int:
         f'render_mesh frame: {p_times}; medians binned {p_med["binned"]}, px_f '
         f'{p_med["px_f"]}  [{smi}]')
 
-    # ---- 15. results ----------------------------------------------------
+    # ---- 15. the files and the scene at full width ----------------------------
+    p15 = files_and_scene(dict(dev=dev, smi=smi, zero_counts=zero_counts,
+                               read_counts=read_counts, sample_pixels=sample_pixels,
+                               pixels_vs_plain=pixels_vs_plain, no_dir=no_dir, no_pxg=no_pxg))
+    log(json.dumps({'phase15': p15}))
+
+    # ---- 16. results ----------------------------------------------------
     launches = {**step_counts, **n_step_counts, **dir_counts, **pxg_counts, **fpx_counts,
                 **pxf_counts}
     # the face sum ran in the pxg, f_px and px_f steps alike
@@ -3355,7 +3892,8 @@ def main() -> int:
     log(json.dumps({'kernels': [
         {**entry('softras_fwd', 'softras_fwd.cu', 'jrender_tpu/ops/softras/pxt_impl.py:370',
                  fwd_err, fwd_ms, fwd_plain_ms, some, fwd_bound),
-         'blocks_per_tile': cuda_impl.FWD_SPLIT, 'busiest_tile_ms': fwd_busy_ms},
+         'blocks_per_tile': cuda_impl.FWD_SPLIT, 'busiest_tile_ms': fwd_busy_ms,
+         'launches_files_scene': p15['k1_launches'], 'max_abs_err_files_scene': p15['err']},
         {**entry('softras_thr', 'softras_thr.cu', 'jrender_tpu/ops/softras/pxt_impl.py:584',
                  thr_err, thr_ms, thr_plain_ms, some, thr_bound),
          'blocks_per_tile': cuda_impl.FWD_SPLIT, 'busiest_tile_ms': thr_busy_ms,

@@ -10,7 +10,11 @@ So far it covers the two mesh rasterizers, forward and backward:
     soft_rasterize (differentiable, top-K truncated gradient),
     N3mrRasterizer, rasterize_rgbad, rasterize, rasterize_silhouettes,
     rasterize_depth (N3MR, with its hand-defined edge gradient),
-    LaplacianLoss, FlattenLoss, neg_iou_loss, get_points_from_angles.
+    LaplacianLoss, FlattenLoss, neg_iou_loss, get_points_from_angles;
+and the files and the scene: load_obj, save_obj (OBJ/MTL with texture
+PNGs, read by imageio, PIL or the package's own PNG codec), Mesh.from_obj,
+normal maps and texture-space SSS, Scene, Render, Light, Texture (the
+scene graph's deferred pipeline with its screen-space effects).
 """
 
 from .structures import Mesh, join_meshes_as_scene
@@ -21,6 +25,8 @@ from .ops.softras import soft_rasterize
 from .ops.n3mr import (N3mrRasterizer, rasterize_rgbad, rasterize,
                        rasterize_silhouettes, rasterize_depth)
 from .loss import LaplacianLoss, FlattenLoss, neg_iou_loss
+from .io import load_obj, save_obj
+from .scene import Scene, Render, Light, Texture
 from .utils import get_points_from_angles
 
 __version__ = '0.1.0'

@@ -2,7 +2,10 @@
 
 A renderer's state is the mesh and the camera.  ``mesh_from_numpy``
 builds the port's ``Mesh`` from the public arrays of a JAX ``Mesh``,
-taken as numpy; ``copy_renderer_state`` copies a JAX ``Renderer``'s
+taken as numpy (normal maps, TBN frames, texture coordinates and the SSS
+flag included); ``scene_from_numpy`` builds the port's ``Scene`` from a
+JAX scene's objects and lights, read as numpy arrays and scalars by
+``scene_arrays``; ``copy_renderer_state`` copies a JAX ``Renderer``'s
 camera eye and light settings onto a port ``Renderer``.  A training
 state is demo 2's parameters and the graph data of its losses:
 ``load_deform_params`` writes a JAX parameter dict (``displace``,
@@ -18,24 +21,33 @@ import torch
 
 from .deform import DeformModel
 from .loss import FlattenLoss, LaplacianLoss
+from .scene import Light, Render, Scene, obj
 from .structures import Mesh
+
+
+def _array(x):
+    """A writable numpy copy, or None."""
+    return None if x is None else np.array(x)
 
 
 def mesh_arrays(mesh) -> dict:
     """The public arrays of a JAX ``Mesh`` (or of a port ``Mesh`` on the
-    CPU) as writable numpy copies."""
-    out = {k: np.array(getattr(mesh, k)) for k in (
-        'vertices', 'faces', 'textures', 'metallic_textures', 'roughness_textures')}
+    CPU) as writable numpy copies, None where the mesh has none."""
+    out = {k: _array(getattr(mesh, k)) for k in (
+        'vertices', 'faces', 'textures', 'metallic_textures', 'roughness_textures',
+        'normal_textures', 'TBN', 'face_texcoords')}
     out['texture_type'] = mesh.texture_type
     out['dr_type'] = mesh.dr_type
     out['texture_res'] = mesh.texture_res
+    out['with_SSS'] = bool(mesh.with_SSS)
     return out
 
 
 def mesh_from_numpy(arrays: dict, device=None) -> Mesh:
     """Port ``Mesh`` from a dict of numpy arrays: vertices, faces,
-    textures, metallic_textures, roughness_textures, texture_type,
-    dr_type and texture_res (``mesh_arrays`` of a JAX mesh)."""
+    textures, metallic_textures, roughness_textures, normal_textures, TBN,
+    face_texcoords, texture_type, dr_type, texture_res and with_SSS
+    (``mesh_arrays`` of a JAX mesh)."""
     return Mesh(arrays['vertices'], np.asarray(arrays['faces'], np.int64),
                 textures=arrays.get('textures'),
                 texture_res=int(arrays.get('texture_res', 1)),
@@ -43,7 +55,68 @@ def mesh_from_numpy(arrays: dict, device=None) -> Mesh:
                 dr_type=arrays.get('dr_type', 'softras'),
                 metallic_textures=arrays.get('metallic_textures'),
                 roughness_textures=arrays.get('roughness_textures'),
+                normal_textures=arrays.get('normal_textures'),
+                TBN=arrays.get('TBN'),
+                with_SSS=bool(arrays.get('with_SSS', False)),
+                face_texcoords=arrays.get('face_texcoords'),
                 device=device)
+
+
+_OBJ_ARGS = ('Ka', 'Kd', 'Ke', 'Ns', 'Ni')
+_OBJ_PATHS = ('map_Kd_path', 'map_normal_path', 'obj_path', 'mtl_path',
+              'map_metallic_path', 'map_roughness_path', 'map_albedo_path')
+_OBJ_SETTINGS = ('material_name', 'reflection_type', 'kd_res', 'with_specular',
+                 'Generate_Normals')
+_LIGHT_FIELDS = ('position', 'direction', 'up', 'intensity', 'type', 'area',
+                 'viewing_angle', 'viewing_scale', 'near', 'far', 'fillback', 'shadow')
+
+
+def scene_arrays(scene) -> dict:
+    """A JAX ``Scene``'s objects and lights as numpy arrays and scalars:
+    {'objects': [dict], 'lights': [dict], 'render_target': [int]}."""
+    objects = []
+    for o in scene.objects:
+        d = {k: getattr(o, '_' + k) for k in _OBJ_ARGS}
+        d.update({k: getattr(o, k) for k in _OBJ_PATHS + _OBJ_SETTINGS})
+        d['roughness'] = o._roughness
+        d['face_vertices'] = _array(o.face_vertices)
+        d['face_normals_from_obj'] = _array(o.face_normals_from_obj)
+        d['kd_texture_uv'] = _array(o._kd_texture_uv)
+        objects.append(d)
+    lights = []
+    for light in scene.lights:
+        d = {k: getattr(light, k) for k in _LIGHT_FIELDS}
+        d['color'] = _array(light.color)
+        lights.append(d)
+    return {'objects': objects, 'lights': lights,
+            'render_target': list(scene.render_target)}
+
+
+def scene_from_numpy(arrays: dict, render: Render | None = None, device=None) -> Scene:
+    """Port ``Scene`` from ``scene_arrays`` of a JAX scene, with ``render``
+    (default: a ``Render`` on the device)."""
+    objects = []
+    for d in arrays['objects']:
+        o = obj(face_vertices=d['face_vertices'],
+                face_normals_from_obj=d['face_normals_from_obj'],
+                kd_texture_uv=d['kd_texture_uv'],
+                **{k: d[k] for k in _OBJ_ARGS + _OBJ_PATHS},
+                material_name=d['material_name'], reflection_type=d['reflection_type'],
+                kd_res=d['kd_res'], device=device)
+        o._roughness = d['roughness']
+        o.with_specular = d['with_specular']
+        o.Generate_Normals = d['Generate_Normals']
+        objects.append(o)
+    lights = []
+    for d in arrays['lights']:
+        light = Light()
+        for k in _LIGHT_FIELDS:
+            setattr(light, k, list(d[k]) if isinstance(d[k], (list, tuple)) else d[k])
+        light.color = torch.as_tensor(d['color'], dtype=torch.float32)
+        lights.append(light)
+    scene = Scene(objects, lights, render=render, device=device)
+    scene.render_target = list(arrays['render_target'])
+    return scene
 
 
 def _plain(x):

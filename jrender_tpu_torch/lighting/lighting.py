@@ -6,10 +6,13 @@ Counterpart of ``jrender_tpu/lighting/lighting.py``; the reference is
     (GGX NDF :5, Schlick-GGX :21, Smith geometry :33, Schlick Fresnel :47)
   * Lighting module             -- lighting.py:159-221
   * lighting() free function    -- lighting.py:11-55
+  * SSS texture-space diffusion -- lighting.py:86-156
 
 Lights bake into the mesh textures, clamped to [0, 1], as in the
-reference.  Normal maps and texture-space subsurface scattering (SSS),
-which need OBJ loading, come with the IO and scene slices of the port.
+reference.  A mesh with a normal map is lit per texel; one built with
+``with_SSS`` takes its textures from ``SSS``, which rasterizes the UV
+layout at 2048 px through ``soft_rasterize_with_aux`` (on the card, the
+binned forward kernel).
 """
 from __future__ import annotations
 
@@ -203,6 +206,94 @@ class DirectionalLighting:
                                     self.Gbuffer, self.transform)
 
 
+SSS_IMAGE_SIZE = 2048
+SSS_BASIS = (0, 25, 100, 400)          # the Gaussians' variances, cumulative
+SSS_TAPS = 7
+SSS_WEIGHTS = ((0.7, 0.2, 0.1), (0.1, 0.2, 0.7), (0.1, 0.2, 0.7))   # per channel
+
+
+def sss_params():
+    """The UV maps' rasterizer settings (JAX lighting.py:215-218)."""
+    from ..ops.softras import make_params
+    return make_params(image_size=SSS_IMAGE_SIZE, background_color=(0, 0, 0), near=1,
+                       far=100, fill_back=True, eps=1e-5, sigma_val=1e-5,
+                       dist_func='barycentric', dist_eps=1e-5, gamma_val=1e-4,
+                       aggr_func_rgb='hard', aggr_func_alpha='prod', texture_type='surface')
+
+
+def sss_uv_faces(face_texcoords):
+    """The UV layout as faces [B,F,9] in the rasterizer's screen space:
+    (u, v) mapped to [-1, 1], depth 1.5 (JAX lighting.py:221-223)."""
+    coords = (face_texcoords - 0.5) * 2
+    coords = torch.cat([coords, torch.full(coords.shape[:-1] + (1,), 1.5,
+                                           device=coords.device)], dim=-1)
+    return coords.reshape(coords.shape[0], -1, 9)
+
+
+def sss_rasterize_uv(face_texcoords, tex):
+    """Rasterize per-face textures ``tex`` [B,F,T,3] over the UV layout
+    ``face_texcoords`` [B,F,3,2]: one [H,W,3] map (JAX lighting.py:220-226)."""
+    from ..ops.softras.api import soft_rasterize_with_aux
+    out, _, _ = soft_rasterize_with_aux(sss_uv_faces(face_texcoords), tex, sss_params(),
+                                        device=face_texcoords.device)
+    return out[0, :3].permute(1, 2, 0)
+
+
+def sss_map_textures(diffuseLight, specular, mesh):
+    """The per-face textures of SSS's three UV maps: world coordinates
+    (scaled to 0-255), irradiance and specular."""
+    irradiance = torch.sqrt(mesh.textures * diffuseLight)
+    world = (mesh.face_vertices + 1) / 2 * 255.0
+    return (world.reshape(world.shape[0], world.shape[1], 3, 3), irradiance,
+            specular.expand(irradiance.shape))
+
+
+def sss_maps(diffuseLight, specular, mesh):
+    """SSS's three UV maps [H,W,3]: world coordinates, irradiance, specular."""
+    return tuple(sss_rasterize_uv(mesh.face_texcoords, t)
+                 for t in sss_map_textures(diffuseLight, specular, mesh))
+
+
+def sss_blur(world_map, irradiance_map):
+    """The stretch-modulated Gaussian sums over the irradiance map
+    (JAX lighting.py:234-256)."""
+    from ..ops.image import compute_stretch_map, gaussian_blur
+    stretchU, stretchV = compute_stretch_map(world_map * 7)
+    stretchU = stretchU.clamp(0.0, 1.0)
+    stretchV = stretchV.clamp(0.0, 1.0)
+    final_map = torch.zeros_like(irradiance_map)
+    for j in range(3):
+        sU, sV = stretchU, stretchV
+        chan = irradiance_map[:, :, j]
+        for i in range(len(SSS_BASIS) - 1):
+            v = SSS_BASIS[i + 1] - SSS_BASIS[i]
+            sU = gaussian_blur(sU, SSS_TAPS, v, sU, 1)
+            chan = gaussian_blur(chan, SSS_TAPS, v, sU, 1)
+            sV = gaussian_blur(sV, SSS_TAPS, v, sV, 0)
+            chan = gaussian_blur(chan, SSS_TAPS, v, sV, 0)
+            final_map[:, :, j] += SSS_WEIGHTS[j][i] * chan
+    return final_map
+
+
+def sss_textures(final_map, mesh):
+    """The diffused map resampled into the mesh's per-face texels
+    (JAX lighting.py:258-263): [1,F,T,3]."""
+    from ..ops.texture import load_textures_softras
+    F = mesh.faces.shape[1]
+    dev = final_map.device
+    return load_textures_softras(final_map.flip(0), mesh.face_texcoords[0],
+                                 torch.ones((F, mesh.texture_res ** 2, 3), device=dev),
+                                 torch.ones((F,), dtype=torch.int32, device=dev))[None]
+
+
+def SSS(diffuseLight, specular, mesh):
+    """Texture-space subsurface scattering (reference lighting.py:86-156):
+    the mesh's new per-face textures [1,F,T,3]."""
+    world, irr, spec = sss_maps(diffuseLight, specular, mesh)
+    final_map = sss_blur(world, irr) * irr + spec
+    return sss_textures(final_map, mesh)
+
+
 class Lighting:
     """Lighting pipeline stage (reference lighting.py:159-221).  It
     rewrites ``mesh.textures`` in place of the mesh, as the reference
@@ -231,6 +322,17 @@ class Lighting:
                 mesh.with_specular, mesh.metallic_textures, mesh.roughness_textures)
         return diffuseLight, specularLight
 
+    def surface_terms(self, mesh, eyes=None):
+        """(diffuse, specular) light of surface mode: per texel [B,F,T,3]
+        through a normal map, else per face [B,F,1,3]."""
+        centers = mesh.face_vertices.sum(dim=2) / 3.0
+        if mesh.normal_textures is not None:
+            return self._lights(mesh, mesh.textures.shape, mesh.surface_ResNormals,
+                                centers, eyes)
+        diffuse, specular = self._lights(mesh, mesh.faces.shape, mesh.surface_normals,
+                                         centers, eyes)
+        return diffuse[:, :, None, :], specular[:, :, None, :]
+
     def __call__(self, mesh, eyes=None):
         if self.Gbuffer == 'albedo':
             return mesh
@@ -238,12 +340,10 @@ class Lighting:
             mesh.textures = torch.ones_like(mesh.textures)
         tex = mesh.textures
         if self.light_mode == 'surface':
-            centers = mesh.face_vertices.sum(dim=2) / 3.0
-            diffuse, specular = self._lights(mesh, mesh.faces.shape,
-                                             mesh.surface_normals, centers, eyes)
-            diffuse = diffuse[:, :, None, :]
-            specular = specular[:, :, None, :]
-            if tex.dim() == 4:
+            diffuse, specular = self.surface_terms(mesh, eyes)
+            if tex.dim() == 4 and mesh.with_SSS:
+                mesh.textures = SSS(diffuse, specular, mesh).clamp(0.0, 1.0)
+            elif tex.dim() == 4:
                 mesh.textures = (tex * diffuse + torch.ones_like(tex) * specular).clamp(0.0, 1.0)
             elif tex.dim() == 6:
                 d = diffuse[:, :, None, None, ...] if diffuse.dim() == 4 \

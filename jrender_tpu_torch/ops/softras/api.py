@@ -31,6 +31,8 @@ the forward's own walk; everything else to the binned kernels
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -110,6 +112,11 @@ def _inputs(face_vertices, textures, texture_type, device):
     face_vertices = face_vertices.reshape(B, F, 9).contiguous()
     if texture_type == 'vertex':
         textures = textures.reshape(B, F, 3, 3)
+    else:
+        # R = isqrt(T) as in the JAX package: texels past R * R are never
+        # read (the scene's per-corner buffers pass T = 3, R = 1)
+        R = math.isqrt(textures.shape[2])
+        textures = textures[:, :, :R * R]
     return face_vertices, textures.contiguous()
 
 

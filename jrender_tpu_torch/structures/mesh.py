@@ -2,10 +2,10 @@
 
 API mirrors the reference ``jrender/structures/mesh.py``: vertices, faces
 and textures with derived face_vertices, surface_normals, vertex_normals
-and surface_ResNormals, ``fill_back_``/``reset_`` and
-``join_meshes_as_scene``.  ``from_obj``, ``save_obj``, ``voxelize`` and the
-inputs only OBJ loading produces (normal maps, TBN frames, texture
-coordinates, subsurface scattering) come with the IO slice of the port.
+and surface_ResNormals, ``fill_back_``/``reset_``, ``from_obj``/``save_obj``,
+``voxelize`` and ``join_meshes_as_scene``; normal maps with their TBN
+frames, texture coordinates and subsurface scattering (``with_SSS``), which
+OBJ loading produces.
 
 A Mesh holds its tensors on one device, the card unless it is built with
 ``device='cpu'``.  Faces are int64, PyTorch's index type.
@@ -65,7 +65,8 @@ class Mesh:
 
     def __init__(self, vertices, faces, textures=None, texture_res=1,
                  texture_type='surface', dr_type='softras', metallic_textures=None,
-                 roughness_textures=None, device=None):
+                 roughness_textures=None, normal_textures=None, TBN=None,
+                 with_SSS=False, face_texcoords=None, device=None):
         dev = resolve_device(device)
         self.device = dev
 
@@ -84,7 +85,14 @@ class Mesh:
         self.texture_type = texture_type
         self.dr_type = dr_type
         self._with_specular = True
+        self._with_SSS = with_SSS
         self._fill_back = False
+
+        if face_texcoords is not None:
+            face_texcoords = f32(face_texcoords)
+            if face_texcoords.dim() == 3:
+                face_texcoords = face_texcoords[None]
+        self._face_texcoords = face_texcoords
 
         bs, nv, nf = vertices.shape[0], vertices.shape[1], faces.shape[1]
 
@@ -131,6 +139,17 @@ class Mesh:
             else:
                 self.texture_res = textures.shape[2]
         self._textures = textures
+
+        if normal_textures is not None:
+            normal_textures = f32(normal_textures)
+            if normal_textures.dim() == 3:
+                normal_textures = normal_textures[None]
+            if TBN is not None:
+                TBN = f32(TBN)
+                if TBN.dim() == 3:
+                    TBN = TBN[None]
+        self._normal_textures = normal_textures
+        self._TBN = TBN
 
         self._origin_vertices = self._vertices
         self._origin_faces = self._faces
@@ -191,12 +210,28 @@ class Mesh:
         self._roughness_textures = v
 
     @property
+    def normal_textures(self):
+        return self._normal_textures
+
+    @property
+    def TBN(self):
+        return self._TBN
+
+    @property
+    def face_texcoords(self):
+        return self._face_texcoords
+
+    @property
     def with_specular(self):
         return self._with_specular
 
     @with_specular.setter
     def with_specular(self, v):
         self._with_specular = v
+
+    @property
+    def with_SSS(self):
+        return self._with_SSS
 
     # -- derived quantities (recomputed on access) --------------------------
     @property
@@ -205,11 +240,23 @@ class Mesh:
 
     @property
     def surface_normals(self):
-        return surface_normals_fn(self.face_vertices)
+        if self._normal_textures is None:
+            return surface_normals_fn(self.face_vertices)
+        # the normal map's texels averaged, rotated through TBN (mesh.py:222-225)
+        sn = self._normal_textures.sum(dim=2) / self.texture_res ** 2
+        sn = torch.matmul(sn[:, :, None, :], self._TBN)[:, :, 0, :]
+        return normalize(sn, axis=2)
 
     @property
     def vertex_normals(self):
         return vertex_normals_fn(self._vertices, self._faces)
+
+    @property
+    def surface_ResNormals(self):
+        """Per-texel normals from the normal map x TBN (mesh.py:276-284)."""
+        TBN = self._TBN[:, :, None, :, :]                   # [B,F,1,3,3]
+        nt = self._normal_textures[:, :, :, None, :]        # [B,F,T,1,3]
+        return normalize(torch.matmul(nt, TBN)[:, :, :, 0, :], axis=3)
 
     @property
     def face_textures(self):
@@ -232,6 +279,49 @@ class Mesh:
         self._faces = self._origin_faces
         self._textures = self._origin_textures
         self._fill_back = False
+
+    # -- IO -----------------------------------------------------------------
+    @classmethod
+    def from_obj(cls, filename_obj, normalization=False, load_texture=False,
+                 dr_type='softras', texture_res=1, texture_type='surface',
+                 texture_wrapping='REPEAT', use_bilinear=True, with_SSS=False,
+                 device=None):
+        from ..io import load_obj
+        dev = resolve_device(device)
+        extras = {}
+        if load_texture:
+            out = load_obj(filename_obj, normalization=normalization,
+                           texture_res=texture_res, load_texture=True, dr_type=dr_type,
+                           texture_type=texture_type, texture_wrapping=texture_wrapping,
+                           use_bilinear=use_bilinear, device=dev)
+            vertices, faces, textures = out[:3]
+            if dr_type == 'softras':
+                extras = dict(zip(('normal_textures', 'TBN', 'face_texcoords'), out[3:]))
+        else:
+            vertices, faces = load_obj(filename_obj, normalization=normalization,
+                                       texture_res=texture_res, load_texture=False,
+                                       dr_type=dr_type, device=dev)
+            textures = None
+        return cls(vertices, faces, textures, texture_res, texture_type, dr_type=dr_type,
+                   with_SSS=with_SSS, device=dev, **extras)
+
+    def save_obj(self, filename_obj, save_texture=False, texture_res_out=16):
+        from ..io import save_obj
+        if self.batch_size != 1:
+            raise ValueError('Could not save when batch size >= 1')
+        if save_texture:
+            save_obj(filename_obj, self.vertices[0], self.faces[0], textures=self.textures[0],
+                     texture_res=texture_res_out, texture_type=self.texture_type)
+        else:
+            save_obj(filename_obj, self.vertices[0], self.faces[0], textures=None)
+
+    def voxelize(self, voxel_size=32):
+        from ..ops.voxelize import voxelization
+        # divided by a tensor: the card divides by a Python scalar through
+        # its reciprocal, which would move a vertex's last bit off the CPU's
+        size = torch.tensor(voxel_size - 1.0, device=self.device)
+        fv = self.face_vertices * voxel_size / size + 0.5
+        return voxelization(fv, voxel_size, False, device=self.device)
 
 
 def join_meshes_as_scene(meshes: List[Mesh], include_texture: bool = True) -> Mesh:
