@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the port's SoftRas (binned, dir, pxg, f_px and px_f routes) and N3MR
-mesh paths, its file IO and its scene pipeline on one CUDA card and check them.
+mesh paths, its file IO, its scene pipeline and its volume/NeRF stack on one
+CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -211,7 +212,37 @@ of which raises on failure:
         (1e-4, all but 1% of the pixels and of the face ids);
      e. ``Mesh.voxelize`` of the 39,474-face sphere at 32 on the card and
         the CPU (equal grids) and at 128 twice on the card (equal, timed);
- 16. one JSON line of the kernels (20 of them), each with ``ms`` (its
+ 16. volume rendering and NeRF (``jrender_tpu_torch.vol``, ``.nerf``; plain
+     PyTorch, no kernel of the package's own, so the package's kernel
+     counts stay 0 here), at the lego config's full width: 8 x 256 coarse
+     and fine MLPs with view directions, 1,024 rays, 64 + 128 samples;
+     TF32 must be off (``allow_tf32`` False, float32 matmul precision
+     'highest'):
+     a. one batch on the card against the port's CPU path on the same
+        weights and fed draws (white_bkgd, perturbed): rgb, acc, rgb0 within
+        1e-4 of each one's max, disp within 1e-3 (1 / (depth / acc), the
+        worst conditioned), the weight gradients of three layers
+        (coarse layer 0, fine layer 5 after the skip, fine views layer)
+        within 1e-3 of their max: the card sums its matrix products in
+        another order and divides by a Python scalar through its
+        reciprocal;
+     b. ``bench.py``'s NeRF row on the port: its 400² target and pose,
+        10 + 30 + 100 steps of the no-batching train step; ms per step
+        (median of 30, CUDA events; and by the host clock), rays a second,
+        the bound from the MLP's float32 work, the device time split
+        between matrix products and the rest (torch.profiler), launches,
+        busy share, peak device memory; the PSNR must rise by more than 3 dB
+        (``bench.py``'s ``learned``);
+     c. ``render_full_image`` at 400² (chunk 32,768, netchunk 65,536) twice,
+        equal to the bit, timed;
+     d. ``train(args)`` on a Blender scene written here (3 views a split,
+        64 px, 4 x 64 nets, 32 + 32 samples, precrop): 40 steps straight
+        with ``--profile_dir`` (the trace must name CUDA kernels) and a
+        validation PNG, against 20 steps, a checkpoint and a resume to 40
+        (within 1e-6); 20 steps with ``net_precision bf16``, and bf16
+        operands against float32 on the trained lego net at the CPU test's
+        bound (mean relative 2%);
+ 17. one JSON line of the kernels (20 of them), each with ``ms`` (its
      wrapper, CUDA events around calls) and ``device_ms`` (the kernel's own
      device time per launch in the steps its route's phase runs,
      torch.profiler: jrender_tpu_torch/utils/device_time.py), K1's also
@@ -916,6 +947,368 @@ def files_and_scene(h):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+# ---- phase 16: volume rendering and NeRF ----------------------------------------
+
+NERF_TOL = 1e-4          # 16a: card against the CPU, rgb, acc, rgb0, share of each one's max
+NERF_DISP_TOL = 1e-3     # 16a: disp, share of its max (first read 7.6e-5 against rgb's
+#                          3.0e-6: disp = 1 / (depth / acc) is the worst conditioned of the
+#                          four; which rays carry it was not traced)
+NERF_GRAD_TOL = 1e-3     # 16a: each layer's weight gradient, share of its max
+NERF_RESUME_TOL = 1e-6   # 16d: a resumed run against the straight one
+NERF_BF16_MEAN = 0.02    # 16d: bf16 operands against f32, mean relative (the CPU test's)
+NERF_LEARNED_DB = 3.0    # 16b: the PSNR rise bench.py's nerf_rows calls learned
+NERF_H = NERF_W = 400    # bench.py's nerf_rows: a 400² target, focal 555.5, near 2, far 6
+NERF_FOCAL = 555.5
+
+
+def nerf_lego_args(**kw):
+    """bench.py's nerf_rows configuration: the lego config's full width, 8 x
+    256 coarse and fine, view directions, 1,024 rays, 64 + 128 samples."""
+    from types import SimpleNamespace
+    base = dict(netdepth=8, netwidth=256, netdepth_fine=8, netwidth_fine=256, N_rand=1024,
+                lrate=5e-4, lrate_decay=500, chunk=32768, netchunk=65536, no_batching=True,
+                no_reload=True, ft_path=None, N_iters=10, N_samples=64, N_importance=128,
+                perturb=1.0, use_viewdirs=True, i_embed=0, multires=10, multires_views=4,
+                raw_noise_std=0.0, precrop_iters=0, precrop_frac=0.5, dataset_type='blender',
+                white_bkgd=True, lindisp=False, no_ndc=True, seed=0, basedir='unused',
+                expname='bench', steps_per_dispatch=10, accumulation_steps=1, valid_ratio=-1.0,
+                net_precision='f32', embed_depth=False)
+    base.update(kw)
+    return SimpleNamespace(**base)
+
+
+def nerf_target(H=NERF_H, W=NERF_W):
+    """bench.py's learnable target (bench.py:313-322): a smooth colour field
+    and two discs."""
+    yy, xx = np.meshgrid(np.linspace(0, 1, H), np.linspace(0, 1, W), indexing='ij')
+    img = np.stack([xx, yy, 0.5 + 0.5 * np.sin(6 * xx) * np.cos(4 * yy)], -1)
+    for (cy, cx, rad, ch) in ((0.35, 0.6, 0.18, 0), (0.7, 0.3, 0.12, 2)):
+        m = (yy - cy) ** 2 + (xx - cx) ** 2 < rad ** 2
+        img[m, ch] = 0.9
+        img[m, (ch + 1) % 3] = 0.1
+    return img.astype(np.float32)
+
+
+def nerf_macs_per_point(D=8, W=256, input_ch=63, input_ch_views=27, skips=(4,)):
+    """Multiply-adds a point through the NeRF MLP with view directions."""
+    macs, fan_in = 0, input_ch
+    for i in range(D):
+        macs += fan_in * W
+        fan_in = W + input_ch if i in skips else W
+    return macs + W * 1 + W * W + (W + input_ch_views) * (W // 2) + (W // 2) * 3
+
+
+def nerf_blender_scene(root, codec, n=3, H=64):
+    """A Blender-format scene of 3 views a split at H px (a shaded disc that
+    moves with the pose), written through the port's image IO."""
+    from jrender_tpu_torch.nerf.dataset import pose_spherical
+    frames = {s: [] for s in ('train', 'val', 'test')}
+    for split in frames:
+        (root / split).mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            ys, xs = np.meshgrid(np.arange(H), np.arange(H), indexing='ij')
+            cx = H / 2 + H / 6 * np.sin(2 * np.pi * i / n)
+            r = np.sqrt((xs - cx) ** 2 + (ys - H / 2) ** 2)
+            v = np.clip(1.0 - r / (H / 3), 0, 1)
+            rgba = np.stack([v, v * 0.5, v * 0.25, (v > 0).astype(float)], -1)
+            codec.imwrite(str(root / split / f'r_{i}.png'), (rgba * 255).astype(np.uint8))
+            frames[split].append({'file_path': f'{split}/r_{i}',
+                                  'transform_matrix': pose_spherical(360.0 * i / n, -30.0,
+                                                                     4.0).tolist()})
+    for split, fr in frames.items():
+        (root / f'transforms_{split}.json').write_text(
+            json.dumps({'camera_angle_x': 0.6911, 'frames': fr}))
+
+
+NERF_TRAIN_CFG = """expname = {name}
+dataset_type = blender
+white_bkgd = True
+no_batching = True
+use_viewdirs = True
+N_samples = 32
+N_importance = 32
+N_rand = 256
+netdepth = 4
+netwidth = 64
+netdepth_fine = 4
+netwidth_fine = 64
+multires = 6
+multires_views = 3
+lrate = 0.005
+precrop_iters = 10
+N_iters = {iters}
+steps_per_dispatch = 10
+i_print = 10
+i_weights = 20
+i_img = 40
+testskip = 1
+"""
+
+
+def nerf_stack(h):
+    """Phase 16: volume rendering and NeRF on the card (module docstring).
+    ``h``: main's helpers (dev, smi, zero_counts, read_all).  Returns the
+    numbers the log reports."""
+    import shutil
+    import tempfile
+
+    import torch
+    from jrender_tpu_torch.io import image as codec
+    from jrender_tpu_torch.nerf import config, trainer
+    from jrender_tpu_torch.nerf.model import img2mse, mse2psnr
+    from jrender_tpu_torch.vol import render_pass
+    from jrender_tpu_torch.vol.camera import pinhole_get_rays
+
+    dev, smi = h['dev'], h['smi']
+    out = {}
+    h['zero_counts']()
+    tf32 = bool(torch.backends.cuda.matmul.allow_tf32)
+    precision = torch.get_float32_matmul_precision()
+    log(f'phase 16: torch.backends.cuda.matmul.allow_tf32 = {tf32}, '
+        f'float32 matmul precision {precision!r}')
+    if tf32 or precision != 'highest':
+        raise AssertionError('phase 16: TF32 would enter the MLP products')
+    out['allow_tf32'] = tf32
+
+    H, W, focal, near, far = NERF_H, NERF_W, NERF_FOCAL, 2.0, 6.0
+    target = nerf_target()
+    pose = np.eye(4, dtype=np.float32)[:3, :4]
+    pose[2, 3] = -4.0
+    macs = nerf_macs_per_point()
+    step_points = 1024 * (64 + 64 + 128)      # coarse, and fine on both sample sets
+    step_flop = 3 * 2 * macs * step_points      # forward, and a backward of twice its work
+    frame_flop = 2 * macs * H * W * (64 + 64 + 128)
+
+    # ---- a. one batch on the card against the CPU --------------------------------
+    log('phase 16a: one lego batch (8 x 256 coarse and fine, view directions, 1,024 rays, '
+        '64 + 128 samples, white_bkgd, fed draws) on the card against the CPU')
+    args = nerf_lego_args()
+    rng = np.random.RandomState(SEED + 16)
+    n = args.N_rand
+    ys, xs = rng.randint(0, H, n), rng.randint(0, W, n)
+    ro, rd = pinhole_get_rays(H, W, focal, torch.from_numpy(pose))
+    ro, rd = ro[ys, xs].contiguous(), rd[ys, xs].contiguous()
+    tgt = torch.from_numpy(target[ys, xs])
+    draws = {'t_rand': torch.from_numpy(rng.rand(n, args.N_samples).astype(np.float32)),
+             'u': torch.from_numpy(rng.rand(n, args.N_importance).astype(np.float32))}
+    layers = (('coarse', 'pts_linears', 0), ('fine', 'pts_linears', 5),
+              ('fine', 'views_linears', 0))
+
+    def batch(device):
+        rk, _, _, nets, _ = trainer.create_nerf(args, device=device)
+        rk.pop('ndc', None)
+        rk['lindisp'] = False
+        nq = rk.pop('network_query_fn')
+        rgb, disp, acc, extras = render_pass.render(
+            H, W, focal, chunk=n, rays=(ro.to(device), rd.to(device)), ndc=False,
+            near=near, far=far, draws={k: v.to(device) for k, v in draws.items()},
+            network_fn=nets['coarse'], network_fine=nets['fine'], network_query_fn=nq, **rk)
+        t_ = tgt.to(device)
+        (img2mse(rgb, t_) + img2mse(extras['rgb0'], t_)).backward()
+        outs = {'rgb': rgb, 'disp': disp, 'acc': acc, 'rgb0': extras['rgb0']}
+        grads = {f'{n}.{k}[{i}].w': getattr(nets[n], k)[i].w.grad for n, k, i in layers}
+        return ({k: v.detach().cpu().double() for k, v in outs.items()},
+                {k: v.cpu().double() for k, v in grads.items()})
+
+    t0 = time.perf_counter()
+    card_o, card_g = batch(dev)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_o, cpu_g = batch('cpu')
+    t_cpu = time.perf_counter() - t0
+
+    def share(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    errs = {k: share(card_o[k], cpu_o[k]) for k in cpu_o}
+    gerrs = {k: share(card_g[k], cpu_g[k]) for k in cpu_g}
+    log(f'  card against CPU, share of max: outputs {errs} (tolerance {NERF_TOL}, disp '
+        f'{NERF_DISP_TOL}); weight gradients {gerrs} (tolerance {NERF_GRAD_TOL}); '
+        f'{t_card:.2f} s card (first call), {t_cpu:.2f} s CPU')
+    bad = [k for k, e in errs.items()
+           if not e <= (NERF_DISP_TOL if k == 'disp' else NERF_TOL)] + \
+        [k for k, e in gerrs.items() if not e <= NERF_GRAD_TOL]
+    if bad:
+        raise AssertionError(f'phase 16a: card against CPU beyond tolerance: {bad}')
+    out['16a'] = {'outputs': errs, 'grads': gerrs}
+
+    # ---- b. bench.py's NeRF row on the port ----------------------------------------
+    log("phase 16b: bench.py's NeRF row: 10 + 30 + 100 steps of the no-batching step on the "
+        '400² target')
+    rk, rk_test, _, nets, opt = trainer.create_nerf(args, device=dev)
+    rk.pop('ndc', None)
+    rk['lindisp'] = False
+    rk_test['lindisp'] = False
+    step_fn = trainer.make_train_step(opt, rk, H, W, focal, near, far, args.N_rand, 0, 0.5,
+                                      ndc=False)
+    image = torch.from_numpy(target).to(dev)
+    pose_d = torch.from_numpy(pose).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    psnrs = []
+
+    def steps(s0, n, events=None):
+        for i in range(n):
+            if events is not None:
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+            _, psnr = step_fn(nets, image, pose_d, s0 + i, generator=gen)
+            if events is not None:
+                ev[1].record()
+                events.append(ev)
+            psnrs.append(psnr)
+        return s0 + n
+
+    s = steps(0, 10)
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(3):
+        s = steps(s, 10, events)
+    torch.cuda.synchronize()
+    ev_ms = [a.elapsed_time(b) for a, b in events]
+    host_ms = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = steps(s, 1)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    s = steps(s, 1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    # where the step's device time goes: matrix products against the rest
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = steps(s, 5)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3 / 5
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / 5
+    gemm = sum(v for k, v in by_name.items()
+               if any(w in k.lower() for w in ('gemm', 'cutlass', 'sm90_xmma', 'gemv')))
+    dev_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    launches = len(kern) / 5
+    s = steps(s, 100 - 10 - 1 - 5)
+    torch.cuda.synchronize()
+    ps = [float(p) for p in psnrs]
+    med = float(np.median(ev_ms))
+    out['16b'] = {'ms_per_step': med, 'ms_per_step_host': float(np.median(host_ms)),
+                  'rays_per_s': n / med * 1e3, 'psnr_start': ps[0], 'psnr_end': ps[-1],
+                  'steps': s, 'peak_bytes': peak, 'peak_above_start_bytes': peak - base,
+                  'device_ms': dev_ms, 'matmul_ms': gemm, 'other_ms': dev_ms - gemm,
+                  'launches': launches, 'busy': dev_ms / prof_wall, 'wall_ms_profiled': prof_wall,
+                  'bound_ms': step_flop / PEAK_FP32 * 1e3, 'step_tflop': step_flop / 1e12}
+    log(f'  ms/step {med:.4f} (median of 30, CUDA events; {np.median(host_ms):.4f} host clock '
+        f'with synchronize), {n / med * 1e3:.1f} rays/s, bound {step_flop / PEAK_FP32 * 1e3:.3f} '
+        f'ms ({step_flop / 1e12:.4f} TFLOP of float32 at {PEAK_FP32 / 1e12:.0f} TFLOPS)  [{smi}]')
+    log(f'  device {dev_ms:.4f} ms a step: matrix products {gemm:.4f}, the rest {dev_ms - gemm:.4f};'
+        f' {launches:.0f} launches, busy {dev_ms / prof_wall:.3f} of {prof_wall:.3f} ms; '
+        f'top kernels {[(k[:60], round(v, 4)) for k, v in top]}')
+    log(f'  peak device memory {peak / 2**20:.1f} MiB ({(peak - base) / 2**20:.1f} above the '
+        f'step\'s start); PSNR {ps[0]:.3f} -> {ps[-1]:.3f} dB over {s} steps')
+    if not ps[-1] > ps[0] + NERF_LEARNED_DB:
+        raise AssertionError(f'phase 16b: PSNR did not rise by {NERF_LEARNED_DB} dB: '
+                             f'{ps[0]} -> {ps[-1]}')
+
+    # ---- c. a full frame ------------------------------------------------------------
+    log('phase 16c: render_full_image at 400² (chunk 32,768, netchunk 65,536), twice')
+    frames, frame_ms = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames.append(trainer.render_full_image(H, W, focal, pose_d, nets, rk_test, 32768,
+                                                near=near, far=far))
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    same = all(torch.equal(a, b) for a, b in zip(*frames))
+    rgb = frames[0][0]
+    if not (same and rgb.shape == (H, W, 3) and bool(torch.isfinite(rgb).all())):
+        raise AssertionError(f'phase 16c: frames differ ({same}) or are not finite')
+    frame_psnr = float(mse2psnr(img2mse(rgb, image)))
+    out['16c'] = {'frame_ms': frame_ms, 'equal': same, 'psnr': frame_psnr,
+                  'bound_ms': frame_flop / PEAK_FP32 * 1e3, 'frame_tflop': frame_flop / 1e12}
+    log(f'  frame ms {frame_ms} (host clock with synchronize), equal {same}, PSNR '
+        f'{frame_psnr:.3f} dB, bound {frame_flop / PEAK_FP32 * 1e3:.1f} ms '
+        f'({frame_flop / 1e12:.2f} TFLOP)  [{smi}]')
+
+    # ---- d. the trainer ---------------------------------------------------------------
+    log('phase 16d: train(args) on a Blender scene written here: 40 steps straight against 20, '
+        'a checkpoint, and a resume to 40; --profile_dir; net_precision bf16')
+    tmp = Path(tempfile.mkdtemp(prefix='chip_smoke_nerf_'))
+    try:
+        nerf_blender_scene(tmp / 'data', codec)
+        cfg = tmp / 'cfg.txt'
+
+        def run(name, iters, basedir, *more):
+            cfg.write_text(NERF_TRAIN_CFG.format(name=name, iters=iters))
+            a = config.parse_args(['--config', str(cfg), '--datadir', str(tmp / 'data'),
+                                   '--basedir', str(tmp / basedir), *more])
+            t0 = time.perf_counter()
+            r = trainer.train(a)
+            torch.cuda.synchronize()
+            return r, time.perf_counter() - t0
+
+        (nets_a, opt_a, hist_a), t_a = run('r', 40, 'a', '--profile_dir', str(tmp / 'prof'))
+        run('r', 20, 'b')
+        (nets_b, opt_b, hist_b), _ = run('r', 40, 'b')
+        diff = max(float((p - q).detach().abs().max())
+                   for p, q in zip(nets_a.parameters(), nets_b.parameters()))
+        if not diff <= NERF_RESUME_TOL or opt_a.count != opt_b.count:
+            raise AssertionError(f'phase 16d: the resume is {diff} from straight training')
+        if not np.isfinite(hist_a[-1][2]):
+            raise AssertionError(f'phase 16d: training is not finite: {hist_a}')
+        traces = sorted((tmp / 'prof').glob('*.json'))
+        names = set()
+        for p in traces:
+            names |= {e.get('name') for e in json.loads(p.read_text())['traceEvents']
+                      if e.get('cat') == 'kernel'}
+        if not names:
+            raise AssertionError(f'phase 16d: the trace {traces} names no CUDA kernel')
+        val = sorted((tmp / 'a' / 'r' / 'val_imgs').glob('*.png'))
+        if not val:
+            raise AssertionError('phase 16d: no validation PNG')
+        (_, _, hist_bf), _ = run('bf', 20, 'c', '--net_precision', 'bf16')
+        if not np.isfinite(hist_bf[-1][2]):
+            raise AssertionError(f'phase 16d: bf16 training is not finite: {hist_bf}')
+        # bf16 operands against f32 on phase 16b's trained lego net, as the CPU test holds them
+        nq32 = rk_test['network_query_fn']
+        nqbf = trainer.create_nerf(nerf_lego_args(net_precision='bf16'),
+                                   device=dev)[1]['network_query_fn']
+        g = torch.Generator(device=dev).manual_seed(SEED + 160)
+        pts = torch.rand(8192, 8, 3, generator=g, device=dev) * 2 - 1
+        vd = pts[:, 0] / pts[:, 0].norm(dim=-1, keepdim=True)
+        with torch.no_grad():
+            o32, obf = nq32(pts, vd, nets['fine']), nqbf(pts, vd, nets['fine'])
+        bf_mean = float((o32 - obf).abs().mean() / (o32.abs().mean() + 1e-6))
+        if not bf_mean < NERF_BF16_MEAN:
+            raise AssertionError(f'phase 16d: bf16 against f32 {bf_mean}')
+        out['16d'] = {'resume_max_diff': diff, 'psnr': [hist_a[0][2], hist_a[-1][2]],
+                      'train_40_s': t_a, 'trace_files': len(traces), 'trace_kernels': len(names),
+                      'val_png': val[-1].name, 'bf16_psnr': hist_bf[-1][2],
+                      'bf16_mean_rel': bf_mean}
+        log(f'  resume against straight: max |diff| {diff:.3g} (tolerance {NERF_RESUME_TOL}); '
+            f'PSNR {hist_a[0][2]:.3f} -> {hist_a[-1][2]:.3f}; 40 steps {t_a:.2f} s with the '
+            f'trace; trace files {len(traces)} naming {len(names)} CUDA kernels (e.g. '
+            f'{sorted(names)[:3]}); val PNG {val[-1].name}; bf16 run PSNR {hist_bf[-1][2]:.3f}; '
+            f'bf16 against f32 mean relative {bf_mean:.4g} (bound {NERF_BF16_MEAN})')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n = h['read_all']()
+    log(f'  kernel launches of the package during phase 16: {n} (the NeRF path has no kernel '
+        'of its own: its products are cuBLAS matrix products)')
+    out['package_kernel_launches'] = n
+    return out
+
 
 def main() -> int:
     import torch
@@ -3872,7 +4265,21 @@ def main() -> int:
                                pixels_vs_plain=pixels_vs_plain, no_dir=no_dir, no_pxg=no_pxg))
     log(json.dumps({'phase15': p15}))
 
-    # ---- 16. results ----------------------------------------------------
+    # ---- 16. volume rendering and NeRF -----------------------------------------------
+    def read_all():
+        ws = (*wrappers.values(), *dir_wrappers.values(), *pxg_wrappers.values(),
+              *tiled_wrappers.values(), segment_sum.launch_segment_sum, *n_wrappers.values())
+        return sum(w.launches for w in ws)
+
+    def zero_all():
+        zero_counts()
+        for w in n_wrappers.values():
+            w.launches = 0
+
+    p16 = nerf_stack(dict(dev=dev, smi=smi, zero_counts=zero_all, read_all=read_all))
+    log(json.dumps({'phase16': p16}))
+
+    # ---- 17. results ----------------------------------------------------
     launches = {**step_counts, **n_step_counts, **dir_counts, **pxg_counts, **fpx_counts,
                 **pxf_counts}
     # the face sum ran in the pxg, f_px and px_f steps alike

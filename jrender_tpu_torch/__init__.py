@@ -1,11 +1,11 @@
-"""jrender_tpu_torch — the SoftRas and N3MR renderers in PyTorch, with CUDA kernels for Hopper.
+"""jrender_tpu_torch — the SoftRas and N3MR renderers and the volume/NeRF stack in PyTorch, with CUDA kernels for Hopper.
 
 The port of ``jrender_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100.
 It imports neither JAX nor the JAX package.  Its entry points run on the
 card unless the caller passes ``device='cpu'``, where each kernel's
 plain PyTorch version runs instead.
 
-So far it covers the two mesh rasterizers, forward and backward:
+It covers the two mesh rasterizers, forward and backward:
     Mesh, Renderer, SoftRenderer, SoftRasterizer, Transform, Lighting,
     soft_rasterize (differentiable, top-K truncated gradient),
     N3mrRasterizer, rasterize_rgbad, rasterize, rasterize_silhouettes,
@@ -14,7 +14,13 @@ So far it covers the two mesh rasterizers, forward and backward:
 and the files and the scene: load_obj, save_obj (OBJ/MTL with texture
 PNGs, read by imageio, PIL or the package's own PNG codec), Mesh.from_obj,
 normal maps and texture-space SSS, Scene, Render, Light, Texture (the
-scene graph's deferred pipeline with its screen-space effects).
+scene graph's deferred pipeline with its screen-space effects); and the
+volume renderer and NeRF (plain PyTorch, no kernel of its own): rays,
+stratified and importance sampling and compositing (pinhole_get_rays,
+ndc_rays, sample, sample_pdf, integrator, render_rays, render), the NeRF
+MLP (NeRF, Embedder, get_embedder) and its trainer with its datasets,
+config, checkpoints and profiling (train, create_nerf, parse_args,
+render_full_image; ``python -m jrender_tpu_torch.nerf --config ...``).
 """
 
 from .structures import Mesh, join_meshes_as_scene
@@ -28,5 +34,9 @@ from .loss import LaplacianLoss, FlattenLoss, neg_iou_loss
 from .io import load_obj, save_obj
 from .scene import Scene, Render, Light, Texture
 from .utils import get_points_from_angles
+from .vol import (pinhole_get_rays, get_rays, ndc_rays, sample, sample_pdf, integrator,
+                  render_rays, render, batchify_rays)
+from .nerf import (NeRF, Embedder, get_embedder, nerf_apply, img2mse, mse2psnr, to8b,
+                   parse_args, create_nerf, render_full_image, train)
 
 __version__ = '0.1.0'

@@ -11,8 +11,11 @@ state is demo 2's parameters and the graph data of its losses:
 ``load_deform_params`` writes a JAX parameter dict (``displace``,
 ``center``) into a port ``DeformModel``, ``deform_params`` reads them
 back as numpy, and ``copy_loss_state`` copies the Laplacian matrix and
-the edge lists of the JAX loss objects onto the port's.  None of them
-imports the JAX package: they read arrays and attributes only.
+the edge lists of the JAX loss objects onto the port's.  A NeRF's state
+is its weight tree: ``nerf_params_from_numpy`` builds the port's ``NeRF``
+modules from the JAX package's parameter tree taken as numpy, and
+``nerf_params_to_numpy`` reads them back.  None of them imports the JAX
+package: they read arrays and attributes only.
 """
 from __future__ import annotations
 
@@ -173,3 +176,53 @@ def copy_loss_state(src, dst) -> None:
         new = torch.as_tensor(np.asarray(getattr(src, name)), device=old.device).to(old.dtype)
         setattr(dst, name, new)
     dst.average = src.average
+
+
+# -- NeRF ---------------------------------------------------------------------
+
+def _nerf_from_tree(tree, device):
+    from .nerf.model import NeRF
+    pts = tree['pts_linears']
+    D = len(pts)
+    input_ch, W = np.shape(pts[0]['w'])
+    skips = tuple(i for i in range(D - 1) if np.shape(pts[i + 1]['w'])[0] == W + input_ch)
+    use_viewdirs = 'feature_linear' in tree
+    input_ch_views = np.shape(tree['views_linears'][0]['w'])[0] - W if use_viewdirs else 0
+    output_ch = 4 if use_viewdirs else np.shape(tree['output_linear']['w'])[1]
+    params = {k: ([{'w': np.asarray(l['w']), 'b': np.asarray(l['b'])} for l in v]
+                  if isinstance(v, (list, tuple)) else
+                  {'w': np.asarray(v['w']), 'b': np.asarray(v['b'])})
+              for k, v in tree.items()}
+    return NeRF(D, int(W), int(input_ch), int(input_ch_views), int(output_ch), skips,
+                use_viewdirs, params=params, device=device)
+
+
+def nerf_params_from_numpy(tree, device=None):
+    """The port's networks from a JAX NeRF parameter tree taken as numpy:
+    ``{'coarse': net, 'fine': net}`` (the trainer's) gives an
+    ``nn.ModuleDict`` of ``NeRF``, one net's tree (``{'pts_linears': [{'w',
+    'b'}, ...], 'feature_linear', ...}``) a ``NeRF``.  Depth, width, input
+    channels, skips and heads are read from the shapes."""
+    from torch import nn
+    from ._device import resolve_device
+    dev = resolve_device(device)
+    if 'pts_linears' in tree:
+        return _nerf_from_tree(tree, dev)
+    return nn.ModuleDict({k: _nerf_from_tree(v, dev) for k, v in tree.items()})
+
+
+def nerf_params_to_numpy(model):
+    """A ``NeRF`` (or an ``nn.ModuleDict`` of them) as the JAX package's
+    parameter tree of numpy arrays."""
+    from .nerf.model import NeRF
+
+    def one(net):
+        t = net.tree()
+        return {k: ([{n: a.detach().cpu().numpy().copy() for n, a in l.items()} for l in v]
+                    if isinstance(v, list) else
+                    {n: a.detach().cpu().numpy().copy() for n, a in v.items()})
+                for k, v in t.items()}
+
+    if isinstance(model, NeRF):
+        return one(model)
+    return {k: one(v) for k, v in model.items()}

@@ -163,12 +163,27 @@ def compute_stretch_map(world_map, padding_method='replicate'):
 SCAN_BLOCK = 16
 
 
-def _running_sum(x):
-    """Inclusive prefix sums along the last dim, added left to right."""
+def _running(x, op):
+    """Inclusive prefix ``op`` along the last dim, applied left to right."""
     outs = [x[..., 0]]
     for k in range(1, x.shape[-1]):
-        outs.append(outs[-1] + x[..., k])
+        outs.append(op(outs[-1], x[..., k]))
     return torch.stack(outs, -1)
+
+
+def _blocked_scan(x, op, identity):
+    """Inclusive scan of ``op`` along the last dim in blocks of SCAN_BLOCK,
+    each block's offset the scan (the same way, recursively) of the blocks'
+    totals."""
+    n = x.shape[-1]
+    if n <= SCAN_BLOCK:
+        return _running(x, op)
+    m = -(-n // SCAN_BLOCK)
+    xp = Fn.pad(x, (0, m * SCAN_BLOCK - n), value=identity)
+    inner = _running(xp.reshape(*x.shape[:-1], m, SCAN_BLOCK), op)
+    offset = Fn.pad(_blocked_scan(inner[..., -1], op, identity)[..., :-1], (1, 0),
+                    value=identity)
+    return op(inner, offset[..., None]).reshape(*x.shape[:-1], m * SCAN_BLOCK)[..., :n]
 
 
 def prefix_sum(x, dim):
@@ -178,16 +193,14 @@ def prefix_sum(x, dim):
     order of the JAX package's ``jnp.cumsum`` on the CPU (XLA rewrites its
     long reduce-window so), so both give the same bits; ``torch.cumsum``
     accumulates in float64 on the CPU and in float32 on the card."""
-    x = x.movedim(dim, -1)
-    n = x.shape[-1]
-    if n <= SCAN_BLOCK:
-        return _running_sum(x).movedim(-1, dim)
-    m = -(-n // SCAN_BLOCK)
-    xp = Fn.pad(x, (0, m * SCAN_BLOCK - n))
-    inner = _running_sum(xp.reshape(*x.shape[:-1], m, SCAN_BLOCK))
-    offset = Fn.pad(prefix_sum(inner[..., -1], -1)[..., :-1], (1, 0))
-    out = (inner + offset[..., None]).reshape(*x.shape[:-1], m * SCAN_BLOCK)[..., :n]
-    return out.movedim(-1, dim)
+    return _blocked_scan(x.movedim(dim, -1), torch.add, 0.0).movedim(-1, dim)
+
+
+def prefix_prod(x, dim):
+    """Inclusive prefix products of float32 ``x`` along ``dim`` in
+    ``prefix_sum``'s order, which is that of ``jnp.cumprod`` on the CPU
+    (``torch.cumprod`` multiplies in another order)."""
+    return _blocked_scan(x.movedim(dim, -1), torch.mul, 1.0).movedim(-1, dim)
 
 
 def generate_SAT(image):
