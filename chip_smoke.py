@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the port's SoftRas (binned, dir, pxg, f_px and px_f routes) and N3MR
-mesh paths, its file IO, its scene pipeline and its volume/NeRF stack on one
-CUDA card and check them.
+mesh paths, its file IO, its scene pipeline, its volume/NeRF stack and its
+parallel stack on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -242,12 +242,36 @@ of which raises on failure:
         (within 1e-6); 20 steps with ``net_precision bf16``, and bf16
         operands against float32 on the trained lego net at the CPU test's
         bound (mean relative 2%);
- 17. one JSON line of the kernels (20 of them), each with ``ms`` (its
+ 17. the parallel stack (``jrender_tpu_torch.parallel``; a world of n
+     ranks on one card is emulated in one process, band by band):
+     a. bench.py's sphere at 1024 px (39,474 faces, T = 25, K = 16, softmax
+        and hard rgb as phase 5), cut into n = 2, 4 and 8 bands of 16-px
+        tile rows, strided and contiguous (``parallel.render.band_forward``,
+        K1, its threshold, K2 and the reduction on each band): each band's
+        image, aggregates, counts and threshold bit-equal to the whole
+        image's rows, its slot rows to the whole image's, the bands
+        assembled into the image bit for bit, and the bands' gradients
+        summed within 1e-5 of the whole image's max; at 128 and 256 px,
+        B = 2 with big faces, each band's kernels against the plain
+        versions on the band's rows at phase 3's tolerances;
+     b. ``soft_rasterize_sharded`` through a one-rank NCCL group (a file
+        store) against ``soft_rasterize`` on the same inputs: image and both
+        gradients bit-equal, under ``JR_LAYOUT`` pxt (one launch of K1, its
+        threshold, K2 and the reduction) and px_f (one of each px_f kernel);
+     c. the device time of K1, its threshold and K2 on each band of 4,
+        strided against contiguous, with each band's pairs (the load
+        balance of render.py:85-91);
+     d. ``make_sharded_nerf_step`` at the lego config's widths on
+        bench.py's target through the one-rank group: 3 steps bit-equal to
+        the unsharded step, two data shares' gradients summed within 1e-4
+        of the whole batch's max, ms a step beside phase 16b's;
+ 18. one JSON line of the kernels (20 of them), each with ``ms`` (its
      wrapper, CUDA events around calls) and ``device_ms`` (the kernel's own
      device time per launch in the steps its route's phase runs,
      torch.profiler: jrender_tpu_torch/utils/device_time.py), K1's also
-     with its launches on phase 15's paths; the last line is the device
-     JSON.
+     with its launches on phase 15's paths, K1's, its threshold's and K2's
+     with their device time on each band of phase 17c and their launches
+     on phase 17b's sharded step; the last line is the device JSON.
 
 The meshes, textures, cameras and pixel samples come from fixed seeds.
 
@@ -1307,6 +1331,326 @@ def nerf_stack(h):
     log(f'  kernel launches of the package during phase 16: {n} (the NeRF path has no kernel '
         'of its own: its products are cuBLAS matrix products)')
     out['package_kernel_launches'] = n
+    return out
+
+
+# ---- phase 17: the parallel stack ----------------------------------------------------
+
+BANDS = (2, 4, 8)        # 17a: ranks emulated in one process
+BAND_SUM_TOL = 1e-5      # 17a: the bands' gradients summed, share of the whole image's max
+NERF_SHARE_TOL = 1e-4    # 17d: two shares' gradients summed, share of the whole batch's max
+
+
+def band_soup(F, B, T, is_, seed):
+    """Random triangles at ``is_`` px with two faces over most of the
+    screen (big faces of a small emit cap), and tie-symmetric textures."""
+    import torch
+    from jrender_tpu_torch.utils.checks import tie_symmetric
+    rng = np.random.RandomState(seed)
+    c = rng.uniform(-0.8, 0.8, (B, F, 1, 2))
+    r = rng.uniform(0.03, 0.3, (B, F, 1, 1))
+    ang = rng.uniform(0, 2 * np.pi, (B, F, 1)) + np.arange(3) * 2 * np.pi / 3 \
+        + rng.uniform(-0.3, 0.3, (B, F, 3))
+    xy = c + r * np.stack([np.cos(ang), np.sin(ang)], -1)
+    xy[:, 0] = [[-0.9, -0.9], [0.9, -0.8], [0.0, 0.9]]
+    xy[:, 1] = [[-0.8, 0.8], [0.7, 0.9], [-0.9, -0.7]]
+    z = 2.5 + rng.uniform(-0.4, 0.4, (B, F, 3, 1))
+    fv = np.concatenate([xy, z], -1).astype(np.float32).reshape(B, F, 9)
+    tex = rng.uniform(size=(B, F, T, 3)).astype(np.float32)
+    return torch.tensor(fv, device='cuda'), tie_symmetric(torch.tensor(tex, device='cuda'))
+
+
+def parallel_stack(h):
+    """Phase 17: the parallel stack on the card (module docstring).  ``h``:
+    main's helpers (dev, smi, fv, tex, p: bench.py's sphere at 1024 px,
+    zero_counts, read_counts, read_tiled, nerf_ms: phase 16b's ms a step or
+    None).
+    Returns the numbers the log reports."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from jrender_tpu_torch.nerf import trainer
+    from jrender_tpu_torch.nerf.model import img2mse
+    from jrender_tpu_torch.ops.softras import (binning, cuda_impl, make_params, route,
+                                               soft_rasterize, torch_impl)
+    from jrender_tpu_torch.parallel import (make_device_mesh, make_sharded_nerf_step,
+                                            soft_rasterize_sharded)
+    from jrender_tpu_torch.parallel import render as prender
+    from jrender_tpu_torch.utils.checks import fold_ties, grad_beyond
+    from jrender_tpu_torch.utils.device_time import device_ms
+    from jrender_tpu_torch.vol.camera import pinhole_get_rays
+    from jrender_tpu_torch.vol.ray_marching import render_rays
+
+    dev, smi, fv, tex, p = h['dev'], h['smi'], h['fv'], h['tex'], h['p']
+    out = {}
+    t_phase = time.time()
+
+    # ---- a. bands bit-equal to the whole image -----------------------------------------
+    log(f'phase 17a: K1, its threshold, K2 and the reduction on bands of 16-px tile rows, '
+        f'n in {BANDS}, strided and contiguous, against the whole image: bench.py\'s sphere '
+        f'at 1024 px ({fv.shape[1]:,} faces, T = {tex.shape[2]}, K = {p.max_faces_id})')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    whole = cuda_impl.prepare(fv, tex, p, for_grad=True)
+    img, ag, cnt = cuda_impl.launch(whole, p)
+    thr = cuda_impl.launch_thr(whole, cnt, p)
+    g = torch.randn(img.shape, generator=gen, device=dev)
+    rows_w = cuda_impl.launch_bwd(whole, img, ag, thr, g, p)
+    gf_w, gt_w = cuda_impl.launch_reduce(whole, rows_w, p)
+    gt_wf = fold_ties(gt_w)
+    torch.cuda.synchronize()
+    sums = {}
+    for n in BANDS:
+        for mode in prender.BAND_MODES:
+            gf_s, gt_s = torch.zeros_like(gf_w), torch.zeros_like(gt_w)
+            bands = []
+            for r in range(n):
+                st = prender.band_forward(fv, tex, p, r, n, mode, need_grad=True)
+                rows = prender.band_image_rows(st.plan, r).to(dev)
+                if st.plan.route != 'binned' or st.thr is None:
+                    raise AssertionError(f'phase 17a: band {r} of {n} took {st.plan}')
+                for got, want, what in ((st.images, img, 'image'), (st.aggrs, ag, 'aggrs'),
+                                        (st.counts, cnt, 'counts'), (st.thr, thr, 'threshold')):
+                    if not torch.equal(got, want.index_select(-2, rows)):
+                        raise AssertionError(f'phase 17a: band {r} of {n} ({mode}): its '
+                                             f'{what} is not the whole image\'s rows')
+                rb = cuda_impl.launch_bwd(st.table, st.images, st.aggrs, st.thr,
+                                          g.index_select(2, rows).contiguous(), p)
+                sb, sw = st.table.lists.gsrc[0], whole.lists.gsrc[0]
+                emitted = sb >= 0
+                if not (bool((sw[emitted] >= 0).all()) and torch.equal(
+                        rb.gslots[0, sb[emitted]], rows_w.gslots[0, sw[emitted]])):
+                    raise AssertionError(f'phase 17a: band {r} of {n} ({mode}): its slot rows '
+                                         f'are not the whole image\'s')
+                gf, gt = cuda_impl.launch_reduce(st.table, rb, p)
+                gf_s, gt_s = gf_s + gf, gt_s + gt
+                bands.append(st.images)
+                del rb, st
+            if not torch.equal(prender.assemble(torch.stack(bands), prender.band_plan(
+                    p, n, dev, mode)), img):
+                raise AssertionError(f'phase 17a: {n} bands ({mode}) do not assemble the image')
+            e_f = ((gf_s - gf_w).abs().max() / gf_w.abs().max()).item()
+            e_t = ((fold_ties(gt_s) - gt_wf).abs().max() / gt_wf.abs().max()).item()
+            if not max(e_f, e_t) <= BAND_SUM_TOL:
+                raise AssertionError(f'phase 17a: {n} bands ({mode}): gradient sums {e_f:.3g}, '
+                                     f'{e_t:.3g} of max from the whole image\'s')
+            sums[f'{n}_{mode}'] = (e_f, e_t)
+            log(f'  n = {n} {mode}: maps, counts, thresholds and slot rows bit-equal to the '
+                f'whole image\'s; gradient sums {e_f:.3g} (faces), {e_t:.3g} (textures) of max')
+    out['grad_sum_err'] = sums
+    del rows_w
+
+    # against the band-aware plain versions at phase 3's tolerances
+    for is_ in (128, 256):
+        for n, mode in ((2, 'stride'), (4, 'contig'), (4, 'stride')):
+            x, t = band_soup(400, 2, 4, is_, SEED + is_ + n)
+            pp = make_params(image_size=is_, sigma_val=1e-3, gamma_val=1e-3,
+                             max_faces_per_pixel_for_grad=4)
+            plan = prender.band_plan(pp, n, dev, mode)
+            worst = [0.0, 0.0, 0.0]
+            for r in range(n):
+                band = prender.band_of(plan, r)
+                rows = prender.band_image_rows(plan, r).to(dev)
+                xb = cuda_impl.prepare(x, t, pp, for_grad=True, band=band)
+                xb = xb._replace(lists=binning.build_tile_lists_compact(
+                    x, is_, cuda_impl.TILE, cuda_impl.TILE, pp.threshold, 6, with_inverse=True,
+                    band=band))
+                if not int(xb.lists.gcount.min()) >= 2:
+                    raise AssertionError('phase 17a: the soup has no big faces')
+                bi, ba, bc = cuda_impl.launch(xb, pp)
+                bt = cuda_impl.launch_thr(xb, bc, pp)
+                gb = torch.randn(bi.shape, generator=gen, device=dev)
+                gf, gt = cuda_impl.soft_rasterize_bwd(x, t, bi, ba, bt, gb, pp, xb)
+                wi, _, wc = torch_impl.forward_rows(x, t, pp, rows, chunk_pairs=1 << 22)
+                wt_thr = torch_impl.threshold_rows(x, pp, rows, chunk_pairs=1 << 22)
+                wf, wt = torch_impl.backward_rows(x, t, bi, ba, wt_thr, gb, pp, rows,
+                                                  chunk_pairs=1 << 21)
+                tag = f'phase 17a {is_} px band {r} of {n} ({mode})'
+                f_rgb, e_rgb = beyond(bi[:, :3], wi[:, :3], TOL, pixel_dim=1)
+                f_a, e_a = beyond(bi[:, 3], wi[:, 3], TOL)
+                check(f'{tag} rgb', f_rgb)
+                check(f'{tag} alpha', f_a)
+                check(f'{tag} count', beyond(bc.float(), wc.float(), 0)[0])
+                bad = ((bt - wt_thr).abs() > THR_RTOL * wt_thr.abs()).float().mean().item()
+                check(f'{tag} threshold', bad, THR_FRAC)
+                (f_f, e_f), (f_t, e_t) = grad_beyond(gf, wf), grad_beyond(fold_ties(gt),
+                                                                          fold_ties(wt))
+                check(f'{tag} face gradient', f_f, GRAD_FRAC)
+                check(f'{tag} texture gradient', f_t, GRAD_FRAC)
+                big = xb.lists.gpos >= 0
+                check(f'{tag} face gradient of the big faces', grad_beyond(gf, wf, big)[0], 0.0)
+                worst = [max(worst[0], e_rgb, e_a), max(worst[1], bad), max(worst[2], e_f, e_t)]
+            log(f'  {is_} px, n = {n} {mode}, B = 2, big faces: against the plain versions '
+                f'on the band\'s rows: image max {worst[0]:.3g}, threshold {worst[1]:.6f} '
+                f'beyond, gradient max {worst[2]:.3g} of scale')
+
+    # ---- b. the sharded path through a one-rank NCCL group ------------------------------
+    store = tempfile.mkdtemp(prefix='jr_nccl_')
+    dist.init_process_group('nccl', init_method=f'file://{store}/store', rank=0, world_size=1)
+    try:
+        mesh = make_device_mesh(1, 1)
+        kw = dict(image_size=p.image_size, sigma_val=p.sigma_val, gamma_val=p.gamma_val,
+                  max_faces_per_pixel_for_grad=p.max_faces_id)
+        for layout in ('pxt', 'px_f'):
+            log(f'phase 17b: soft_rasterize_sharded through a one-rank NCCL group against '
+                f'soft_rasterize, JR_LAYOUT={layout}, the 1024-px sphere')
+            with route.with_layout(layout):
+                res = []
+                for sharded in (False, True):
+                    xl, tl = fv.clone().requires_grad_(True), tex.clone().requires_grad_(True)
+                    h['zero_counts']()
+                    im = (soft_rasterize_sharded(xl, tl, p, mesh) if sharded
+                          else soft_rasterize(xl, tl, **kw))
+                    (im * g).sum().backward()
+                    torch.cuda.synchronize()
+                    res.append((im.detach(), xl.grad, tl.grad,
+                                h['read_counts']() if layout == 'pxt' else h['read_tiled']()))
+            for a, b_, what in zip(res[0][:3], res[1][:3], ('image', 'face grad', 'texture grad')):
+                if not torch.equal(a, b_):
+                    raise AssertionError(f'phase 17b ({layout}): the {what} differs from '
+                                         f'soft_rasterize\'s')
+            counts = res[1][3]
+            want = ({'softras_fwd': 1, 'softras_thr': 1, 'softras_bwd': 1,
+                     'softras_bwd_reduce': 1} if layout == 'pxt' else
+                    {'softras_fpx_fwd': 0, 'softras_fpx_bwd': 0, 'softras_pxf_fwd': 1,
+                     'softras_pxf_bwd': 1})
+            if counts != want:
+                raise AssertionError(f'phase 17b ({layout}): launches {counts}, not {want}')
+            out[f'launches_{layout}'] = counts
+            log(f'  image and both gradients bit-equal to soft_rasterize\'s; launches of the '
+                f'sharded step {counts}')
+
+        # ---- c. the band balance -------------------------------------------------------
+        n = 4
+        log(f'phase 17c: device time of K1, its threshold and K2 on each band of {n}, strided '
+            f'against contiguous, the 1024-px sphere  [{smi}]')
+        kern = {'softras_fwd': ('softras_fwd_kernel',), 'softras_thr': ('softras_thr_kernel',),
+                'softras_bwd': ('softras_bwd_kernel', 'softras_bwd_big_kernel')}
+        fwd_e = cuda_impl._entry('softras_fwd', 'softras_fwd', cuda_impl._FwdArgs)
+        thr_e = cuda_impl._entry('softras_thr', 'softras_thr', cuda_impl._ThrArgs)
+        bwd_e = cuda_impl._entry('softras_bwd', 'softras_bwd', cuda_impl._BwdArgs)
+
+        def alone(x, bi, ba, bc, bt, gb):
+            """The three kernels on a band's inputs, their arguments made once
+            (uncounted launches); the outputs the arguments point into are
+            kept with the callable."""
+            fa, fo = cuda_impl.fwd_args(x, p)
+            ta, to = cuda_impl.thr_args(x, bc, p)
+            ba_, bo = cuda_impl.bwd_args(x, bi, ba, bt, gb, p)
+
+            def run():
+                cuda_impl._run(fwd_e, 'softras_fwd', fa, dev)
+                cuda_impl._run(thr_e, 'softras_thr', ta, dev)
+                cuda_impl._run(bwd_e, 'softras_bwd', ba_, dev)
+            run.outputs = (fo, to, bo, x, bi, ba, bc, bt, gb)
+            return run
+
+        whole_ms = device_ms(alone(whole, img, ag, cnt, thr, g), kern, reps=10)
+        balance = {'whole': whole_ms}
+        for mode in prender.BAND_MODES:
+            per = []
+            for r in range(n):
+                st = prender.band_forward(fv, tex, p, r, n, mode, need_grad=True)
+                rows = prender.band_image_rows(st.plan, r).to(dev)
+                ms = device_ms(alone(st.table, st.images, st.aggrs, st.counts, st.thr,
+                                     g.index_select(2, rows).contiguous()), kern, reps=10)
+                cl = st.table.lists
+                per.append({**ms, 'pairs': int(cl.run_counts.sum()),
+                            'candidates': int(st.counts.sum()),
+                            'overfull_px': int((st.counts > p.max_faces_id).sum())})
+                del st
+            tot = [sum(b[k] for k in kern) for b in per]
+            pairs = [b['pairs'] for b in per]
+            balance[mode] = {'bands': per, 'ms': tot,
+                             'efficiency': float(np.mean(tot) / max(tot)),
+                             'pairs_max_over_mean': float(max(pairs) / np.mean(pairs)),
+                             'ms_max_over_mean': float(max(tot) / np.mean(tot))}
+            log(f'  {mode}: K1+thr+K2 ms a band {[round(v, 4) for v in tot]} (whole image '
+                f'{sum(whole_ms.values()):.4f}); by kernel '
+                f'{[{k: round(b[k], 4) for k in kern} for b in per]}; pairs {pairs}; busiest '
+                f'band / mean: pairs {max(pairs) / np.mean(pairs):.3f}, time '
+                f'{max(tot) / np.mean(tot):.3f}; scaling bound (mean / max) '
+                f'{np.mean(tot) / max(tot):.3f}  [{smi}]')
+        out['balance_n4'] = balance
+
+        # ---- d. the sharded NeRF step ---------------------------------------------------
+        log("phase 17d: make_sharded_nerf_step at lego's widths (8 x 256, 1,024 rays, 64 + 128 "
+            "samples, white background) on bench.py's target, through the one-rank group")
+        args = nerf_lego_args()
+        H, W = NERF_H, NERF_W
+        target = nerf_target()
+        pose = np.eye(4, dtype=np.float32)[:3, :4]
+        pose[2, 3] = -4.0
+        rng = np.random.RandomState(SEED + 17)
+        ys, xs = rng.randint(0, H, args.N_rand), rng.randint(0, W, args.N_rand)
+        ro, rd = pinhole_get_rays(H, W, NERF_FOCAL, torch.from_numpy(pose))
+        ro, rd = ro[ys, xs], rd[ys, xs]
+        vd = rd / rd.norm(dim=-1, keepdim=True)
+        nr = args.N_rand
+        rays = torch.cat([ro, rd, torch.full((nr, 1), 2.0), torch.full((nr, 1), 6.0), vd],
+                         -1).to(dev)
+        tgt = torch.from_numpy(target[ys, xs]).to(dev)
+
+        def make():
+            rk, _, _, nets, opt = trainer.create_nerf(args, device=dev)
+            return rk['network_query_fn'], nets, opt
+
+        def plain_loss(nets, nq, r, tg):
+            o = render_rays(r, nets['coarse'], nq, args.N_samples,
+                            N_importance=args.N_importance, network_fine=nets['fine'],
+                            white_bkgd=True)
+            return img2mse(o['rgb_map'], tg) + img2mse(o['rgb0'], tg)
+
+        nq, nets_u, opt_u = make()
+        _, nets_s, opt_s = make()
+        step = make_sharded_nerf_step(opt_s, nq, mesh, N_samples=args.N_samples,
+                                      N_importance=args.N_importance, white_bkgd=True)
+        losses = []
+        for _ in range(3):
+            loss_u = plain_loss(nets_u, nq, rays, tgt)
+            opt_u.zero_grad()
+            loss_u.backward()
+            opt_u.step()
+            loss_s = step(nets_s, rays, tgt)
+            losses.append((float(loss_u), float(loss_s)))
+        torch.cuda.synchronize()
+        same = all(a == b for a, b in losses) and all(
+            torch.equal(a, b) for a, b in zip(nets_u.parameters(), nets_s.parameters()))
+        if not same:
+            raise AssertionError(f'phase 17d: the sharded step differs from the unsharded one: '
+                                 f'{losses}')
+        # two data shares emulated: their gradients summed against the whole batch's
+        half = nr // 2
+        grads = []
+        for sl in (slice(0, nr), slice(0, half), slice(half, nr)):
+            opt_u.zero_grad()
+            plain_loss(nets_u, nq, rays[sl], tgt[sl]).backward()
+            grads.append(torch.cat([q.grad.reshape(-1) for q in nets_u.parameters()]))
+        e_share = ((grads[1] + grads[2]) / 2 - grads[0]).abs().max() / grads[0].abs().max()
+        if not e_share.item() <= NERF_SHARE_TOL:
+            raise AssertionError(f'phase 17d: two shares\' gradients {e_share.item():.3g} of max '
+                                 f'from the whole batch\'s')
+        for _ in range(3):
+            step(nets_s, rays, tgt)
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ms = []
+        for _ in range(10):
+            ev[0].record()
+            step(nets_s, rays, tgt)
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+        out['nerf'] = {'losses': losses, 'share_err': e_share.item(),
+                       'ms_per_step': float(np.median(ms)), 'ms_per_step_16b': h['nerf_ms']}
+        log(f'  3 steps bit-equal to the unsharded step (losses {losses}); two shares\' '
+            f'gradients summed {e_share.item():.3g} of max from the whole batch\'s; '
+            f'{np.median(ms):.4f} ms a step (median of 10, CUDA events; phase 16b\'s '
+            f'no-batching step {h["nerf_ms"]} ms, with its pixel choice and draws)  [{smi}]')
+    finally:
+        dist.destroy_process_group()
+    out['seconds'] = time.time() - t_phase
+    log(f'phase 17: {out["seconds"]:.1f} s')
     return out
 
 
@@ -4279,7 +4623,17 @@ def main() -> int:
     p16 = nerf_stack(dict(dev=dev, smi=smi, zero_counts=zero_all, read_all=read_all))
     log(json.dumps({'phase16': p16}))
 
-    # ---- 17. results ----------------------------------------------------
+    # ---- 17. the parallel stack -------------------------------------------------------
+    p17 = parallel_stack(dict(dev=dev, smi=smi, fv=fv_full, tex=tex_full, p=p_full,
+                              zero_counts=zero_all, read_counts=read_counts,
+                              read_tiled=read_tiled, nerf_ms=p16['16b']['ms_per_step']))
+    log(json.dumps({'phase17': p17}))
+
+    def band_ms(name):
+        """The kernel's device ms on each band of 4 (phase 17c), both layouts."""
+        return {m: [b[name] for b in p17['balance_n4'][m]['bands']] for m in ('stride', 'contig')}
+
+    # ---- 18. results ----------------------------------------------------
     launches = {**step_counts, **n_step_counts, **dir_counts, **pxg_counts, **fpx_counts,
                 **pxf_counts}
     # the face sum ran in the pxg, f_px and px_f steps alike
@@ -4300,17 +4654,24 @@ def main() -> int:
         {**entry('softras_fwd', 'softras_fwd.cu', 'jrender_tpu/ops/softras/pxt_impl.py:370',
                  fwd_err, fwd_ms, fwd_plain_ms, some, fwd_bound),
          'blocks_per_tile': cuda_impl.FWD_SPLIT, 'busiest_tile_ms': fwd_busy_ms,
-         'launches_files_scene': p15['k1_launches'], 'max_abs_err_files_scene': p15['err']},
+         'launches_files_scene': p15['k1_launches'], 'max_abs_err_files_scene': p15['err'],
+         'launches_sharded': p17['launches_pxt']['softras_fwd'],
+         'band_device_ms_n4': band_ms('softras_fwd')},
         {**entry('softras_thr', 'softras_thr.cu', 'jrender_tpu/ops/softras/pxt_impl.py:584',
                  thr_err, thr_ms, thr_plain_ms, some, thr_bound),
          'blocks_per_tile': cuda_impl.FWD_SPLIT, 'busiest_tile_ms': thr_busy_ms,
-         'ms_k40': thr_k40_ms},
+         'ms_k40': thr_k40_ms, 'launches_sharded': p17['launches_pxt']['softras_thr'],
+         'band_device_ms_n4': band_ms('softras_thr')},
         {**entry('softras_bwd', 'softras_bwd.cu', 'jrender_tpu/ops/softras/pxt_impl.py:856',
                  bwd_err, bwd_ms, bwd_plain_ms, some, bwd_bound),
-         'blocks_per_tile': cuda_impl.BWD_SPLIT, 'busiest_tile_ms': bwd_busy_ms},
-        entry('softras_bwd_reduce', 'softras_bwd.cu',
-              'jrender_tpu/ops/softras/pxt_impl.py:1128', red_err, red_ms, red_plain_ms,
-              'all rows', red_bound, red_lib_ms),
+         'blocks_per_tile': cuda_impl.BWD_SPLIT, 'busiest_tile_ms': bwd_busy_ms,
+         'launches_sharded': p17['launches_pxt']['softras_bwd'],
+         'band_device_ms_n4': band_ms('softras_bwd')},
+        {**entry('softras_bwd_reduce', 'softras_bwd.cu',
+                 'jrender_tpu/ops/softras/pxt_impl.py:1128', red_err, red_ms, red_plain_ms,
+                 'all rows', red_bound, red_lib_ms),
+         'launches_sharded': p17['launches_pxt']['softras_bwd_reduce'],
+         'band_sum_err': max(max(v) for v in p17['grad_sum_err'].values())},
         {**entry('n3mr_maps', 'n3mr_maps.cu', 'jrender_tpu/ops/n3mr/pallas_impl.py:34',
                  n_err['n3mr_maps'], maps_ms, maps_plain_ms, f'{SAMPLES} of {HW_n} pixels',
                  maps_bound),

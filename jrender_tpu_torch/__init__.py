@@ -20,7 +20,10 @@ stratified and importance sampling and compositing (pinhole_get_rays,
 ndc_rays, sample, sample_pdf, integrator, render_rays, render), the NeRF
 MLP (NeRF, Embedder, get_embedder) and its trainer with its datasets,
 config, checkpoints and profiling (train, create_nerf, parse_args,
-render_full_image; ``python -m jrender_tpu_torch.nerf --config ...``).
+render_full_image; ``python -m jrender_tpu_torch.nerf --config ...``);
+and the parallel stack on torch.distributed, ``jrender_tpu_torch.parallel``
+(make_device_mesh, shard_batch, replicate, soft_rasterize_sharded over
+pixel bands, shard_nerf_params, make_sharded_nerf_step over rays).
 """
 
 from .structures import Mesh, join_meshes_as_scene

@@ -68,6 +68,15 @@
 //    order: the same bits), and where GC % 4 == 0 and the rows are 16-byte
 //    aligned a lane loads 4 columns as one float4 (GC 84: one pass).
 //
+// Bands (the band arguments of soft_rasterize_bwd_pxt, pxt_impl.py:1049;
+// softras_fwd.cu has the layout): the per-tile kernel's grid runs over the
+// band's tile rows and reads the band's maps, the binning emitted the
+// band's pairs only, so the reduction sums the band's slot rows (the
+// others have no gsrc entry), and the big-face kernel walks only the band's
+// rows of a face's box, in band-row order: the band's pixels, each once.
+// The whole image is the band (0, tiles_y, 1), whose walk is the one
+// without bands, bit for bit.
+//
 // The reduction is deterministic: no atomics anywhere, every sum in a
 // fixed order, so two runs give the same bits.  Scratch: L = F * mt slot
 // rows, 39,474 * 12 * 84 floats = 159 MB at the bench's full width;
@@ -126,6 +135,7 @@ struct BwdArgs {
   float* gbig;               // [B, F, GC]
   int B, F, L, row, image_size, tiles_x, tiles_y, chunk, GC;
   int dist_func, rgb_func, alpha_func;
+  int ty0, ty_band, ty_stride, band_h;  // the band of tile rows, its maps' rows
   Scalars s;
 };
 
@@ -185,7 +195,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int rank = blockIdx.x % kSplit;
-  const int tile_x = blockIdx.x / kSplit, tile_y = blockIdx.y, b = blockIdx.z;
+  const int tile_x = blockIdx.x / kSplit, b = blockIdx.z;
+  const int tile_y = a.ty0 + blockIdx.y * a.ty_stride;  // the band's row blockIdx.y
   const int is = a.image_size;
   const float isf = (float)is;
   const int NT = a.tiles_x * a.tiles_y;
@@ -198,7 +209,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int start = a.starts[b * NT + tile];
   const int* run_ids = a.faces_sorted + (size_t)b * a.L + start;
   const float* rows_b = a.rows + (size_t)b * a.F * row;
-  const size_t HW = (size_t)is * is;
+  const size_t HW = (size_t)a.band_h * is;
 
   // the first chunk's rows are in flight while the maps are read
   stage(rows_b, row, srows, sids, min(chunk, run - rank * chunk),
@@ -207,12 +218,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   int ids_next = c_next < nch ? chunk_ids(run_ids, chunk, c_next,
                                           min(chunk, run - c_next * chunk), warp, lane) : -1;
 
-  // the tile's pixel maps, pixel (ly, lx) at ly * 16 + lx
+  // the tile's pixel maps, pixel (ly, lx) at ly * 16 + lx, from the
+  // band's rows
   {
     const int col = tile_x * kTile + tid % kTile;
     const int rowp = tile_y * kTile + tid / kTile;
     const bool live = col < is && rowp < is;
-    const size_t px = (size_t)rowp * is + col;
+    const size_t px = (size_t)(blockIdx.y * kTile + tid / kTile) * is + col;
     for (int c = 0; c < 4; ++c) {
       spx[c * kThreads + tid] = live ? a.image[((size_t)b * 4 + c) * HW + px] : 0.0f;
       spx[(6 + c) * kThreads + tid] = live ? a.grad[((size_t)b * 4 + c) * HW + px] : 0.0f;
@@ -307,6 +319,22 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
+// The band rows [*lr0, *lr1] whose image rows lie in [r0, r1]; false where
+// there are none.  Band rows map to image rows in ascending order, so
+// every band row between the two lies in [r0, r1] too.
+__device__ __forceinline__ bool band_span(const BwdArgs& a, int r0, int r1, int* lr0,
+                                          int* lr1) {
+  const int t0 = r0 / kTile, t1 = r1 / kTile;
+  if (t1 < a.ty0) return false;
+  // the first band row at or after tile row t0, the last at or before t1
+  const int k0 = t0 <= a.ty0 ? 0 : (t0 - a.ty0 + a.ty_stride - 1) / a.ty_stride;
+  const int k1 = min((t1 - a.ty0) / a.ty_stride, a.ty_band - 1);
+  if (k0 > k1) return false;
+  *lr0 = k0 * kTile + (a.ty0 + k0 * a.ty_stride == t0 ? r0 % kTile : 0);
+  *lr1 = k1 * kTile + (a.ty0 + k1 * a.ty_stride == t1 ? r1 % kTile : kTile - 1);
+  return *lr0 <= *lr1;
+}
+
 template <int DIST>
 __global__ void __launch_bounds__(kThreads)
     softras_bwd_big_kernel(const BwdArgs a) {
@@ -324,7 +352,7 @@ __global__ void __launch_bounds__(kThreads)
   const int fid = a.glist[(size_t)b * a.F + g];
   const int is = a.image_size;
   const float isf = (float)is;
-  const size_t HW = (size_t)is * is;
+  const size_t HW = (size_t)a.band_h * is;
   for (int i = tid; i < a.row; i += kThreads)
     srow[i] = a.rows[((size_t)b * a.F + fid) * a.row + i];
   const bool surface = a.s.texture_type == 0;
@@ -336,16 +364,19 @@ __global__ void __launch_bounds__(kThreads)
   float acc[9], tacc[9];
 #pragma unroll
   for (int c = 0; c < 9; ++c) acc[c] = tacc[c] = 0.0f;
-  int c0, c1, r0, r1;
-  if (pixel_range(srow, a.s.sq, isf, 0, is - 1, 0, is - 1, &c0, &c1, &r0, &r1)) {
+  int c0, c1, r0, r1, lr0, lr1;
+  // the box's pixels in the band's rows, band row lr at image row rowp
+  if (pixel_range(srow, a.s.sq, isf, 0, is - 1, 0, is - 1, &c0, &c1, &r0, &r1) &&
+      band_span(a, r0, r1, &lr0, &lr1)) {
     const int w = c1 - c0 + 1;
-    const int np = w * (r1 - r0 + 1);
+    const int np = w * (lr1 - lr0 + 1);
     for (int k0 = 0; k0 < np; k0 += kThreads) {
       const int k = k0 + tid;
       const bool active = k < np;
       const int col = c0 + (active ? k % w : 0);
-      const int rowp = r0 + (active ? k / w : 0);
-      const size_t p = (size_t)rowp * is + col;
+      const int lr = lr0 + (active ? k / w : 0);
+      const int rowp = (a.ty0 + lr / kTile * a.ty_stride) * kTile + lr % kTile;
+      const size_t p = (size_t)lr * is + col;
       PixelIn px;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
@@ -501,7 +532,7 @@ cudaError_t launch(const BwdArgs& a, cudaStream_t stream) {
     err = cudaFuncSetAttribute(softras_bwd_kernel<DIST>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  softras_bwd_kernel<DIST><<<dim3(a.tiles_x * kSplit, a.tiles_y, a.B), kThreads, smem,
+  softras_bwd_kernel<DIST><<<dim3(a.tiles_x * kSplit, a.ty_band, a.B), kThreads, smem,
                              stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -515,7 +546,8 @@ cudaError_t launch(const BwdArgs& a, cudaStream_t stream) {
 
 extern "C" int softras_bwd(const softras::BwdArgs* args, void* stream) {
   using namespace softras;
-  if (args->chunk < 1 || args->chunk > kMaxChunk) return (int)cudaErrorInvalidValue;
+  if (args->chunk < 1 || args->chunk > kMaxChunk || !band_ok(*args))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (args->dist_func) {

@@ -55,6 +55,14 @@
 // atomics: the output is deterministic; counts and hard winners equal the
 // unsplit walk's, sums move by rounding.  Lists have no cap.
 //
+// Bands (pixel-band sharding, the band arguments ty0, ty_band, ty_stride
+// of soft_rasterize_fwd_pxt, pxt_impl.py:717): the grid's y runs over the
+// band's ty_band tile rows, row k being tile row ty0 + k * ty_stride; the
+// pixel centres are the image rows', the outputs band-local maps of
+// band_h rows (band row k * 16 + i).  A tile's walk does not depend on
+// the band, so a band's maps are the whole image's rows, bit for bit; the
+// whole image is the band (0, tiles_y, 1) with band_h = H.
+//
 // Bound.  At 1024^2 on the 39,474-face sphere the tile lists pair 38 M
 // (pixel, face) pairs, but only about a quarter lie in the face's
 // inflated bbox, and fewer pass the distance cut: the work the function
@@ -108,6 +116,7 @@ struct FwdArgs {
   int* counts;               // [B, H, W]
   int B, F, L, row, image_size, tiles_x, tiles_y, chunk;
   int dist_func, rgb_func, alpha_func;
+  int ty0, ty_band, ty_stride, band_h;  // the band of tile rows, its maps' rows
   Scalars s;
 };
 
@@ -170,9 +179,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int ty = (warp / 2) * 4 + lane / 8;
   const int px_t = ty * kTile + tx;                 // the pixel's place in a state row
   const int rank = blockIdx.x % kSplit;             // this_cluster().block_rank()
-  const int tile_x = blockIdx.x / kSplit, tile_y = blockIdx.y, b = blockIdx.z;
+  const int tile_x = blockIdx.x / kSplit, b = blockIdx.z;
+  const int tile_y = a.ty0 + blockIdx.y * a.ty_stride;  // the band's row blockIdx.y
   const int col = tile_x * kTile + tx;
-  const int rowp = tile_y * kTile + ty;
+  const int rowp = tile_y * kTile + ty;             // the image row
+  const int lrow = blockIdx.y * kTile + ty;         // its row in the band's maps
   const int is = a.image_size;
   const bool live = col < is && rowp < is;
   const float isf = (float)is;
@@ -401,8 +412,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     alpha = Am;
   }
 
-  const size_t HW = (size_t)is * is;
-  const size_t px = (size_t)rowp * is + col;
+  const size_t HW = (size_t)a.band_h * is;
+  const size_t px = (size_t)lrow * is + col;
   float* img = a.image + (size_t)b * 4 * HW + px;
   img[0] = rgb[0];
   img[HW] = rgb[1];
@@ -424,7 +435,7 @@ static int launch(const FwdArgs& a, cudaStream_t stream) {
   const size_t state_bytes = (size_t)kState * kThreads * sizeof(float);
   const size_t smem = stage_bytes > state_bytes ? stage_bytes : state_bytes;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.tiles_x * kSplit, a.tiles_y, a.B);
+  cfg.gridDim = dim3(a.tiles_x * kSplit, a.ty_band, a.B);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -466,7 +477,8 @@ int launch_rgb(const FwdArgs& a, cudaStream_t stream) {
 
 extern "C" int softras_fwd(const softras::FwdArgs* args, void* stream) {
   using namespace softras;
-  if (args->chunk < 1 || args->chunk > kMaxChunk) return (int)cudaErrorInvalidValue;
+  if (args->chunk < 1 || args->chunk > kMaxChunk || !band_ok(*args))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (args->dist_func) {
     case kDistHard: return launch_rgb<kDistHard>(*args, st);

@@ -312,4 +312,17 @@ __device__ __forceinline__ void pair_color(const float* r, const PairTerms& t,
   }
 }
 
+// Bands of 16-px tile rows (the binned kernels' ty0, ty_band, ty_stride,
+// band_h): band row k is tile row ty0 + k * ty_stride, and the band's maps
+// hold its image rows, band row k * 16 + i being image row
+// (ty0 + k * ty_stride) * 16 + i.  band_ok: a band the kernels can take
+// (its last row inside the image's tile rows, its maps no taller than
+// its rows).
+template <class Args>
+inline bool band_ok(const Args& a) {
+  return a.ty0 >= 0 && a.ty_band >= 1 && a.ty_stride >= 1 &&
+         a.ty0 + (a.ty_band - 1) * a.ty_stride < a.tiles_y && a.band_h >= 1 &&
+         a.band_h <= a.ty_band * 16;
+}
+
 }  // namespace softras

@@ -53,6 +53,8 @@
 //    writes its result with no barrier or merge.  Every rank of a cluster
 //    reads the same count map, so all take the early exit alike and none
 //    leaves while another waits at a cluster barrier.
+// Bands: K1's (softras_fwd.cu): the grid runs over the band's tile rows,
+// the count map read and the threshold map written are the band's.
 // Ties: equal depths are all kept by `zp <= thr`, where the JAX oracle's
 // stable sort keeps the lowest face ids only.  No atomics: the map is
 // deterministic, and equal for any number of blocks per tile.
@@ -101,6 +103,7 @@ struct ThrArgs {
   float* thr;                // [B, H, W]
   int B, F, L, row, image_size, tiles_x, tiles_y, chunk;
   int dist_func, K;
+  int ty0, ty_band, ty_stride, band_h;  // the band of tile rows, its maps' rows
   Scalars s;
 };
 
@@ -198,15 +201,17 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int tx = (warp % 2) * 8 + lane % 8;
   const int ty = (warp / 2) * 4 + lane / 8;
   const int rank = blockIdx.x % kSplit;             // this_cluster().block_rank()
-  const int tile_x = blockIdx.x / kSplit, tile_y = blockIdx.y, b = blockIdx.z;
+  const int tile_x = blockIdx.x / kSplit, b = blockIdx.z;
+  const int tile_y = a.ty0 + blockIdx.y * a.ty_stride;  // the band's row blockIdx.y
   const int col = tile_x * kTile + tx;
-  const int rowp = tile_y * kTile + ty;
+  const int rowp = tile_y * kTile + ty;             // the image row
+  const int lrow = blockIdx.y * kTile + ty;         // its row in the band's maps
   const int is = a.image_size;
   const bool live = col < is && rowp < is;
   const float isf = (float)is;
   const float xp = (2.0f * (float)col + 1.0f - isf) / isf;
   const float yp = (isf - 1.0f - 2.0f * (float)rowp) / isf;
-  const size_t px = (size_t)b * is * is + (size_t)rowp * is + col;
+  const size_t px = (size_t)b * a.band_h * is + (size_t)lrow * is + col;
 
   const bool need = live && a.counts[px] > a.K;
   // no pixel of the tile has more than K candidates: thr = far everywhere.
@@ -320,7 +325,7 @@ static int launch(const ThrArgs& a, cudaStream_t stream) {
   const auto kernel = softras_thr_kernel<DIST>;
   const size_t smem = thr_smem_bytes(a.chunk, a.K);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.tiles_x * kSplit, a.tiles_y, a.B);
+  cfg.gridDim = dim3(a.tiles_x * kSplit, a.ty_band, a.B);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -348,7 +353,7 @@ static int launch(const ThrArgs& a, cudaStream_t stream) {
 
 extern "C" int softras_thr(const softras::ThrArgs* args, void* stream) {
   using namespace softras;
-  if (args->chunk < 1 || args->chunk > kMaxChunk || args->K < 1 ||
+  if (args->chunk < 1 || args->chunk > kMaxChunk || args->K < 1 || !band_ok(*args) ||
       thr_smem_bytes(args->chunk, args->K) > 48 * 1024)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -24,6 +24,15 @@ counterpart.  The image equals the oracle's at any density (the JAX
 sphere holds more than 2,048).  ``report_overflow`` stays for API parity
 and reports zero drops.
 
+**Bands.**  ``band=(ty0, ty_band, ty_stride)`` keeps the pairs of the
+tile rows ``ty0 + k * ty_stride``, k < ty_band, only (pixel-band
+sharding, ``parallel/render.py``): a pair in another row is not emitted,
+as ``prep_pxt`` of the JAX package zeroes the demand of the tiles outside
+a device's band (pxt_impl.py:145-157).  The band's tiles keep their runs
+unchanged, and the big-face list stays whole (the kernels skip a big face
+whose tile range misses a tile), so a band's tile walks are the whole
+image's.
+
 No step needs a host synchronisation: every shape here is static in
 (B, F, mt, image size).
 """
@@ -60,6 +69,8 @@ class CompactLists(NamedTuple):
     gsrc: torch.Tensor | None = None  # [B, F, mt] i32 place of each emitted
     #                                   pair in faces_sorted, -1 where none
     gpos: torch.Tensor | None = None  # [B, F] i32 place in glist, -1 if not big
+    band: tuple[int, int, int] | None = None  # (ty0, ty_band, ty_stride) the pairs
+    #                                           were cut to, None: every tile row
 
 
 def pixel_ranges(face, image_size, threshold):
@@ -104,10 +115,19 @@ def _tile_ranges(face, image_size, tile_h, tile_w, threshold):
     return ty_min, ty_max, tx_min, tx_max, empty, TY, TX
 
 
+def in_band(ty, band):
+    """Whether tile rows ``ty`` (a tensor) lie in ``band`` = (ty0, ty_band,
+    ty_stride): ty = ty0 + k * ty_stride with 0 <= k < ty_band."""
+    ty0, ty_band, stride = band
+    d = ty - ty0
+    return (d >= 0) & (d % stride == 0) & (d < ty_band * stride)
+
+
 def emit_pairs(face, image_size: int, tile_h: int, tile_w: int,
-               threshold: float, mt: int):
+               threshold: float, mt: int, band=None):
     """Each face emits <= mt (tile, face) pairs, row-major over its tile
-    range; faces spanning more than mt tiles are big.  Returns
+    range; faces spanning more than mt tiles are big.  With ``band``, the
+    pairs outside its tile rows are not emitted (``in_band``).  Returns
     (pair_tile [B,F,mt] with invalid -> n_tiles, pair_ok [B,F,mt],
     big [B,F], stride)."""
     F = face.shape[1]
@@ -124,6 +144,8 @@ def emit_pairs(face, image_size: int, tile_h: int, tile_w: int,
     pair_tile = (ty_min[..., None] + dy) * TX + (tx_min[..., None] + dx)
     pair_ok = (j < ntl.clamp_max(mt)[..., None]) & (~empty)[..., None] \
         & (~big)[..., None]
+    if band is not None:
+        pair_ok = pair_ok & in_band(ty_min[..., None] + dy, band)
     pair_tile = torch.where(pair_ok, pair_tile, n_tiles)
     stride = 1 << (F + 1).bit_length()
     return pair_tile, pair_ok, big, stride
@@ -132,7 +154,8 @@ def emit_pairs(face, image_size: int, tile_h: int, tile_w: int,
 def build_tile_lists_compact(face: torch.Tensor, image_size: int, tile_h: int,
                              tile_w: int, threshold: float,
                              mt: int | None = None,
-                             with_inverse: bool = False) -> CompactLists:
+                             with_inverse: bool = False,
+                             band: tuple[int, int, int] | None = None) -> CompactLists:
     """face: [B, F, 9] screen-space face vertices.  Emit <= mt pairs per
     face, sort by (tile, face), keep the sorted run and per-tile offsets;
     faces spanning more than mt tiles go to the uncapped glist.
@@ -142,14 +165,17 @@ def build_tile_lists_compact(face: torch.Tensor, image_size: int, tile_h: int,
     ascending tile), and ``gpos``, each big face's place in ``glist``.  The
     backward writes one gradient row per sorted pair and per big face, and
     its reduction gathers a face's rows through these (the analogue of
-    ``prep['gsrc']`` of the JAX package's pxt_impl.py)."""
+    ``prep['gsrc']`` of the JAX package's pxt_impl.py).
+
+    ``band`` = (ty0, ty_band, ty_stride) emits the pairs of those tile rows
+    only (see the module docstring); the lists then hold the band."""
     B, F, _ = face.shape
     mt = mt_for(F) if mt is None else mt
     ty_min, ty_max, tx_min, tx_max, _empty, TY, TX = _tile_ranges(
         face, image_size, tile_h, tile_w, threshold)
     n_tiles = TY * TX
     pair_tile, pair_ok, big, stride = emit_pairs(face, image_size, tile_h, tile_w,
-                                                 threshold, mt)
+                                                 threshold, mt, band)
     dev = face.device
     fids = torch.arange(F, dtype=torch.int64, device=dev)
 
@@ -189,7 +215,8 @@ def build_tile_lists_compact(face: torch.Tensor, image_size: int, tile_h: int,
     return CompactLists(
         faces_sorted=faces_sorted, starts=starts, run_counts=run_counts,
         counts=counts, glist=glist, gcount=gcount,
-        ranges=ranges.to(torch.int32).contiguous(), gsrc=gsrc, gpos=gpos)
+        ranges=ranges.to(torch.int32).contiguous(), gsrc=gsrc, gpos=gpos,
+        band=None if band is None else tuple(int(v) for v in band))
 
 
 def tile_list(cl: CompactLists, b: int, tile: int, tiles_x: int):

@@ -20,6 +20,20 @@ ranks' K-smallest lists or bisection counts) in rank order;
 those splits and merges.  The backward splits each tile's
 run over BWD_SPLIT blocks, whose gradient rows need no merge.
 
+Bands.  ``prepare(..., band=(ty0, ty_band, ty_stride))`` keeps the tile
+rows ty0 + k * ty_stride, k < ty_band (``ty_stride`` 1: a contiguous band),
+the counterpart of the band arguments of ``soft_rasterize_fwd_pxt`` and
+``soft_rasterize_bwd_pxt`` for pixel-band sharding
+(``jrender_tpu/parallel/render.py``): the binning emits the band's pairs
+only, the forward and the threshold launch a grid of the band's tile rows
+and write band-local maps [B, C, band_h, W] (``band_rows``: band row i is
+image row ``band_rows(...)[i]``) with the pixel centres of the image rows,
+and the backward reads the band's maps and returns the gradient of the
+band's pixels, its big-face kernel walking only the band's rows of a big
+face's box.  A tile's walk is the same in any band, so a band's maps and
+slot rows are the whole image's, bit for bit.  Without a band the call is
+the band (0, tiles, 1).
+
 ``soft_rasterize_fwd``, ``topk_threshold`` and ``soft_rasterize_bwd`` go
 by the device of their input: a CPU tensor takes the plain version
 (``torch_impl``), a CUDA tensor the kernels.  There is no fallback: a
@@ -64,7 +78,8 @@ class _FwdArgs(ctypes.Structure):
         'ranges', 'image', 'aggrs', 'counts')] + \
         [(n, ctypes.c_int) for n in (
             'B', 'F', 'L', 'row', 'image_size', 'tiles_x', 'tiles_y', 'chunk',
-            'dist_func', 'rgb_func', 'alpha_func')] + [('s', _Scalars)]
+            'dist_func', 'rgb_func', 'alpha_func', 'ty0', 'ty_band', 'ty_stride',
+            'band_h')] + [('s', _Scalars)]
 
 
 class _ThrArgs(ctypes.Structure):
@@ -74,7 +89,7 @@ class _ThrArgs(ctypes.Structure):
         'ranges', 'counts', 'thr')] + \
         [(n, ctypes.c_int) for n in (
             'B', 'F', 'L', 'row', 'image_size', 'tiles_x', 'tiles_y', 'chunk',
-            'dist_func', 'K')] + [('s', _Scalars)]
+            'dist_func', 'K', 'ty0', 'ty_band', 'ty_stride', 'band_h')] + [('s', _Scalars)]
 
 
 class _BwdArgs(ctypes.Structure):
@@ -84,7 +99,8 @@ class _BwdArgs(ctypes.Structure):
         'image', 'aggrs', 'grad', 'thr', 'gslots', 'gbig')] + \
         [(n, ctypes.c_int) for n in (
             'B', 'F', 'L', 'row', 'image_size', 'tiles_x', 'tiles_y', 'chunk',
-            'GC', 'dist_func', 'rgb_func', 'alpha_func')] + [('s', _Scalars)]
+            'GC', 'dist_func', 'rgb_func', 'alpha_func', 'ty0', 'ty_band', 'ty_stride',
+            'band_h')] + [('s', _Scalars)]
 
 
 class _ReduceArgs(ctypes.Structure):
@@ -143,13 +159,54 @@ def staged_chunk(row: int, reserved_bytes: int = 0) -> int:
     return max(1, min(MAX_CHUNK, (SMEM_BYTES - reserved_bytes) // per_face))
 
 
+def full_band(image_size: int) -> tuple[int, int, int]:
+    """The band of every tile row: (0, tiles, 1)."""
+    return 0, -(-image_size // TILE), 1
+
+
+def check_band(band, image_size: int) -> tuple[int, int, int]:
+    """``band`` as (ty0, ty_band, ty_stride) ints; raises unless its rows
+    lie in the image's tile rows."""
+    ty0, ty_band, stride = (int(v) for v in band)
+    tiles = -(-image_size // TILE)
+    if not (0 <= ty0 and ty_band >= 1 and stride >= 1
+            and ty0 + (ty_band - 1) * stride < tiles):
+        raise ValueError(f'the band ({ty0}, {ty_band}, {stride}) does not lie in the '
+                         f'{tiles} tile rows of the image')
+    return ty0, ty_band, stride
+
+
+def band_rows(image_size: int, band=None, tile: int = TILE) -> torch.Tensor:
+    """The image rows of ``band``'s maps, in their order: band row
+    k * tile + i is image row (ty0 + k * ty_stride) * tile + i (rows past
+    a ragged edge dropped).  [band_h] int64 on the CPU."""
+    ty0, ty_band, stride = full_band(image_size) if band is None else band
+    tiles = ty0 + stride * torch.arange(ty_band)
+    rows = (tiles[:, None] * tile + torch.arange(tile)[None]).reshape(-1)
+    return rows[rows < image_size]
+
+
+def band_height(image_size: int, band) -> int:
+    """Rows of ``band``'s maps: ``band_rows(image_size, band).numel()``
+    (only the band's last tile row can pass a ragged edge)."""
+    ty0, ty_band, stride = band
+    return (ty_band - 1) * TILE + min(TILE, image_size - (ty0 + (ty_band - 1) * stride) * TILE)
+
+
+def input_band(inputs: FwdInputs, p: SoftRasParams) -> tuple[int, int, int]:
+    """The band the inputs' lists hold (``full_band`` without one)."""
+    band = inputs.lists.band
+    return full_band(p.image_size) if band is None else band
+
+
 def prepare(face_vertices: torch.Tensor, textures: torch.Tensor,
             p: SoftRasParams, for_grad: bool = False, tile_h: int = TILE,
-            tile_w: int = TILE) -> FwdInputs:
+            tile_w: int = TILE, band=None) -> FwdInputs:
     """Binning (``tile_h`` x ``tile_w`` tiles) and per-face rows for the
     kernels; plain torch on the device.  ``for_grad`` adds the inverse of
     the binning's sort, which the backward's face reduction gathers
-    through."""
+    through.  ``band`` = (ty0, ty_band, ty_stride) keeps those 16-px tile
+    rows only (see the module docstring)."""
     B, F = face_vertices.shape[:2]
     face = face_vertices.reshape(B, F, 9)
     if p.texture_type_id == 0:
@@ -159,8 +216,12 @@ def prepare(face_vertices: torch.Tensor, textures: torch.Tensor,
             raise ValueError(f'surface textures need T = R*R texels, got T={T}')
     else:
         R = 1
+    if band is not None:
+        if (tile_h, tile_w) != (TILE, TILE):
+            raise ValueError('a band is one of the binned route\'s 16-px tile rows')
+        band = check_band(band, p.image_size)
     lists = binning.build_tile_lists_compact(face, p.image_size, tile_h, tile_w,
-                                             p.threshold, with_inverse=for_grad)
+                                             p.threshold, with_inverse=for_grad, band=band)
     return FwdInputs(face_rows(face, textures, p), lists, R)
 
 
@@ -257,29 +318,39 @@ def _check_inputs(inputs: FwdInputs, p: SoftRasParams):
     return dev, B, F, row, L, tiles
 
 
+def _band_args(inputs: FwdInputs, p: SoftRasParams):
+    """(ty0, ty_band, ty_stride, band_h) of the inputs' band."""
+    band = input_band(inputs, p)
+    return (*band, band_height(p.image_size, band))
+
+
 def fwd_args(inputs: FwdInputs, p: SoftRasParams):
     """The forward kernel's checked arguments and its outputs (images
-    [B,4,H,W], aggrs [B,2,H,W], counts [B,H,W] int32), allocated on the
-    inputs' card: what ``launch`` hands to the kernel."""
+    [B,4,Hb,W], aggrs [B,2,Hb,W], counts [B,Hb,W] int32: the maps of the
+    inputs' band, Hb = H without one), allocated on the inputs' card: what
+    ``launch`` hands to the kernel."""
     dev, B, F, row, L, tiles = _check_inputs(inputs, p)
     rows, cl, R = inputs
     is_ = p.image_size
-    images = torch.empty((B, 4, is_, is_), dtype=torch.float32, device=dev)
-    aggrs = torch.empty((B, 2, is_, is_), dtype=torch.float32, device=dev)
-    counts = torch.empty((B, is_, is_), dtype=torch.int32, device=dev)
+    band = _band_args(inputs, p)
+    Hb = band[3]
+    images = torch.empty((B, 4, Hb, is_), dtype=torch.float32, device=dev)
+    aggrs = torch.empty((B, 2, Hb, is_), dtype=torch.float32, device=dev)
+    counts = torch.empty((B, Hb, is_), dtype=torch.int32, device=dev)
     args = _FwdArgs(
         rows.data_ptr(), cl.faces_sorted.data_ptr(), cl.starts.data_ptr(),
         cl.run_counts.data_ptr(), cl.glist.data_ptr(), cl.gcount.data_ptr(),
         cl.ranges.data_ptr(), images.data_ptr(), aggrs.data_ptr(),
         counts.data_ptr(), B, F, L, row, is_, tiles, tiles, staged_chunk(row),
-        p.dist_func_id, p.rgb_func_id, p.alpha_func_id, _scalars(p, R))
+        p.dist_func_id, p.rgb_func_id, p.alpha_func_id, *band, _scalars(p, R))
     return args, (images, aggrs, counts)
 
 
 def launch(inputs: FwdInputs, p: SoftRasParams):
     """Launch the CUDA forward kernel on the current stream.
 
-    Returns (images [B,4,H,W], aggrs [B,2,H,W], counts [B,H,W] int32).
+    Returns (images [B,4,Hb,W], aggrs [B,2,Hb,W], counts [B,Hb,W] int32),
+    the maps of the inputs' band (Hb = H without one).
     ``launch.launches`` counts the launches.
     """
     args, out = fwd_args(inputs, p)
@@ -319,18 +390,24 @@ def _share_items(inputs: FwdInputs, p: SoftRasParams, split: int):
     """The ranks' shares of every tile's sequence as pxg work items: each
     tile's sequence cut by ``rank_shares``, a big face whose tile range
     misses the tile skipped (as the kernels skip it), a share left without
-    a face dropped.  Returns ``pxg_impl.PxgInputs`` (no face entries)."""
+    a face dropped; the tiles outside the inputs' band get no items.
+    Returns ``pxg_impl.PxgInputs`` (no face entries)."""
     from . import pxg_impl           # pxg_impl imports this module
     rows, cl, R = inputs
     B, F = rows.shape[:2]
     tiles = -(-p.image_size // TILE)
     NT = tiles * tiles
+    ty0, ty_band, stride = input_band(inputs, p)
+    band_tiles = set(range(ty0, ty0 + ty_band * stride, stride))
     entries, items, item_off = [], [], [0]
     for b in range(B):
         big = cl.glist[b, :int(cl.gcount[b])].tolist()
         rg = cl.ranges[b].tolist()
         for t in range(NT):
             ty, tx = divmod(t, tiles)
+            if ty not in band_tiles:
+                item_off.append(len(items))
+                continue
             start, run = int(cl.starts[b, t]), int(cl.run_counts[b, t])
             seq = [g if rg[g][0] <= ty <= rg[g][1] and rg[g][2] <= tx <= rg[g][3] else -1
                    for g in big] + cl.faces_sorted[b, start:start + run].tolist()
@@ -354,12 +431,14 @@ def fwd_split_plain(inputs: FwdInputs, p: SoftRasParams, split: int = FWD_SPLIT)
     tile's sequence cut into the ranks' shares (``_share_items``), each
     share aggregated without the background by the pxg partials' plain
     version, the shares merged in rank order by the pxg combine's plain
-    version (``pxg_impl.fwd_partials_plain``, ``combine_plain``).  Returns
-    what ``launch`` returns."""
+    version (``pxg_impl.fwd_partials_plain``, ``combine_plain``), on the
+    tiles of the inputs' band.  Returns what ``launch`` returns: the band's
+    maps."""
     from . import pxg_impl
     pin = _share_items(inputs, p, split)
     parts, _ = pxg_impl.fwd_partials_plain(pin, p, with_thr=False)
-    return pxg_impl.combine_plain(pin, parts, p)
+    rows = band_rows(p.image_size, input_band(inputs, p)).to(parts.device)
+    return tuple(m.index_select(-2, rows) for m in pxg_impl.combine_plain(pin, parts, p))
 
 
 def thr_split_plain(inputs: FwdInputs, counts: torch.Tensor, p: SoftRasParams,
@@ -369,12 +448,17 @@ def thr_split_plain(inputs: FwdInputs, counts: torch.Tensor, p: SoftRasParams,
     share's K smallest candidate depths per pixel (the pxg partials' plain
     version), the K-th smallest of their union where ``counts`` (the
     forward's count map) is over K, else ``far`` (``pxg_impl.thr_plain``:
-    the K smallest of a union lie among the K smallest of each part).
+    the K smallest of a union lie among the K smallest of each part), on
+    the tiles of the inputs' band (``counts`` and the result are its maps).
     Returns what ``launch_thr`` returns."""
     from . import pxg_impl
     pin = _share_items(inputs, p, split)
     _, depths = pxg_impl.fwd_partials_plain(pin, p, with_thr=True)
-    return pxg_impl.thr_plain(pin, depths, counts, p)
+    is_ = p.image_size
+    rows = band_rows(is_, input_band(inputs, p)).to(counts.device)
+    whole = counts.new_zeros((counts.shape[0], is_, is_))
+    whole[:, rows] = counts
+    return pxg_impl.thr_plain(pin, depths, whole, p).index_select(-2, rows)
 
 
 def thr_chunk(K: int) -> int:
@@ -388,27 +472,29 @@ def thr_chunk(K: int) -> int:
 
 def thr_args(inputs: FwdInputs, counts: torch.Tensor, p: SoftRasParams):
     """The threshold kernel's checked arguments and its output thr
-    [B,H,W], allocated on the inputs' card: what ``launch_thr`` hands to
-    the kernel."""
+    [B,Hb,W] (the inputs' band, as ``counts``), allocated on the inputs'
+    card: what ``launch_thr`` hands to the kernel."""
     dev, B, F, row, L, tiles = _check_inputs(inputs, p)
     rows, cl, R = inputs
     is_ = p.image_size
     if p.max_faces_id < 1:
         raise ValueError(f'K must be at least 1, got {p.max_faces_id}')
-    _check(counts, 'counts', torch.int32, (B, is_, is_), dev)
-    thr = torch.empty((B, is_, is_), dtype=torch.float32, device=dev)
+    band = _band_args(inputs, p)
+    Hb = band[3]
+    _check(counts, 'counts', torch.int32, (B, Hb, is_), dev)
+    thr = torch.empty((B, Hb, is_), dtype=torch.float32, device=dev)
     args = _ThrArgs(
         rows.data_ptr(), cl.faces_sorted.data_ptr(), cl.starts.data_ptr(),
         cl.run_counts.data_ptr(), cl.glist.data_ptr(), cl.gcount.data_ptr(),
         cl.ranges.data_ptr(), counts.data_ptr(), thr.data_ptr(),
         B, F, L, row, is_, tiles, tiles, thr_chunk(p.max_faces_id),
-        p.dist_func_id, p.max_faces_id, _scalars(p, R))
+        p.dist_func_id, p.max_faces_id, *band, _scalars(p, R))
     return args, thr
 
 
 def launch_thr(inputs: FwdInputs, counts: torch.Tensor, p: SoftRasParams):
     """Launch the top-K threshold kernel on the current stream: thr
-    [B,H,W], the K-th smallest candidate depth of each pixel (K =
+    [B,Hb,W] (the inputs' band), the K-th smallest candidate depth of each pixel (K =
     ``p.max_faces_id``) and ``far`` where ``counts`` (the forward's
     candidate count map) is at most K.  Like the forward it splits each
     tile's list over a cluster of FWD_SPLIT blocks; ``thr_split_plain`` is
@@ -431,15 +517,18 @@ def _grad_columns(p: SoftRasParams, R: int) -> int:
 
 def bwd_args(inputs: FwdInputs, images, aggrs, thr, grad_images, p: SoftRasParams):
     """The backward kernels' checked arguments and their output rows,
-    allocated on the inputs' card: what ``launch_bwd`` hands to them."""
+    allocated on the inputs' card: what ``launch_bwd`` hands to them.  The
+    maps are the inputs' band's [B, C, Hb, W]."""
     dev, B, F, row, L, tiles = _check_inputs(inputs, p)
     rows, cl, R = inputs
     is_ = p.image_size
-    _check(images, 'images', torch.float32, (B, 4, is_, is_), dev)
-    _check(aggrs, 'aggrs', torch.float32, (B, 2, is_, is_), dev)
-    _check(grad_images, 'grad_images', torch.float32, (B, 4, is_, is_), dev)
+    band = _band_args(inputs, p)
+    Hb = band[3]
+    _check(images, 'images', torch.float32, (B, 4, Hb, is_), dev)
+    _check(aggrs, 'aggrs', torch.float32, (B, 2, Hb, is_), dev)
+    _check(grad_images, 'grad_images', torch.float32, (B, 4, Hb, is_), dev)
     if thr is not None:
-        _check(thr, 'thr', torch.float32, (B, is_, is_), dev)
+        _check(thr, 'thr', torch.float32, (B, Hb, is_), dev)
     GC = _grad_columns(p, R)
     tex_sums = GC - 9 if p.texture_type_id == 0 else 0
     out = GradRows(torch.empty((B, L, GC), dtype=torch.float32, device=dev),
@@ -451,7 +540,7 @@ def bwd_args(inputs: FwdInputs, images, aggrs, thr, grad_images, p: SoftRasParam
         None if thr is None else thr.data_ptr(), out.gslots.data_ptr(),
         out.gbig.data_ptr(), B, F, L, row, is_, tiles, tiles,
         staged_chunk(row, bwd_reserved_bytes(tex_sums)), GC,
-        p.dist_func_id, p.rgb_func_id, p.alpha_func_id, _scalars(p, R))
+        p.dist_func_id, p.rgb_func_id, p.alpha_func_id, *band, _scalars(p, R))
     return args, out
 
 
@@ -519,6 +608,8 @@ def reduce_rows_plain(inputs: FwdInputs, grad_rows: GradRows, p: SoftRasParams):
     through ``gsrc`` in ascending tile order from 0, as the kernel adds
     them (a face's sum is never -0, so adding 0 for a pair not emitted
     changes no bit: the kernel's bits), or the face's big-face row taken.
+    With a band, the pairs outside it were not emitted: the sum is the
+    band's.
     Returns what ``launch_reduce`` returns."""
     cl, R = inputs.lists, inputs.tex_res
     B, F, mt = cl.gsrc.shape
@@ -533,6 +624,67 @@ def reduce_rows_plain(inputs: FwdInputs, grad_rows: GradRows, p: SoftRasParams):
                         grad_rows.gbig[b, gpos.clamp_min(0)], total)
     tex_shape = (B, F, R * R, 3) if p.texture_type_id == 0 else (B, F, 3, 3)
     return total[..., :9].contiguous(), total[..., 9:].reshape(tex_shape)
+
+
+def bwd_rows_plain(inputs: FwdInputs, images, aggrs, thr, grad_images,
+                   p: SoftRasParams) -> GradRows:
+    """The plain version of the backward kernels' rows on the inputs' band
+    (maps [B, C, Hb, W] of the band): each sorted pair's slot row, its
+    face's gradient summed over its tile's pixels, and each big face's row
+    of ``gbig``, its gradient over the band's pixels
+    (``torch_impl.backward_single``: a pixel outside a face's inflated
+    box adds nothing).  Rows of pairs the binning did not emit stay 0.
+    Returns what ``launch_bwd`` returns."""
+    rows, cl, R = inputs
+    B, F = rows.shape[:2]
+    dev = rows.device
+    is_ = p.image_size
+    tiles = -(-is_ // TILE)
+    ty0, ty_band, stride = input_band(inputs, p)
+    image_rows = band_rows(is_, (ty0, ty_band, stride)).to(dev)
+    Hb = image_rows.numel()
+    GC = _grad_columns(p, R)
+    out = GradRows(rows.new_zeros((B, cl.faces_sorted.shape[1], GC)),
+                   rows.new_zeros((B, F, GC)))
+
+    def face_rows_of(b, ids, lr, cc):
+        """[n, GC]: the gradients of faces ``ids`` over band rows ``lr``,
+        columns ``cc`` (pixels, flattened)."""
+        r = rows[b, ids.long()]
+        n = ids.numel()
+        tex = r[:, ROW_BASE:].reshape((n, R * R, 3) if p.texture_type_id == 0 else (n, 3, 3))
+        xp, yp = torch_impl.pixel_centers(image_rows[lr], cc, is_)
+
+        def at(x):
+            return x[b][:, lr, cc].T
+
+        gf, gt = torch_impl.backward_single(
+            r[:, :9], tex, at(images), at(aggrs), at(grad_images), p, xp, yp,
+            None if thr is None else thr[b, lr, cc], ids=ids, n_faces=F)
+        return torch.cat([gf, gt.reshape(n, -1)], dim=1)
+
+    pix = torch.arange(TILE, device=dev)
+    for b in range(B):
+        for k in range(ty_band):
+            lr = k * TILE + pix
+            lr = lr[lr < Hb]
+            for tx in range(tiles):
+                t = (ty0 + k * stride) * tiles + tx
+                start, run = int(cl.starts[b, t]), int(cl.run_counts[b, t])
+                if run == 0:
+                    continue
+                cc = tx * TILE + pix
+                cc = cc[cc < is_]
+                lg, cg = torch.meshgrid(lr, cc, indexing='ij')
+                out.gslots[b, start:start + run] = face_rows_of(
+                    b, cl.faces_sorted[b, start:start + run], lg.reshape(-1), cg.reshape(-1))
+        nb = int(cl.gcount[b])
+        if nb:
+            lg, cg = torch.meshgrid(torch.arange(Hb, device=dev),
+                                    torch.arange(is_, device=dev), indexing='ij')
+            out.gbig[b, :nb] = face_rows_of(b, cl.glist[b, :nb], lg.reshape(-1),
+                                            cg.reshape(-1))
+    return out
 
 
 def soft_rasterize_fwd(face_vertices: torch.Tensor, textures: torch.Tensor,

@@ -208,13 +208,7 @@ def soft_rasterize_fwd_plain(face_vertices, textures, p: SoftRasParams,
 
     Returns (images [B,4,H,W], aggrs [B,2,H,W], counts [B,H,W] int32).
     """
-    B = face_vertices.shape[0]
-    is_ = p.image_size
-    xp, yp = pixel_grid(is_, face_vertices.device)
-    col, ag, cnt = forward_pixels(face_vertices, textures, p, xp, yp, chunk_pairs)
-    return (col.permute(0, 2, 1).reshape(B, 4, is_, is_),
-            ag.permute(0, 2, 1).reshape(B, 2, is_, is_),
-            cnt.reshape(B, is_, is_))
+    return forward_rows(face_vertices, textures, p, torch.arange(p.image_size), chunk_pairs)
 
 
 # --------------------------------------------------------------------------
@@ -423,10 +417,7 @@ def backward_pixels(face_vertices, textures, colors, aggrs, grad_out,
 def topk_threshold_plain(face_vertices, p: SoftRasParams,
                          chunk_pairs: int = CHUNK_PAIRS):
     """Full-image threshold map [B,H,W] (see ``topk_threshold``)."""
-    is_ = p.image_size
-    xp, yp = pixel_grid(is_, face_vertices.device)
-    thr = topk_threshold(face_vertices, p, xp, yp, chunk_pairs)
-    return thr.reshape(face_vertices.shape[0], is_, is_)
+    return threshold_rows(face_vertices, p, torch.arange(p.image_size), chunk_pairs)
 
 
 def soft_rasterize_bwd_plain(face_vertices, textures, images, aggrs, thr,
@@ -434,8 +425,52 @@ def soft_rasterize_bwd_plain(face_vertices, textures, images, aggrs, thr,
     """Full-image backward.  images/grad_images [B,4,H,W], aggrs [B,2,H,W],
     thr [B,H,W] or None (no truncation).  Returns (grad_face_vertices
     [B,F,9], grad_textures like textures)."""
+    return backward_rows(face_vertices, textures, images, aggrs, thr, grad_images, p,
+                         torch.arange(p.image_size), **kw)
+
+
+# --------------------------------------------------------------------------
+# bands of image rows (pixel-band sharding, the binned kernels' bands)
+# --------------------------------------------------------------------------
+
+def row_pixels(image_size: int, rows: torch.Tensor):
+    """(xp, yp) [len(rows) * W] of every pixel of the image rows ``rows``,
+    row after row."""
+    W = image_size
+    r = rows.repeat_interleave(W)
+    c = torch.arange(W, device=rows.device).repeat(rows.numel())
+    return pixel_centers(r, c, image_size)
+
+
+def forward_rows(face_vertices, textures, p: SoftRasParams, rows: torch.Tensor,
+                 chunk_pairs: int = CHUNK_PAIRS):
+    """The forward of the image rows ``rows`` [Hb] alone: (images
+    [B,4,Hb,W], aggrs [B,2,Hb,W], counts [B,Hb,W] int32), band row i being
+    image row ``rows[i]``."""
+    B, W, Hb = face_vertices.shape[0], p.image_size, rows.numel()
+    xp, yp = row_pixels(W, rows.to(face_vertices.device))
+    col, ag, cnt = forward_pixels(face_vertices, textures, p, xp, yp, chunk_pairs)
+    return (col.permute(0, 2, 1).reshape(B, 4, Hb, W),
+            ag.permute(0, 2, 1).reshape(B, 2, Hb, W), cnt.reshape(B, Hb, W))
+
+
+def threshold_rows(face_vertices, p: SoftRasParams, rows: torch.Tensor,
+                   chunk_pairs: int = CHUNK_PAIRS):
+    """The threshold map [B,Hb,W] of the image rows ``rows``
+    (``topk_threshold``)."""
+    xp, yp = row_pixels(p.image_size, rows.to(face_vertices.device))
+    thr = topk_threshold(face_vertices, p, xp, yp, chunk_pairs)
+    return thr.reshape(face_vertices.shape[0], rows.numel(), p.image_size)
+
+
+def backward_rows(face_vertices, textures, images, aggrs, thr, grad_images,
+                  p: SoftRasParams, rows: torch.Tensor, **kw):
+    """The gradient of the image rows ``rows`` alone, from their maps
+    (images/grad_images [B,4,Hb,W], aggrs [B,2,Hb,W], thr [B,Hb,W] or
+    None).  Returns (grad_face_vertices [B,F,9], grad_textures like
+    textures)."""
     B = face_vertices.shape[0]
-    xp, yp = pixel_grid(p.image_size, face_vertices.device)
+    xp, yp = row_pixels(p.image_size, rows.to(face_vertices.device))
 
     def flat(x):
         return x.reshape(B, x.shape[1], -1).permute(0, 2, 1)

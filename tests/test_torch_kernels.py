@@ -2076,3 +2076,110 @@ def test_segment_sum_kernel_any_width(C):
         ss.launch_segment_sum(rows.double(), so)
     with pytest.raises(ValueError):
         ss.launch_segment_sum(rows[:-1], so)
+
+
+# -- bands of tile rows (pixel-band sharding) ------------------------------------
+
+def _band(n, mode, r, tiles):
+    """Rank r's band (ty0, ty_band, ty_stride) of ``tiles`` tile rows over n."""
+    per = tiles // n
+    return (r, per, n) if mode == 'stride' else (r * per, per, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('is_', [128, 256])
+@pytest.mark.parametrize('n,mode', [(1, 'contig'), (2, 'stride'), (2, 'contig'),
+                                    (4, 'stride'), (4, 'contig')])
+def test_softras_band_kernels_equal_the_whole_image(is_, n, mode):
+    """K1, its threshold, K2 and the reduction on each band of n: the band's
+    image, aggregates, counts and threshold are the whole image's rows and
+    its slot rows the whole image's, bit for bit (a tile's walk does not
+    depend on the band; the band (0, tiles, 1) gives every output of the
+    call without a band, big-face rows included); the reduction equals its
+    plain version; the bands' gradients summed lie within 1e-5 of the whole
+    image's max (the big faces' rows add over the bands in another order).
+    B = 2, big faces, T = 4, K = 4."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    x, t = soup(21, F=400, B=2, T=4)
+    x, t = with_big_faces(x), tie_symmetric(t)
+    p = make_params(image_size=is_, sigma_val=1e-3, gamma_val=1e-3,
+                    max_faces_per_pixel_for_grad=4)
+
+    def inputs(band):
+        # an emit cap of 6: a face over more than 6 tiles is a big face
+        x_in = cuda_impl.prepare(x, t, p, for_grad=True, band=band)
+        return x_in._replace(lists=binning.build_tile_lists_compact(
+            x, is_, cuda_impl.TILE, cuda_impl.TILE, p.threshold, 6, with_inverse=True,
+            band=band))
+
+    whole = inputs(None)
+    assert int(whole.lists.gcount.min()) >= 2
+    img, ag, cnt = cuda_impl.launch(whole, p)
+    thr = cuda_impl.launch_thr(whole, cnt, p)
+    g = torch.randn(img.shape, generator=torch.Generator(device='cuda').manual_seed(9),
+                    device='cuda')
+    rows_w = cuda_impl.launch_bwd(whole, img, ag, thr, g, p)
+    gf_w, gt_w = cuda_impl.launch_reduce(whole, rows_w, p)
+    gf_s, gt_s = torch.zeros_like(gf_w), torch.zeros_like(gt_w)
+    tiles = is_ // cuda_impl.TILE
+    for r in range(n):
+        band = _band(n, mode, r, tiles)
+        xb = inputs(band)
+        rows = cuda_impl.band_rows(is_, band).cuda()
+        bi, ba, bc = cuda_impl.launch(xb, p)
+        bt = cuda_impl.launch_thr(xb, bc, p)
+        rb = cuda_impl.launch_bwd(xb, bi, ba, bt, g[:, :, rows].contiguous(), p)
+        gf, gt = cuda_impl.launch_reduce(xb, rb, p)
+        torch.cuda.synchronize()
+        for got, want in ((bi, img), (ba, ag), (bc, cnt), (bt, thr)):
+            assert torch.equal(got, want.index_select(-2, rows))
+        for b in range(2):
+            sb, sw = xb.lists.gsrc[b], whole.lists.gsrc[b]
+            emitted = sb >= 0
+            assert torch.equal(rb.gslots[b, sb[emitted]], rows_w.gslots[b, sw[emitted]])
+        for a, w in zip((gf, gt), cuda_impl.reduce_rows_plain(xb, rb, p)):
+            assert torch.equal(a, w)
+        if n == 1:
+            for b in range(2):        # the rows past a batch element's big faces are unset
+                nb = int(whole.lists.gcount[b])
+                assert torch.equal(rb.gbig[b, :nb], rows_w.gbig[b, :nb])
+            assert torch.equal(gf, gf_w) and torch.equal(gt, gt_w)
+        gf_s, gt_s = gf_s + gf, gt_s + gt
+    for got, want in ((gf_s, gf_w), (fold_ties(gt_s), fold_ties(gt_w))):
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('layout', ['pxt', 'px_f'])
+def test_soft_rasterize_sharded_one_rank_is_soft_rasterize(layout, tmp_path, monkeypatch):
+    """The sharded path through a one-rank NCCL group is ``soft_rasterize``,
+    bit for bit (image and both gradients), on the binned band kernels and
+    under ``JR_LAYOUT=px_f`` on the px_f ones."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    import torch.distributed as dist
+    from jrender_tpu_torch.ops.softras import soft_rasterize
+    from jrender_tpu_torch.parallel import make_device_mesh, soft_rasterize_sharded
+    monkeypatch.setenv('JR_LAYOUT', layout)
+    monkeypatch.delenv('JR_DIR_MAX', raising=False)
+    x, t = soup(22, F=300, T=4)
+    g = torch.randn((1, 4, 128, 128), generator=torch.Generator(device='cuda').manual_seed(2),
+                    device='cuda')
+    kw = dict(image_size=128, sigma_val=1e-3, gamma_val=1e-3, max_faces_per_pixel_for_grad=8)
+    dist.init_process_group('nccl', init_method=f'file://{tmp_path / "store"}', rank=0,
+                            world_size=1)
+    try:
+        mesh = make_device_mesh(1, 1)
+        outs = []
+        for sharded in (False, True):
+            xl, tl = x.clone().requires_grad_(True), t.clone().requires_grad_(True)
+            img = (soft_rasterize_sharded(xl, tl, make_params(**kw), mesh) if sharded
+                   else soft_rasterize(xl, tl, **kw))
+            (img * g).sum().backward()
+            outs.append((img.detach(), xl.grad, tl.grad))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)

@@ -987,6 +987,8 @@ def agreement(par, chg, turns, first, parts):
     if 'binned' in parts:
         same.update({
             'fwd_counts_equal': torch.equal(par['cnt'], chg['cnt']),
+            'fwd_image_equal': torch.equal(par['img'], chg['img']),
+            'fwd_aggrs_equal': torch.equal(par['ag'], chg['ag']),
             'fwd_softmax_max_equal': torch.equal(par['ag'][:, 1], chg['ag'][:, 1]),
             'fwd_image_max_abs_diff': (par['img'] - chg['img']).abs().max().item(),
             'fwd_aggr_S_max_rel_diff': ((par['ag'][:, 0] - chg['ag'][:, 0]).abs()
