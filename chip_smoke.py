@@ -265,13 +265,37 @@ of which raises on failure:
         bench.py's target through the one-rank group: 3 steps bit-equal to
         the unsharded step, two data shares' gradients summed within 1e-4
         of the whole batch's max, ms a step beside phase 16b's;
- 18. one JSON line of the kernels (20 of them), each with ``ms`` (its
+ 18. the Hopper probes of the TPU tools (``jrender_tpu_torch/probes/``),
+     off the main path (no package entry point calls them; their counts,
+     zeroed before phase 3, are read before phase 18, and are 0):
+     a. T1 (``tools/exp_torch_micro.py``, tools/exp_micro.py's cases): the
+        eight cases on 838 steps, the products in both builds (tensor cores,
+        FFMA), and pair23_face7_slice9 (the chain's unrolled tail); each
+        case without products bit-equal to its plain version (the kernel's
+        FMAs in its order; the plain version with one pair op fewer must
+        give other steps' rows), with products within rtol 1e-5; bit-equal twice;
+        the fixed cost of a step and of a pair op, fitted from
+        pair20 / pair100 / pair300;
+     b. T2 (``tools/exp_torch_bwd_dma.py``, tools/exp_bwd_dma.py's
+        variants that trace): base, dma16, dma1r, tr256, dots (three builds)
+        on 3,973 items, gout within rtol 1e-5 and the staged bits'
+        checksums equal to the plain version's; µs an item, cp.async (16
+        rows) against TMA bulk copies (18 rows);
+     c. T3 (``tools/profile_torch_bwd.py``, tools/profile_bwd.py's
+        stages): the px_f backward by stage on the 288- and 39,474-face
+        spheres at 1024 px, K6's rows bit-equal to the px_f step's own K6
+        launch and the stages' backward to ``pxf_impl.backward``'s; device
+        and host ms, launches and host synchronisations a stage (the tool
+        in a process of its own: in this one the profiler's traces lose
+        device activity after phases 3-17);
+ 19. one JSON line of the kernels (22 of them), each with ``ms`` (its
      wrapper, CUDA events around calls) and ``device_ms`` (the kernel's own
      device time per launch in the steps its route's phase runs,
      torch.profiler: jrender_tpu_torch/utils/device_time.py), K1's also
      with its launches on phase 15's paths, K1's, its threshold's and K2's
      with their device time on each band of phase 17c and their launches
-     on phase 17b's sharded step; the last line is the device JSON.
+     on phase 17b's sharded step, K6's with T3's stage time, the probes'
+     with their cases; the last line is the device JSON.
 
 The meshes, textures, cameras and pixel samples come from fixed seeds.
 
@@ -360,6 +384,7 @@ written.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import os
 import subprocess
@@ -378,6 +403,17 @@ SPLITS = (2, 4, 8)   # blocks per tile of the split kernels (phases 5, 13b, 14b)
 # published peaks of one H100 SXM: fp32 on the CUDA cores, HBM3 bandwidth
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+
+
+def bound(ops, nbytes):
+    """(ms, 'operations' or 'bytes', how): the least time the card could
+    take for ``ops`` float32 operations and ``nbytes`` bytes moved; the
+    timing tools of tools/ read it too."""
+    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes else 'bytes', \
+        f'{ops:,} operations ({t_ops:.6f} ms), {nbytes:,} bytes ({t_bytes:.6f} ms)'
+
+
 # fp32 operations of the main configuration (euclidean distance, softmax
 # rgb, prod alpha, surface texels) per (pixel, face) pair, by how far the
 # pair gets; counted from csrc/softras_pair.cuh and the kernels, an fma
@@ -1654,6 +1690,126 @@ def parallel_stack(h):
     return out
 
 
+# ---- phase 18: the Hopper probes of the TPU tools -------------------------------------
+
+def load_tool(repo: Path, name: str):
+    """The module ``tools/<name>.py`` of the checkout (tools/ is not a
+    package)."""
+    spec = importlib.util.spec_from_file_location(f'tool_{name}', repo / 'tools' / f'{name}.py')
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def probe_phase(h):
+    """Phase 18: T1 and T2 against their plain versions and timed, T3's
+    stages of the px_f backward.  ``h``: repo, smi, reps.  Returns its
+    numbers; raises on a difference (the tools' checks)."""
+    repo, smi, reps = h['repo'], h['smi'], h['reps']
+    from jrender_tpu_torch.probes import bwd_dma, micro
+    t_phase = time.time()
+    T1, T2, T3 = (load_tool(repo, n) for n in ('exp_torch_micro', 'exp_torch_bwd_dma',
+                                               'profile_torch_bwd'))
+    # ---- a. T1 ------------------------------------------------------------------------
+    log(f'phase 18a: T1, tools/exp_micro.py\'s cases on {micro.N} steps of [16, 128] blocks, '
+        'the products in both builds: without products bit-equal to the plain version (which '
+        'one pair op fewer moves), with products within rtol 1e-5')
+    r1 = T1.measure(reps=reps)
+    log(f'  {r1["tail"]["case"]} (the chain\'s unrolled tail): bit-equal, checked only')
+    for name, c in r1['cases'].items():
+        log(f'  {name:18s}: {c["device_ms"]:.4f} ms ({c["us_per_step"]:.4f} us/step; step '
+            f'{c["step_ms"]:.4f} + sum {c["sum_ms"]:.4f}), wrapper {c["ms"]:.4f}, plain '
+            f'{c["plain_ms"]:.4f}, bound {c["bound_ms"]:.4f} by {c["bound_by"]}; rel err '
+            f'{c["max_rel_err"]:.2g}  [{smi}]')
+    for k, f in r1['fit'].items():
+        log(f'  fit {k} ({", ".join(f["cases"])}): fixed {f["fixed_us_per_step"]:.4f} us a step '
+            f'on the card ({f["fixed_us_per_block"]:.3f} us a block, {f["resident_blocks"]} '
+            f'resident), {f["ns_per_pair_op"] * 1e3:.4f} ps a pair op '
+            f'({f["pair_ops_per_s"]} pair ops/s)')
+    for k, d in r1['dots'].items():
+        log(f'  a [4, 128] x [128, 1024] product, {k}: +{d["us_per_dot_per_step"]:.4f} us a step '
+            'on the card over pair20')
+    log(f'  occupancy: {r1["occupancy"]}')
+    # ---- b. T2 ------------------------------------------------------------------------
+    log(f'phase 18b: T2, tools/exp_bwd_dma.py\'s variants on {bwd_dma.N} items, against the '
+        'plain version (rtol 1e-5, checksums equal)')
+    r2 = T2.measure(reps=reps)
+    for name, c in r2['variants'].items():
+        log(f'  {name:10s}: {c["device_ms"]:.4f} ms ({c["us_per_item"]:.4f} us/item), wrapper '
+            f'{c["ms"]:.4f}, plain {c["plain_ms"]:.4f}, bound {c["bound_ms"]:.4f} by '
+            f'{c["bound_by"]} ({c["bytes_once"]} B once, {c["bytes_copied"]} B as copied: '
+            f'{c["copied_gb_per_s"]:.1f} GB/s); rel err {c["max_rel_err"]:.2g}  [{smi}]')
+    for v in r2['undefined']:
+        log(f'  {v:10s}: not defined by the reference (the TPU probe does not trace it)')
+    for k, st in r2['staging'].items():
+        log(f'  staging {k} ({st["route"]}, {st["rows_per_item"]} rows an item): '
+            f'{st["us_per_item"]:.4f} us an item over base, {st["row_gb_per_s"]} GB/s of rows')
+    log(f'  occupancy: {r2["occupancy"]}')
+    # ---- c. T3 ------------------------------------------------------------------------
+    log('phase 18c: T3, the px_f backward by stage at 1024 px (T = 25, K = 16): K6\'s rows '
+        'bit-equal to the step\'s own K6 launch, the stages\' backward to pxf_impl.backward\'s '
+        '(tools/profile_torch_bwd.py in a process of its own)')
+    # in this process, after phases 3-17, the profiler's traces lost device
+    # activity (fences and kernels), which device_total refuses
+    res = subprocess.run([sys.executable, str(repo / 'tools' / 'profile_torch_bwd.py'),
+                          '--reps', str(reps)], capture_output=True, text=True, timeout=600,
+                         cwd=repo)
+    if res.returncode:
+        raise AssertionError(f'T3: tools/profile_torch_bwd.py exited {res.returncode}: '
+                             f'{res.stderr[-4000:]}')
+    r3 = {}
+    for line in res.stdout.splitlines():
+        name, _, rest = line.partition(' ')
+        if name in T3.SPHERES and rest.startswith('{'):
+            r3[name] = json.loads(rest)
+    if set(r3) != set(T3.SPHERES):
+        raise AssertionError(f'T3: tools/profile_torch_bwd.py printed {sorted(r3)}')
+    for name, r in r3.items():
+        log(f'  {name}: {r["F"]} faces, {r["items"]} work items, {r["entries"]} entries')
+        for k in ('prep', 'fwd_thr', 'k6', 'face_sum', 'backward', 'step'):
+            st = r[k]
+            log(f'    {k:9s}: device {st["device_ms"]:.4f} ms, host {st["host_ms"]:.4f} ms '
+                f'(events), kernels {st["kernels"]:g} + copies {st["copies"]:g} a call, '
+                f'wrappers {st["wrapper_launches"]}'
+                + (f', K6 kernel {st["kernel_device_ms"]:.4f} ms' if k == 'k6' else '')
+                + (f', host synchronisations {st["syncs"]}' if k == 'step' else ''))
+        log(f'    the step\'s largest kernels, ms: {r["step"]["by_kernel"]}  [{smi}]')
+    out = {'T1': r1, 'T2': r2, 'T3': r3, 'seconds': time.time() - t_phase}
+    log(f'phase 18: {out["seconds"]:.1f} s')
+    return out
+
+
+def probe_entries(p18, main_launches):
+    """The probes' entries of the kernels line: their headline case (T1's
+    pair20_dot25, T2's dots) beside every case's numbers; ``launches`` is
+    their count on the main path (phases 3-17), ``probe_launches`` phase
+    18's."""
+    r1, r2 = p18['T1'], p18['T2']
+    c1, c2 = r1['cases']['pair20_dot25'], r2['variants']['dots']
+    keys = ('device_ms', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'max_rel_err')
+    return [
+        {'name': 'probe_micro', 'route': 'cuda', 'source': 'jrender_tpu_torch/csrc/probe_micro.cu',
+         'replaces': 'tools/exp_micro.py:63', 'launches': main_launches['probe_micro'],
+         'main_path': False, 'probe_launches': r1['launches'], 'case': 'pair20_dot25',
+         'max_abs_err': max(c['max_abs_err'] for c in r1['cases'].values()),
+         'ms': c1['ms'], 'device_ms': c1['device_ms'], 'plain_ms': c1['plain_ms'],
+         'plain_on': 'all steps (each step\'s face row once)', 'bound_ms': c1['bound_ms'],
+         'bound_by': c1['bound_by'], 'library_ms': None,
+         'cases': {n: {k: c[k] for k in keys} for n, c in r1['cases'].items()},
+         'fit': r1['fit'], 'dots': r1['dots']},
+        {'name': 'probe_bwd_dma', 'route': 'cuda',
+         'source': 'jrender_tpu_torch/csrc/probe_bwd_dma.cu',
+         'replaces': 'tools/exp_bwd_dma.py:99', 'launches': main_launches['probe_bwd_dma'],
+         'main_path': False, 'probe_launches': r2['launches'], 'case': 'dots',
+         'max_abs_err': max(c['max_abs_err'] for c in r2['variants'].values()),
+         'ms': c2['ms'], 'device_ms': c2['device_ms'], 'plain_ms': c2['plain_ms'],
+         'plain_on': 'all items', 'bound_ms': c2['bound_ms'], 'bound_by': c2['bound_by'],
+         'library_ms': None,
+         'cases': {n: {k: c[k] for k in keys} for n, c in r2['variants'].items()},
+         'staging': r2['staging']},
+    ]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1666,6 +1822,7 @@ def main() -> int:
     from jrender_tpu_torch.ops.softras import (binning, cuda_impl, dir_impl, fpx_impl,
                                                make_params, pxf_impl, pxg_impl, route,
                                                soft_rasterize, tiled, torch_impl)
+    from jrender_tpu_torch.probes import bwd_dma, micro
     from jrender_tpu_torch.transform import look_at, perspective
     from jrender_tpu_torch.structures import face_vertices
     from jrender_tpu_torch.structures import vertex_normals_fn
@@ -1698,6 +1855,10 @@ def main() -> int:
     # JR_LAYOUT until phase 12
     os.environ.pop('JR_DIR_MAX', None)
     os.environ.pop('JR_LAYOUT', None)
+
+    # the probes of phase 18, which no entry point calls: zeroed once before
+    # phase 3 (``zero_counts`` leaves them), read before phase 18
+    probe_wrappers = {'probe_micro': micro.launch_micro, 'probe_bwd_dma': bwd_dma.launch_bwd_dma}
 
     def zero_counts():
         for w in (*wrappers.values(), *dir_wrappers.values(), *pxg_wrappers.values(),
@@ -1776,11 +1937,15 @@ def main() -> int:
     variants += [('softras_pxg_bwd', tiled.bwd_defines(b)) for b in pxg_impl.BWD_BUILDS]
     variants += [('n3mr_maps', ncuda.maps_defines(b)) for b in ncuda.MAPS_BUILDS]
     variants += [('softras_pxg_thr', pxg_impl.thr_defines(b)) for b in pxg_impl.THR_BUILDS]
+    # the probes' other builds of their products (phase 18)
+    variants += [(micro.SOURCE, micro.FFMA_DEFINES)] + [
+        (bwd_dma.SOURCE, bwd_dma.dot_defines(d)) for d in bwd_dma.DOTS if d != 'mma']
     _build.build(kernels_src + variants)
     log(f'build: {kernels_src} and {len(variants)} variants in {time.time() - t0:.1f} s')
     # the f_px and px_f forwards' variants too (registers and spills per
-    # blocks per tile)
-    for name, defs in [(n, ()) for n in kernels_src] + [
+    # blocks per tile); the probes' registers come from their occupancy
+    # queries in phase 18
+    for name, defs in [(n, ()) for n in kernels_src if n not in (micro.SOURCE, bwd_dma.SOURCE)] + [
             v for v in variants if v[0] in ('softras_fpx_fwd', 'softras_pxf_fwd')]:
         if defs:
             log(f'  {name} built with {defs}:')
@@ -1966,6 +2131,8 @@ def main() -> int:
         return max(e_f, e_t), e_red
 
     # ---- 3. kernels vs plain, whole images -------------------------------
+    for w in probe_wrappers.values():
+        w.launches = 0
     log('phase 3a: forward kernel vs plain, whole images')
     fv_mid = sphere_faces(38, 45)                          # 3,330 faces
     tex_mid = textures(fv_mid.shape[1], 25, SEED)
@@ -2335,11 +2502,6 @@ def main() -> int:
     n_big = int(cl.gcount.sum().item())
     lists_bytes = 4 * (pairs + cl.starts.numel() + cl.run_counts.numel()
                        + n_big * 5 + cl.gcount.numel())
-
-    def bound(ops, nbytes):
-        t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-        return max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes else 'bytes', \
-            f'{ops:,} operations ({t_ops:.6f} ms), {nbytes:,} bytes ({t_bytes:.6f} ms)'
 
     # forward: each input read once (the rows, the valid part of the
     # lists), each output written once (image 4, aggrs 2, counts 1 per pixel)
@@ -4633,7 +4795,14 @@ def main() -> int:
         """The kernel's device ms on each band of 4 (phase 17c), both layouts."""
         return {m: [b[name] for b in p17['balance_n4'][m]['bands']] for m in ('stride', 'contig')}
 
-    # ---- 18. results ----------------------------------------------------
+    # ---- 18. the Hopper probes of the TPU tools ---------------------------------------
+    probe_main = {k: w.launches for k, w in probe_wrappers.items()}
+    if any(probe_main.values()):
+        raise AssertionError(f'a probe ran during phases 3-17: {probe_main}')
+    p18 = probe_phase(dict(repo=repo, smi=smi, reps=10))
+    log(json.dumps({'phase18': p18}))
+
+    # ---- 19. results ----------------------------------------------------
     launches = {**step_counts, **n_step_counts, **dir_counts, **pxg_counts, **fpx_counts,
                 **pxf_counts}
     # the face sum ran in the pxg, f_px and px_f steps alike
@@ -4650,7 +4819,7 @@ def main() -> int:
                 'plain_ms': plain_ms, 'plain_on': plain_on, 'bound_ms': b[0],
                 'bound_by': b[1], 'library_ms': library_ms}
 
-    log(json.dumps({'kernels': [
+    kernels_line = [
         {**entry('softras_fwd', 'softras_fwd.cu', 'jrender_tpu/ops/softras/pxt_impl.py:370',
                  fwd_err, fwd_ms, fwd_plain_ms, some, fwd_bound),
          'blocks_per_tile': cuda_impl.FWD_SPLIT, 'busiest_tile_ms': fwd_busy_ms,
@@ -4734,7 +4903,15 @@ def main() -> int:
           for r, tm, rows_ in (('fpx', fpx_t, ((313, 'fwd'), (442, 'bwd'))),
                                ('pxf', pxf_t, ((894, 'fwd'), (1161, 'bwd'))))
           for line, k in rows_),
-    ]}))
+        *probe_entries(p18, probe_main),
+    ]
+    # K6 timed alone by T3's stage tool (phase 18c), on both spheres
+    for e in kernels_line:
+        if e['name'] == 'softras_pxf_bwd':
+            e['stage_tool_device_ms'] = {n: r['k6']['kernel_device_ms']
+                                         for n, r in p18['T3'].items()}
+            e['stage_tool_items'] = {n: r['items'] for n, r in p18['T3'].items()}
+    log(json.dumps({'kernels': kernels_line}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
                                              'count': count}}), flush=True)
     return 0

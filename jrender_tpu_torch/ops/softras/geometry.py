@@ -77,10 +77,19 @@ def face_info_preprocess(face: torch.Tensor):
 
 
 def fma(a, b, c):
-    """a * b + c rounded once, as a fused multiply-add does (computed in
-    float64: the product of two float32 values is exact there, so only the
-    sum rounds twice); float64 inputs stay float64."""
-    return (a.double() * b.double() + c.double()).to(torch.promote_types(a.dtype, b.dtype))
+    """a * b + c rounded once, as a fused multiply-add does.  The product
+    of two float32 values is exact in float64; the sum is rounded to odd
+    there (TwoSum gives its error), so the rounding to float32 that follows
+    is the only one.  float64 inputs stay float64 (rounded twice)."""
+    out = torch.promote_types(a.dtype, b.dtype)
+    hi, c = a.double() * b.double(), c.double()
+    s = hi + c
+    if out == torch.float64:
+        return s
+    bb = s - hi
+    err = (hi - (s - bb)) + (c - bb)
+    away = torch.nextafter(s, torch.copysign(torch.full_like(s, torch.inf), err))
+    return torch.where((err != 0) & (s.view(torch.int64) & 1 == 0), away, s).to(out)
 
 
 def barycentric_coordinate(face_inv, xp, yp):

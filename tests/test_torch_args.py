@@ -25,9 +25,11 @@ from jrender_tpu_torch.ops.n3mr import cuda_impl as ncuda
 from jrender_tpu_torch.ops.n3mr import torch_impl as nplain
 from jrender_tpu_torch.ops.softras import (cuda_impl, dir_impl, make_params, pxg_impl,
                                            tiled)
+from jrender_tpu_torch.probes import bwd_dma, micro
 
 CSRC = Path(cuda_impl.__file__).resolve().parents[2] / 'csrc'
-MIRRORS = [cls for mod in (cuda_impl, pxg_impl, dir_impl, tiled, ncuda, segment_sum)
+MIRRORS = [cls for mod in (cuda_impl, pxg_impl, dir_impl, tiled, ncuda, segment_sum, micro,
+                            bwd_dma)
            for _, cls in inspect.getmembers(mod, inspect.isclass)
            if issubclass(cls, ctypes.Structure) and (cls.__doc__ or '').startswith('Mirror of')
            and cls.__module__ == mod.__name__]

@@ -2183,3 +2183,83 @@ def test_soft_rasterize_sharded_one_rank_is_soft_rasterize(layout, tmp_path, mon
         dist.destroy_process_group()
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+# ---- the Hopper probes of the TPU tools (jrender_tpu_torch/probes/) ----------------------
+# T1 without products bit-equal to its plain version (the kernel's FMAs in its
+# order of sums), with products and T2 within rtol 1e-5 (float32 both, the
+# sums in other orders; the products on the tensor cores in 3xTF32), T2's
+# checksums of the staged bits exactly; two runs bit-equal.
+
+def _probe_rel(a, b):
+    return ((a - b).abs() / b.abs().clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('ffma', [False, True], ids=['mma', 'ffma'])
+@pytest.mark.parametrize('n,t2,case', [
+    (5, 64, (7, 3, 19, 2)),
+    (838, 1024, (20, 0, 0, 25)),
+    (838, 256, (100, 90, 90, 3)),
+    (838, 1024, (23, 7, 9, 0)),
+], ids=['small', 'full-dot25', 'full-T2=256', 'full-tail'])
+def test_probe_micro_kernel_matches_plain(n, t2, case, ffma):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.probes import micro
+    data = torch.tensor(np.random.RandomState(n).uniform(size=(n, 16, 128)).astype(np.float32),
+                        device='cuda')
+    got = micro.launch_micro(data, *case, t2, ffma=ffma)
+    again = micro.launch_micro(data, *case, t2, ffma=ffma)
+    torch.cuda.synchronize()
+    want = micro.run_plain(data, *case, t2)
+    if case[3] == 0:
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert _probe_rel(got.out, want.out) <= 1e-5
+    assert _probe_rel(got.partial, want.partial) <= 1e-5
+    assert _probe_rel(got.dots, want.dots) <= 1e-5
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('variant,dot', [(v, 'mma') for v in ('base', 'dma16', 'dma1r', 'tr256',
+                                                                'dots')]
+                         + [('dots', 'ffma'), ('dots', 'adds')])
+@pytest.mark.parametrize('n,ntt', [(6, 10), (3973, 4096)], ids=['small', 'full'])
+def test_probe_bwd_dma_kernel_matches_plain(n, ntt, variant, dot):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.probes import bwd_dma
+    face, px, seg = bwd_dma.inputs(n, ntt, seed=n, device='cuda')
+    got = bwd_dma.launch_bwd_dma(face, px, seg, variant, dot)
+    again = bwd_dma.launch_bwd_dma(face, px, seg, variant, dot)
+    torch.cuda.synchronize()
+    want = bwd_dma.run_plain(face, px, seg, variant)
+    assert _probe_rel(got.gout, want.gout) <= 1e-5
+    assert torch.equal(got.stage_sum, want.stage_sum)
+    assert (got.stage_sum != 0).any() == (variant != 'base')
+    assert torch.equal(got.gout, again.gout) and torch.equal(got.stage_sum, again.stage_sum)
+
+
+@pytest.mark.gpu
+def test_probe_wrappers_refuse_bad_cuda_inputs():
+    """A CUDA input the kernels do not take raises; nothing falls back."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from jrender_tpu_torch.probes import bwd_dma, micro
+    data = torch.zeros((4, 16, 128), device='cuda')
+    with pytest.raises(ValueError, match='multiple of 32'):
+        micro.run(data, 1, 0, 0, 0, 100)
+    with pytest.raises(ValueError, match='data must be'):
+        micro.run(torch.zeros((4, 16, 64), device='cuda'), 1, 0, 0, 0, 64)
+    with pytest.raises(TypeError, match='float32'):
+        micro.run(data.double(), 1, 0, 0, 0, 64)
+    face, px, seg = bwd_dma.inputs(3, 8, device='cuda')
+    with pytest.raises(ValueError, match='seg must lie'):
+        bwd_dma.run(face, px[:20], seg + 4, 'dma1r')
+    rows = px.shape[0] - 1
+    shifted = px.reshape(-1)[1:1 + rows * 16 * 256].view(rows, 16, 256)   # 4 B off
+    with pytest.raises(ValueError, match='16-byte'):
+        bwd_dma.run(face, shifted, seg, 'dma16')
+    with pytest.raises(TypeError, match='int32'):
+        bwd_dma.run(face, px, seg.long(), 'dma16')
