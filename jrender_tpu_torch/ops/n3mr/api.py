@@ -21,6 +21,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..._device import resolve_device
+from ...utils.profiling import annotate
 from . import cuda_impl, torch_impl
 
 DEFAULT_IMAGE_SIZE = 256
@@ -72,27 +73,28 @@ class N3mrRasterizeCore(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g_rgb, g_alpha, g_depth):
-        face9, rows, *maps = ctx.saved_tensors
-        m = torch_impl.N3mrMaps(*maps)
-        p = ctx.p
-        grad_faces = grad_tex = None
-        if ctx.needs_input_grad[0]:
-            grad_faces = torch.zeros_like(face9)
-            if p.return_rgb or p.return_alpha:
-                grad_faces = grad_faces + cuda_impl.backward_pixel_map(
-                    face9, m.face_index, m.rgb, m.alpha, g_rgb.contiguous(),
-                    g_alpha.contiguous(), p.image_size, p.eps, p.return_rgb, p.return_alpha)
-            if p.return_depth:
-                grad_faces = grad_faces + torch_impl.backward_depth(
-                    face9, m.face_index, m.face_inv, m.weight, m.depth, m.zcorn, g_depth)
-            grad_faces = grad_faces.reshape(face9.shape[0], -1, 3, 3)
-        if ctx.needs_input_grad[1]:
-            if p.return_rgb:
-                grad_tex = cuda_impl.backward_textures(
-                    rows, ctx.tex_shape, m.face_index, m.weight, m.depth, m.zcorn,
-                    g_rgb.contiguous(), p.eps)
-            else:
-                grad_tex = face9.new_zeros(ctx.tex_shape)
+        with annotate('jr.raster.backward'):
+            face9, rows, *maps = ctx.saved_tensors
+            m = torch_impl.N3mrMaps(*maps)
+            p = ctx.p
+            grad_faces = grad_tex = None
+            if ctx.needs_input_grad[0]:
+                grad_faces = torch.zeros_like(face9)
+                if p.return_rgb or p.return_alpha:
+                    grad_faces = grad_faces + cuda_impl.backward_pixel_map(
+                        face9, m.face_index, m.rgb, m.alpha, g_rgb.contiguous(),
+                        g_alpha.contiguous(), p.image_size, p.eps, p.return_rgb, p.return_alpha)
+                if p.return_depth:
+                    grad_faces = grad_faces + torch_impl.backward_depth(
+                        face9, m.face_index, m.face_inv, m.weight, m.depth, m.zcorn, g_depth)
+                grad_faces = grad_faces.reshape(face9.shape[0], -1, 3, 3)
+            if ctx.needs_input_grad[1]:
+                if p.return_rgb:
+                    grad_tex = cuda_impl.backward_textures(
+                        rows, ctx.tex_shape, m.face_index, m.weight, m.depth, m.zcorn,
+                        g_rgb.contiguous(), p.eps)
+                else:
+                    grad_tex = face9.new_zeros(ctx.tex_shape)
         return grad_faces, grad_tex, None
 
 
@@ -218,33 +220,35 @@ class N3mrRasterizer:
 
     # silhouettes and depth take the default near, far and eps, not the
     # rasterizer's, as the JAX package's facade does
-    def render_silhouettes(self, vertices, faces):
+    def _filled(self, faces, textures=None):
+        """The faces (and textures) with fill_back's copies where it is on:
+        a part of the rasterizer's prep."""
         if self.fill_back:
-            faces = fill_back_faces(faces)
-        fv = vertices_to_faces(vertices, faces)
+            with annotate('jr.raster.prep'):
+                faces = fill_back_faces(faces)
+                if textures is not None:
+                    textures = fill_back_textures(textures)
+        return faces, textures
+
+    def render_silhouettes(self, vertices, faces):
+        fv = vertices_to_faces(vertices, self._filled(faces)[0])
         return rasterize_silhouettes(fv, self.image_size, self.anti_aliasing,
                                      device=self.device)
 
     def render_depth(self, vertices, faces):
-        if self.fill_back:
-            faces = fill_back_faces(faces)
-        fv = vertices_to_faces(vertices, faces)
+        fv = vertices_to_faces(vertices, self._filled(faces)[0])
         return rasterize_depth(fv, self.image_size, self.anti_aliasing,
                                device=self.device)
 
     def render_rgb(self, vertices, faces, textures):
-        if self.fill_back:
-            faces = fill_back_faces(faces)
-            textures = fill_back_textures(textures)
+        faces, textures = self._filled(faces, textures)
         fv = vertices_to_faces(vertices, faces)
         return rasterize(fv, textures, self.image_size, self.anti_aliasing,
                          self.near, self.far, self.rasterizer_eps,
                          self.background_color, device=self.device)
 
     def render(self, vertices, faces, textures):
-        if self.fill_back:
-            faces = fill_back_faces(faces)
-            textures = fill_back_textures(textures)
+        faces, textures = self._filled(faces, textures)
         fv = vertices_to_faces(vertices, faces)
         out = rasterize_rgbad(fv, textures, self.image_size, self.anti_aliasing,
                               self.near, self.far, self.rasterizer_eps,

@@ -38,6 +38,7 @@ from typing import NamedTuple
 import torch
 
 from ... import _build
+from ...utils.profiling import annotate
 from ..softras import binning
 from ..softras import cuda_impl as softras_cuda
 from ..softras.cuda_impl import _c_int, _check, _entry, _run
@@ -386,18 +387,20 @@ def edge_inputs(face, face_index, rgb_map, alpha_map, grad_rgb, grad_alpha,
     as is, so that a warp's lanes read neighbouring addresses on both
     axes.  Channels: alpha and its gradient if ``return_alpha``, then rgb
     and its gradient if ``return_rgb``."""
-    B, F = face.shape[:2]
-    pp = torch.cat([
-        torch_impl._pixel_space(face.reshape(B, F, 3, 3)[..., :2], is_).reshape(B, F, 6),
-        torch_impl._face_frontside_n3mr(face).to(face.dtype)[..., None]], dim=-1).contiguous()
-    ch = []
-    if return_alpha:
-        ch += [alpha_map[:, None], grad_alpha[:, None]]
-    if return_rgb:
-        ch += [rgb_map.permute(0, 3, 1, 2), grad_rgb.permute(0, 3, 1, 2)]
-    planes = torch.cat(ch, dim=1)
-    return (pp, torch.stack([face_index.transpose(1, 2), face_index]).contiguous(),
-            torch.stack([planes.transpose(2, 3), planes]).contiguous())
+    with annotate('jr.n3mr.edge.inputs'):
+        B, F = face.shape[:2]
+        pp = torch.cat([
+            torch_impl._pixel_space(face.reshape(B, F, 3, 3)[..., :2], is_).reshape(B, F, 6),
+            torch_impl._face_frontside_n3mr(face).to(face.dtype)[..., None]],
+            dim=-1).contiguous()
+        ch = []
+        if return_alpha:
+            ch += [alpha_map[:, None], grad_alpha[:, None]]
+        if return_rgb:
+            ch += [rgb_map.permute(0, 3, 1, 2), grad_rgb.permute(0, 3, 1, 2)]
+        planes = torch.cat(ch, dim=1)
+        return (pp, torch.stack([face_index.transpose(1, 2), face_index]).contiguous(),
+                torch.stack([planes.transpose(2, 3), planes]).contiguous())
 
 
 class KeyLayout(NamedTuple):
@@ -530,7 +533,8 @@ def edge_bands(pp: torch.Tensor, is_: int, band: int = EDGE_BAND, lib=None) -> E
         keys, items = launch_edge_bands(pp, is_) if lib is None else _band_keys(pp, is_, lib)
     else:
         keys, items = band_keys_plain(pp, is_, band)
-    skeys, order = torch.sort(keys)
+    with annotate('jr.n3mr.edge.sort'):
+        skeys, order = torch.sort(keys)
     return EdgeBands(skeys, order, items)
 
 
@@ -683,10 +687,12 @@ def forward_maps(face, textures, is_: int, near: float, far: float, eps: float):
     ``textures`` [B,F,ts,ts,ts,3] or None.  Returns (rows [B,F,19],
     face_index, weight, depth, face_inv, zcorn, rgb or None); rgb is 0
     where no face was drawn."""
-    rows = torch_impl.face_rows(face, is_)
-    if _by_device(face):
-        return (rows,) + launch_maps(rows, tile_lists(face, is_), textures, is_,
-                                     near, far, eps)
+    card = _by_device(face)
+    with annotate('jr.raster.prep'):
+        rows = torch_impl.face_rows(face, is_)
+        lists = tile_lists(face, is_) if card else None
+    if card:
+        return (rows,) + launch_maps(rows, lists, textures, is_, near, far, eps)
     fi, wt, dp, finv, zc = torch_impl.forward_maps(face, is_, near, far)
     rgb = None if textures is None else \
         torch_impl.trilinear_rgb_from_maps(textures, fi, wt, dp, zc, eps)

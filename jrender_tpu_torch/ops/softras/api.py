@@ -37,6 +37,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..._device import resolve_device
+from ...utils.profiling import annotate
 from . import cuda_impl, dir_impl, fpx_impl, pxf_impl, pxg_impl, torch_impl
 from .route import route
 from .params import SoftRasParams, make_params
@@ -53,7 +54,8 @@ class SoftRasterize(torch.autograd.Function):
         if ctx.route in _TABLED:
             # the route's table (Morton order, work items or tile lists) is
             # made once and kept for the backward
-            table = _prep(ctx.route, face_vertices, textures, p, need_grad)
+            with annotate('jr.raster.prep'):
+                table = _prep(ctx.route, face_vertices, textures, p, need_grad)
             images, aggrs, _, thr = _TABLED[ctx.route].forward(table, p, with_thr)
             if need_grad:
                 ctx.p = p
@@ -63,7 +65,8 @@ class SoftRasterize(torch.autograd.Function):
         inputs = None
         if face_vertices.device.type == 'cuda':
             # rows and tile lists are made once and kept for the backward
-            inputs = cuda_impl.prepare(face_vertices, textures, p, for_grad=need_grad)
+            with annotate('jr.raster.prep'):
+                inputs = cuda_impl.prepare(face_vertices, textures, p, for_grad=need_grad)
             images, aggrs, counts = cuda_impl.launch(inputs, p)
         else:
             images, aggrs, counts = cuda_impl.soft_rasterize_fwd(
@@ -79,15 +82,16 @@ class SoftRasterize(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_images):
-        face_vertices, textures, images, aggrs, thr = ctx.saved_tensors
-        if ctx.route in _TABLED:
-            grad_face, grad_tex = _TABLED[ctx.route].backward(
-                ctx.table, images, aggrs, thr, grad_images, ctx.p)
-            grad_tex = grad_tex.reshape(textures.shape)
-        else:
-            grad_face, grad_tex = cuda_impl.soft_rasterize_bwd(
-                face_vertices, textures, images, aggrs, thr, grad_images, ctx.p,
-                ctx.inputs)
+        with annotate('jr.raster.backward'):
+            face_vertices, textures, images, aggrs, thr = ctx.saved_tensors
+            if ctx.route in _TABLED:
+                grad_face, grad_tex = _TABLED[ctx.route].backward(
+                    ctx.table, images, aggrs, thr, grad_images, ctx.p)
+                grad_tex = grad_tex.reshape(textures.shape)
+            else:
+                grad_face, grad_tex = cuda_impl.soft_rasterize_bwd(
+                    face_vertices, textures, images, aggrs, thr, grad_images, ctx.p,
+                    ctx.inputs)
         return (grad_face if ctx.needs_input_grad[0] else None,
                 grad_tex if ctx.needs_input_grad[1] else None, None, None)
 

@@ -42,6 +42,7 @@ from typing import NamedTuple
 
 import torch
 
+from ...utils.profiling import annotate
 from .geometry import border_inflation
 
 
@@ -169,54 +170,55 @@ def build_tile_lists_compact(face: torch.Tensor, image_size: int, tile_h: int,
 
     ``band`` = (ty0, ty_band, ty_stride) emits the pairs of those tile rows
     only (see the module docstring); the lists then hold the band."""
-    B, F, _ = face.shape
-    mt = mt_for(F) if mt is None else mt
-    ty_min, ty_max, tx_min, tx_max, _empty, TY, TX = _tile_ranges(
-        face, image_size, tile_h, tile_w, threshold)
-    n_tiles = TY * TX
-    pair_tile, pair_ok, big, stride = emit_pairs(face, image_size, tile_h, tile_w,
-                                                 threshold, mt, band)
-    dev = face.device
-    fids = torch.arange(F, dtype=torch.int64, device=dev)
+    with annotate('jr.binning'):
+        B, F, _ = face.shape
+        mt = mt_for(F) if mt is None else mt
+        ty_min, ty_max, tx_min, tx_max, _empty, TY, TX = _tile_ranges(
+            face, image_size, tile_h, tile_w, threshold)
+        n_tiles = TY * TX
+        pair_tile, pair_ok, big, stride = emit_pairs(face, image_size, tile_h, tile_w,
+                                                     threshold, mt, band)
+        dev = face.device
+        fids = torch.arange(F, dtype=torch.int64, device=dev)
 
-    key = (pair_tile.to(torch.int64) * stride + fids[None, :, None]).reshape(B, -1)
-    gsrc = gpos = None
-    if with_inverse:
-        keys_sorted, order = torch.sort(key, dim=1)
-        place = torch.empty_like(order)
-        place.scatter_(1, order, torch.arange(key.shape[1], device=dev)[None].expand(B, -1))
-        gsrc = torch.where(pair_ok.reshape(B, -1), place, -1).to(torch.int32) \
-            .reshape(B, F, mt)
-        gpos = torch.where(big, big.cumsum(dim=1) - 1, -1).to(torch.int32)
-    else:
-        keys_sorted = torch.sort(key, dim=1).values
-    tiles_s = torch.div(keys_sorted, stride, rounding_mode='floor')
-    faces_sorted = (keys_sorted - tiles_s * stride).to(torch.int32)
-    bounds = torch.arange(n_tiles + 1, dtype=torch.int64, device=dev)
-    edges = torch.searchsorted(tiles_s.contiguous(),
-                               bounds[None].expand(B, -1).contiguous())
-    starts = edges[:, :-1].to(torch.int32)
-    run_counts = (edges[:, 1:] - edges[:, :-1]).to(torch.int32)
+        key = (pair_tile.to(torch.int64) * stride + fids[None, :, None]).reshape(B, -1)
+        gsrc = gpos = None
+        if with_inverse:
+            keys_sorted, order = torch.sort(key, dim=1)
+            place = torch.empty_like(order)
+            place.scatter_(1, order, torch.arange(key.shape[1], device=dev)[None].expand(B, -1))
+            gsrc = torch.where(pair_ok.reshape(B, -1), place, -1).to(torch.int32) \
+                .reshape(B, F, mt)
+            gpos = torch.where(big, big.cumsum(dim=1) - 1, -1).to(torch.int32)
+        else:
+            keys_sorted = torch.sort(key, dim=1).values
+        tiles_s = torch.div(keys_sorted, stride, rounding_mode='floor')
+        faces_sorted = (keys_sorted - tiles_s * stride).to(torch.int32)
+        bounds = torch.arange(n_tiles + 1, dtype=torch.int64, device=dev)
+        edges = torch.searchsorted(tiles_s.contiguous(),
+                                   bounds[None].expand(B, -1).contiguous())
+        starts = edges[:, :-1].to(torch.int32)
+        run_counts = (edges[:, 1:] - edges[:, :-1]).to(torch.int32)
 
-    # big-face list: ascending ids, compacted to the front, -1 padded
-    gcount = big.sum(dim=1, dtype=torch.int32)
-    order = torch.sort(torch.where(big, fids[None], F + fids[None]), dim=1).values
-    glist = torch.where(order < F, order, -1).to(torch.int32)
+        # big-face list: ascending ids, compacted to the front, -1 padded
+        gcount = big.sum(dim=1, dtype=torch.int32)
+        order = torch.sort(torch.where(big, fids[None], F + fids[None]), dim=1).values
+        glist = torch.where(order < F, order, -1).to(torch.int32)
 
-    # big faces per tile: 2-D difference array over each big face's range
-    ranges = torch.stack([ty_min, ty_max, tx_min, tx_max], dim=-1)
-    diff = torch.zeros((B, (TY + 1) * (TX + 1)), dtype=torch.int32, device=dev)
-    one = big.to(torch.int32)
-    for ty, tx, sgn in ((ty_min, tx_min, 1), (ty_min, tx_max + 1, -1),
-                        (ty_max + 1, tx_min, -1), (ty_max + 1, tx_max + 1, 1)):
-        diff.scatter_add_(1, (ty * (TX + 1) + tx).to(torch.int64), sgn * one)
-    gt = diff.reshape(B, TY + 1, TX + 1).cumsum(1).cumsum(2)[:, :TY, :TX]
-    counts = run_counts + gt.reshape(B, n_tiles).to(torch.int32)
-    return CompactLists(
-        faces_sorted=faces_sorted, starts=starts, run_counts=run_counts,
-        counts=counts, glist=glist, gcount=gcount,
-        ranges=ranges.to(torch.int32).contiguous(), gsrc=gsrc, gpos=gpos,
-        band=None if band is None else tuple(int(v) for v in band))
+        # big faces per tile: 2-D difference array over each big face's range
+        ranges = torch.stack([ty_min, ty_max, tx_min, tx_max], dim=-1)
+        diff = torch.zeros((B, (TY + 1) * (TX + 1)), dtype=torch.int32, device=dev)
+        one = big.to(torch.int32)
+        for ty, tx, sgn in ((ty_min, tx_min, 1), (ty_min, tx_max + 1, -1),
+                            (ty_max + 1, tx_min, -1), (ty_max + 1, tx_max + 1, 1)):
+            diff.scatter_add_(1, (ty * (TX + 1) + tx).to(torch.int64), sgn * one)
+        gt = diff.reshape(B, TY + 1, TX + 1).cumsum(1).cumsum(2)[:, :TY, :TX]
+        counts = run_counts + gt.reshape(B, n_tiles).to(torch.int32)
+        return CompactLists(
+            faces_sorted=faces_sorted, starts=starts, run_counts=run_counts,
+            counts=counts, glist=glist, gcount=gcount,
+            ranges=ranges.to(torch.int32).contiguous(), gsrc=gsrc, gpos=gpos,
+            band=None if band is None else tuple(int(v) for v in band))
 
 
 def tile_list(cl: CompactLists, b: int, tile: int, tiles_x: int):

@@ -48,6 +48,7 @@ from typing import NamedTuple
 import torch
 
 from ... import _build
+from ...utils.profiling import annotate
 from . import binning, torch_impl
 from . import geometry as G
 from .params import SoftRasParams
@@ -269,10 +270,12 @@ def _entry(source: str, name: str, args_type, split: int | None = None, lib=None
 
 
 def _run(fn, name: str, args, dev) -> None:
-    """Call a kernel's entry point on the current stream; raise on a
-    refused launch (-1: the forward's cluster cannot be resident)."""
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(ctypes.byref(args), ctypes.c_void_p(stream))
+    """Call a kernel's entry point on the current stream, in the span
+    ``jr.kernel.<name>``; raise on a refused launch (-1: the forward's
+    cluster cannot be resident)."""
+    with annotate('jr.kernel.' + name):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(ctypes.byref(args), ctypes.c_void_p(stream))
     if err != 0:
         why = ("a cluster of the kernel's blocks cannot be resident on one GPC"
                if err == -1 else f'CUDA error {err}')

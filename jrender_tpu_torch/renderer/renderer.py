@@ -12,6 +12,7 @@ from ..lighting import Lighting
 from ..ops.n3mr import N3mrRasterizer
 from ..structures import Mesh
 from ..transform import Transform
+from ..utils.profiling import annotate
 from .rasterizer import SoftRasterizer
 
 
@@ -70,11 +71,16 @@ class Renderer:
     def render_mesh(self, mesh, mode='rgb'):
         """Light, transform and rasterize ``mesh``.  Like the reference it
         rewrites the mesh's textures and vertices; ``mesh.reset_()``
-        restores them before the next frame."""
-        self.set_texture_mode(mesh.texture_type)
-        mesh = self.lighting(mesh, self.transform.eyes)
-        mesh = self.transform(mesh)
-        return self.rasterizer(mesh, mode)
+        restores them before the next frame.  Each stage runs in a span of
+        its own (``utils/profiling.py``)."""
+        with annotate('jr.render_mesh'):
+            self.set_texture_mode(mesh.texture_type)
+            with annotate('jr.lighting'):
+                mesh = self.lighting(mesh, self.transform.eyes)
+            with annotate('jr.transform'):
+                mesh = self.transform(mesh)
+            with annotate('jr.raster'):
+                return self.rasterizer(mesh, mode)
 
     def __call__(self, vertices, faces, textures=None, mode='rgb',
                  texture_type='surface', metallic_textures=None,

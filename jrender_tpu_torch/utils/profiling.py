@@ -7,9 +7,30 @@
     with profiling.annotate('rasterize'):      # a named span in the trace
         out = soft_rasterize(...)
 
-    with profiling.timed('rasterize') as t:    # wall clock, the card synchronised
-        out = soft_rasterize(...)
-    print(t.ms)
+An operator traces their own calls with ``trace``: the Chrome trace holds
+the program's ``jr.*`` spans beside the card's kernels, copies and fills,
+on one clock, each span nested in the one that called it:
+
+  ``jr.render_mesh``        ``Renderer.render_mesh``, the whole call
+  ``jr.lighting``, ``jr.transform``, ``jr.raster``
+                            its three stages
+  ``jr.raster.backward``    the rasterizer's backward (SoftRas, N3MR), on
+                            the autograd engine's thread
+  ``jr.raster.prep``        the rasterizer's prep: SoftRas's rows and tile
+                            lists (each route's table), N3MR's fill_back,
+                            rows and tile lists
+  ``jr.binning``            the tile lists (``binning.build_tile_lists_compact``)
+  ``jr.n3mr.edge.inputs``, ``jr.n3mr.edge.sort``
+                            N3MR's edge-gradient inputs and its sort of the
+                            band keys
+  ``jr.kernel.<entry>``     every hand-kernel launch (``cuda_impl._run``),
+                            named by its entry point: ``jr.kernel.softras_fwd``,
+                            ``jr.kernel.n3mr_edgebwd``, ``jr.kernel.segment_sum``...
+
+``annotate`` enters ``torch.profiler.record_function`` only while a
+profiler is collecting; otherwise it returns one shared no-op context, so
+a span costs one flag test when nothing traces (``record_function``
+itself costs a dispatcher call even then).
 
 The NeRF trainer's ``--profile_dir`` traces one dispatch of steps with
 ``trace``.  Unlike the JAX package's, ``trace`` swallows no exception:
@@ -23,6 +44,9 @@ import os
 import time
 
 import torch
+from torch._C._autograd import _profiler_enabled
+
+_OFF = contextlib.nullcontext()
 
 
 def _card_in_use(device=None) -> bool:
@@ -49,36 +73,8 @@ def trace(log_dir: str, device=None):
 
 
 def annotate(name: str):
-    """Named region: a span in profiler traces."""
-    return torch.profiler.record_function(name)
-
-
-class _Timer:
-    __slots__ = ('ms',)
-
-    def __init__(self):
-        self.ms = 0.0
-
-
-def _sync():
-    if _card_in_use():
-        torch.cuda.synchronize()
-
-
-@contextlib.contextmanager
-def timed(name: str | None = None, sync: bool = True):
-    """Wall-clock a block; with ``sync`` the card (when in use) finishes its
-    queued work before and after, so asynchronous launches are not
-    misattributed."""
-    if sync:
-        _sync()
-    t = _Timer()
-    t0 = time.perf_counter()
-    try:
-        yield t
-    finally:
-        if sync:
-            _sync()
-        t.ms = (time.perf_counter() - t0) * 1e3
-        if name:
-            print(f'[timed] {name}: {t.ms:.3f} ms')
+    """Named region: a span in profiler traces while a profiler collects
+    (on any thread it reaches: the autograd engine's too), else a no-op."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF

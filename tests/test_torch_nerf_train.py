@@ -417,9 +417,7 @@ def test_annotate_timed_and_trace(tmp_path):
     with profiling.trace(d):
         with profiling.annotate('outer'):
             x = torch.ones(64, 64) @ torch.ones(64, 64)
-    with profiling.timed() as tm:
-        torch.ones(128, 128) @ torch.ones(128, 128)
-    assert tm.ms > 0.0 and float(x[0, 0]) == 64.0
+    assert float(x[0, 0]) == 64.0
     files = os.listdir(d)
     assert len(files) == 1
     with open(os.path.join(d, files[0])) as f:
