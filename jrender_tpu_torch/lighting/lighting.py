@@ -18,15 +18,12 @@ from __future__ import annotations
 
 import torch
 
+from .._device import device_constant
 from ..utils.math import normalize
 
 
-def _f32(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
-
-
 def ambient_lighting(light, light_intensity=0.5, light_color=(1, 1, 1)):
-    light_color = _f32(light_color, light.device)
+    light_color = device_constant(light_color, light.device)
     if light_color.dim() == 1:
         light_color = light_color[None]
     return light + light_intensity * light_color[:, None, :]
@@ -71,10 +68,10 @@ def directional_lighting(diffuseLight, specularLight, normals, light_intensity=0
     normals: [B,F,3] (surface), [B,V,3] (vertex) or [B,F,T,3] (per texel).
     """
     dev = normals.device
-    light_color = _f32(light_color, dev)
-    light_direction = normalize(_f32(light_direction, dev), axis=0)
+    light_color = device_constant(light_color, dev)
+    light_direction = normalize(device_constant(light_direction, dev), axis=0)
     if eye is not None:
-        eye = _f32(eye, dev)
+        eye = device_constant(eye, dev)
     if light_color.dim() == 1:
         light_color = light_color[None]
     if light_direction.dim() == 1:
@@ -107,8 +104,8 @@ def directional_lighting(diffuseLight, specularLight, normals, light_intensity=0
 
         metallic = metallic_textures
         roughness = roughness_textures
-        F0 = _f32((0.4, 0.4, 0.4), dev)
-        albedo = _f32((1.0, 1.0, 1.0), dev)
+        F0 = device_constant((0.4, 0.4, 0.4), dev)
+        albedo = device_constant((1.0, 1.0, 1.0), dev)
         if per_texel:
             F0 = F0[None, None, None, :] * (1 - metallic) + albedo[None, None, None, :] * metallic
             radiance = light_intensity * (light_color[:, None, None, :] * cosine[..., None])
@@ -153,9 +150,9 @@ def lighting(faces, textures, intensity_ambient=0.5, intensity_directional=0.5,
     faces [B,F,3,3], textures [B,F,ts,ts,ts,3]."""
     bs, nf = faces.shape[:2]
     dev = faces.device
-    color_ambient = _f32(color_ambient, dev)
-    color_directional = _f32(color_directional, dev)
-    direction = _f32(direction, dev)
+    color_ambient = device_constant(color_ambient, dev)
+    color_directional = device_constant(color_directional, dev)
+    direction = device_constant(direction, dev)
     if color_ambient.dim() == 1:
         color_ambient = color_ambient[None]
     if color_directional.dim() == 1:

@@ -20,7 +20,7 @@ import dataclasses
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..._device import resolve_device
+from ..._device import device_constant, resolve_device
 from ...utils.profiling import annotate
 from . import cuda_impl, torch_impl
 
@@ -58,7 +58,7 @@ class N3mrRasterizeCore(torch.autograd.Function):
             p.near, p.far, p.eps)
         alpha = (fi >= 0).to(face9.dtype)
         if p.return_rgb:
-            bg = face9.new_tensor(p.background_color)
+            bg = device_constant(p.background_color, face9.device, face9.dtype)
             mask = alpha[..., None]
             rgb = rgb * mask + (1 - mask) * bg
         else:

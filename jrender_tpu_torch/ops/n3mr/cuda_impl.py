@@ -38,6 +38,7 @@ from typing import NamedTuple
 import torch
 
 from ... import _build
+from ..._device import device_constant
 from ...utils.profiling import annotate
 from ..softras import binning
 from ..softras import cuda_impl as softras_cuda
@@ -669,7 +670,7 @@ def tile_lists(face: torch.Tensor, is_: int) -> binning.CompactLists:
     """The z-buffer kernel's tile lists.  The binning's rows fall with y,
     n3mr's grow with it (``torch_impl._pixel_coords``), so a y-negated copy
     of the faces is binned: the row extents then line up."""
-    neg_y = face * face.new_tensor([1.0, -1.0, 1.0] * 3)
+    neg_y = face * device_constant([1.0, -1.0, 1.0] * 3, face.device, face.dtype)
     return binning.build_tile_lists_compact(neg_y, is_, TILE, TILE, 0.0)
 
 

@@ -73,6 +73,7 @@ from typing import NamedTuple
 import torch
 
 from ... import _build
+from ..._device import device_constant
 from . import cuda_impl, tiled, torch_impl
 from . import geometry as G
 from .cuda_impl import ROW_BASE, TILE, _Scalars, _check, _entry, _run, _scalars
@@ -319,7 +320,7 @@ def merge_partials(P: torch.Tensor, ok: torch.Tensor, p: SoftRasParams, F: int):
     summed.  Returns [n, 7, X]: rgb, alpha, the two aggregates, the count."""
     dev, dt = P.device, P.dtype
     n, X = P.shape[0], P.shape[-1]
-    bg = torch.tensor(p.background_color, dtype=dt, device=dev)[None, :, None]
+    bg = device_constant(p.background_color, dev, dt)[None, :, None]
     okp = ok[:, :, None]
     if p.alpha_func_id == 0:
         A = torch.where(okp, P[:, :, 5], 0.0).amax(1)

@@ -49,6 +49,7 @@ from typing import NamedTuple
 import torch
 
 from ... import _build
+from ..._device import device_constant
 from .. import segment_sum
 from . import cuda_impl, torch_impl
 from .cuda_impl import ROW_BASE, _Scalars, _check, _entry, _run, _scalars
@@ -226,11 +227,11 @@ def fwd_plain(pin: TiledInputs, p: SoftRasParams, with_thr: bool,
     aggrs = torch.empty((B, 2, Hb, is_), dtype=dt, device=dev)
     counts = torch.zeros((B, Hb, is_), dtype=torch.int32, device=dev)
     thr = torch.full((B, Hb, is_), p.far, dtype=dt, device=dev) if with_thr else None
-    bg = torch.tensor(p.background_color, dtype=dt, device=dev)
+    bg = device_constant(p.background_color, dev, dt)
     if p.rgb_func_id == 1:
-        ag_init = torch.tensor([1.0, p.eps], dtype=dt, device=dev)
+        ag_init = device_constant([1.0, p.eps], dev, dt)
     elif p.rgb_func_id == 0:
-        ag_init = torch.tensor([torch_impl.BIG_DEPTH, -1.0], dtype=dt, device=dev)
+        ag_init = device_constant([torch_impl.BIG_DEPTH, -1.0], dev, dt)
     else:
         ag_init = torch.zeros(2, dtype=dt, device=dev)
     off = pin.tile_off.tolist()

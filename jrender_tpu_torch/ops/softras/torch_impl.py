@@ -32,6 +32,7 @@ import math
 
 import torch
 
+from ..._device import device_constant
 from . import geometry as G
 from .params import SoftRasParams
 
@@ -126,7 +127,7 @@ def forward_single(face, tex, p: SoftRasParams, xp, yp, ids=None, n_faces=None):
     sf, zp = terms['sf'], terms['zp']
     alpha_valid, tk_valid = terms['alpha_valid'], terms['tk_valid']
     w_clip = terms['w_clip']
-    bg = torch.tensor(p.background_color, dtype=face.dtype, device=face.device)
+    bg = device_constant(p.background_color, face.device, face.dtype)
 
     # ---- alpha (soft_rasterize.py:349-358, 426-434) ----------------------
     sf_a = torch.where(alpha_valid, sf, 0.0)

@@ -8,8 +8,9 @@ transforms are
   * orthogonal   -- jrender/renderer/transform/orthogonal.py:3
   * projection   -- jrender/renderer/transform/projection.py:3 (OpenCV distortion)
 
-All functions take and return float32 ``[B, N, 3]`` vertex tensors and
-make their constants on the vertices' device.
+All functions take and return float32 ``[B, N, 3]`` vertex tensors.  A
+constant given as a Python value goes to the vertices' device once
+(``device_constant``); one given as a tensor is used as it is.
 """
 from __future__ import annotations
 
@@ -17,15 +18,12 @@ import math
 
 import torch
 
+from .._device import device_constant
 from ..utils.math import normalize
 
 
-def _vec(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
-
-
 def _as_batched_vec3(x, batch_size: int, device) -> torch.Tensor:
-    v = _vec(x, device)
+    v = device_constant(x, device)
     if v.dim() == 1:
         v = v.expand(batch_size, 3)
     return v
@@ -61,8 +59,8 @@ def look(vertices: torch.Tensor, eye, direction=(0.0, 0.0, 1.0), up=(0.0, 1.0, 0
     if vertices.dim() != 3:
         raise ValueError('vertices must have shape [B, N, 3]')
     bs, dev = vertices.shape[0], vertices.device
-    direction = _vec(direction, dev)
-    up_v = _vec(up if up is not None else (0.0, 1.0, 0.0), dev)
+    direction = device_constant(direction, dev)
+    up_v = device_constant(up if up is not None else (0.0, 1.0, 0.0), dev)
 
     z_axis = normalize(direction, axis=0 if direction.dim() == 1 else -1, eps=1e-5)
     up_v = normalize(up_v, axis=0 if up_v.dim() == 1 else -1, eps=1e-5)
@@ -87,7 +85,7 @@ def perspective(vertices: torch.Tensor, angle: float = 30.0) -> torch.Tensor:
     (reference perspective.py:4-17)."""
     if vertices.dim() != 3:
         raise ValueError('vertices must have shape [B, N, 3]')
-    width = torch.tan(_vec(angle, vertices.device) / 180.0 * math.pi)
+    width = torch.tan(device_constant(angle, vertices.device) / 180.0 * math.pi)
     z = vertices[..., 2]
     x = vertices[..., 0] / z / width
     y = vertices[..., 1] / z / width
@@ -113,10 +111,10 @@ def projection(vertices: torch.Tensor, K, R, t, dist_coeffs=None, orig_size: int
     Returns [u, v, z] with u, v in [-1, 1].
     """
     dev = vertices.device
-    K, R, t = _vec(K, dev), _vec(R, dev), _vec(t, dev)
+    K, R, t = device_constant(K, dev), device_constant(R, dev), device_constant(t, dev)
     if dist_coeffs is None:
         dist_coeffs = torch.zeros((K.shape[0], 5), dtype=torch.float32, device=dev)
-    dist_coeffs = _vec(dist_coeffs, dev)
+    dist_coeffs = device_constant(dist_coeffs, dev)
 
     # the reference uses R[0]'s transpose for every batch element (:18)
     vertices = torch.matmul(vertices, R.transpose(1, 2)[0]) + t

@@ -118,3 +118,33 @@ def test_every_hand_kernel_launch_is_in_a_kernel_span(dr_type, tmp_path):
     top = [s for s in spans if s['name'] == 'jr.render_mesh']
     back = [s for s in spans if s['name'] == 'jr.raster.backward']
     assert len(top) == 1 and len(back) == 1 and back[0]['tid'] != top[0]['tid']
+
+
+SYNC_CALLS = ('cudaStreamSynchronize', 'cudaDeviceSynchronize', 'cudaMemcpy')
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dr_type', DR_TYPES)
+def test_render_path_waits_for_the_card_nowhere(dr_type, tmp_path):
+    """After one call (the kernels built, the constants on the card), a
+    fit step at 128 px makes no call that waits for the card inside a
+    ``jr.*`` range of its own thread: no stream or device synchronise, no
+    synchronous copy."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    fit_step(dr_type, 'cuda', 128, 20, 24)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fit_step(dr_type, 'cuda', 128, 20, 24)
+        torch.cuda.synchronize()
+    path = tmp_path / 'trace.json'
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())['traceEvents'] if e.get('ph') == 'X']
+    spans = [e for e in events if e.get('cat') == 'user_annotation'
+             and e['name'].startswith('jr.')]
+    assert any(s['name'] == 'jr.render_mesh' for s in spans)
+    assert not any(s['name'] == 'jr.const.upload' for s in spans)
+    waits = [(e['name'], s['name']) for e in events
+             if e.get('cat') == 'cuda_runtime' and e['name'] in SYNC_CALLS
+             for s in spans if s['tid'] == e['tid'] and s['ts'] <= e['ts'] <= s['ts'] + s['dur']]
+    assert not waits, waits
