@@ -2,19 +2,21 @@
 cell's own size, in one process.
 
     python3 benchmark/calibrate.py --workload <cell> --seeds 1,2,... \\
-        [--control-seeds 7,8,9] [--fault-seeds 10,11,12] [--faults half,altered,vertex_grad]
+        [--control-seeds 7,8,9] [--fault-seeds 10,11,12] [--faults half,altered]
 
-For each of ``--seeds`` the program's check numbers as a run makes them
-(a fit cell: its set-up steps against the reference; a frames cell: its
-warm-up and three requests, the last compared); for each of
-``--control-seeds`` the control's: the reference itself in bfloat16, the
-nearest precision below the configuration's float32, in the program's
-place; for each of ``--fault-seeds`` the numbers of the program with each
-of ``--faults`` planted (``harness/faults.py``).  One JSON line each on
-standard output; a fit cell's line also gives each leaf's norms (the
-compared side's and the reference's) of the first gradients and of the
-change, which the ``grad`` and ``change`` gaps are worked out from.  It
-runs on the card only, and the benchmark's runs do not run it.
+Each number comes from the cell's traffic kind (``kinds/<kind>.py``).  For
+each of ``--seeds`` the program's check numbers as a run makes them
+without its window (the kind's ``sample``: a fit cell's set-up steps
+against the reference; a frames cell's warm-up and three requests, the
+last compared); for each of ``--control-seeds`` the control's: the
+reference itself in bfloat16, the nearest precision below the
+configuration's float32, in the program's place; for each of
+``--fault-seeds`` the numbers of the program with each of ``--faults``
+(default: every fault in the kind's ``FAULTS``) planted.  One JSON line
+each on standard output; a fit cell's line also gives each leaf's norms
+(the compared side's and the reference's) of the first gradients and of
+the change, which the ``grad`` and ``change`` gaps are worked out from.
+It runs on the card only, and the benchmark's runs do not run it.
 """
 from __future__ import annotations
 
@@ -30,50 +32,22 @@ ROOT = Path(__file__).resolve().parent.parent
 DEVICE = 'cuda'
 
 
-def leaf_norms(got: dict, ref: dict) -> dict:
-    """Per leaf (offsets, textures): [norm of the compared side, norm of
-    the reference] of the first gradients and of the change."""
+def program_numbers(cell, kind, prog, seed: int) -> dict:
+    """The program's check numbers, as a run makes them without its window."""
+    cfg, mix = cell.config, cell.traffic
+    inp = kind.make_inputs(cfg, mix, seed, DEVICE)
+    call = kind.Call(prog, inp, mix)
+    kept = kind.sample(call, mix)
+    del call
+    return kind.numbers(cfg, mix, cell.reference_module(), inp, kept, readings=True)
+
+
+def control_numbers(cell, kind, seed: int) -> dict:
     import torch
-
-    def n(x):
-        return float(torch.linalg.vector_norm(x.double()))
-    return {k: [[n(a), n(b)] for a, b in zip(got[k], ref[k])] for k in ('grads', 'change')}
-
-
-def fit_readings(got: dict, ref: dict) -> dict:
-    from benchmark.harness import check
-    return dict(check.fit_numbers(got, ref), leaves=leaf_norms(got, ref))
-
-
-def program_numbers(cell, prog, seed: int) -> dict:
-    from benchmark.harness import check, traffic
-    cfg, mix, ref = cell.config, cell.traffic, cell.reference_module()
-    inp = traffic.make_inputs(cfg, mix, seed, DEVICE)
-    if mix['kind'] == 'fit':
-        step = traffic.FitStep(prog, inp, mix)
-        record = traffic.fit_setup(step, mix)
-        del step
-        return fit_readings(record, check.reference_fit(ref, cfg, inp, mix))
-    frames = traffic.Frames(prog, inp)
-    for _ in range(mix['warmup_requests'] + 2):
-        frames()
-    k = frames.k
-    out = frames()
-    del frames
-    return check.frames_numbers(out, check.reference_frames(ref, cfg, inp, k))
-
-
-def control_numbers(cell, seed: int) -> dict:
-    import torch
-    from benchmark.harness import check, traffic
-    cfg, mix, ref = cell.config, cell.traffic, cell.reference_module()
-    inp = traffic.make_inputs(cfg, mix, seed, DEVICE)
-    if mix['kind'] == 'fit':
-        low = check.reference_fit(ref, cfg, inp, mix, torch.bfloat16)
-        return fit_readings(low, check.reference_fit(ref, cfg, inp, mix))
-    k = mix['warmup_requests'] + 2
-    low = check.reference_frames(ref, cfg, inp, k, torch.bfloat16)
-    return check.frames_numbers(low, check.reference_frames(ref, cfg, inp, k))
+    cfg, mix = cell.config, cell.traffic
+    inp = kind.make_inputs(cfg, mix, seed, DEVICE)
+    return kind.control_numbers(cfg, mix, cell.reference_module(), inp, torch.bfloat16,
+                                readings=True)
 
 
 def main(argv=None) -> int:
@@ -82,17 +56,18 @@ def main(argv=None) -> int:
     ap.add_argument('--seeds', default='')
     ap.add_argument('--control-seeds', default='')
     ap.add_argument('--fault-seeds', default='')
-    ap.add_argument('--faults', default='half,altered,vertex_grad')
+    ap.add_argument('--faults', default=None,
+                    help='comma-separated names of the kind\'s faults (default: all of them)')
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import torch
     if not torch.cuda.is_available():
         print('calibrate.py: no CUDA device; limits are set from the card only', file=sys.stderr)
         return 2
-    from benchmark.harness import faults, registry
+    from benchmark.harness import registry
     cell = registry.Cell(registry.load_benchmark(ROOT), args.workload, ROOT)
-    make = cell.program_module().program
-    prog = make(cell.config, DEVICE)
+    kind = cell.kind_module()
+    prog = cell.program_module().program(cell.config, DEVICE)
 
     def seeds(s):
         return [int(x) for x in s.split(',') if x]
@@ -103,15 +78,16 @@ def main(argv=None) -> int:
 
     for seed in seeds(args.seeds):
         t0 = time.perf_counter()
-        emit('program', seed, program_numbers(cell, prog, seed), t0)
+        emit('program', seed, program_numbers(cell, kind, prog, seed), t0)
     for seed in seeds(args.control_seeds):
         t0 = time.perf_counter()
-        emit('control', seed, control_numbers(cell, seed), t0)
-    for name in [f for f in args.faults.split(',') if f]:
-        broken = faults.PROGRAM_FAULTS[name](prog)
-        for seed in seeds(args.fault_seeds):
-            t0 = time.perf_counter()
-            emit(f'fault:{name}', seed, program_numbers(cell, broken, seed), t0)
+        emit('control', seed, control_numbers(cell, kind, seed), t0)
+    names = list(kind.FAULTS) if args.faults is None else [f for f in args.faults.split(',') if f]
+    for name in names:
+        with kind.FAULTS[name](prog) as broken:
+            for seed in seeds(args.fault_seeds):
+                t0 = time.perf_counter()
+                emit(f'fault:{name}', seed, program_numbers(cell, kind, broken, seed), t0)
     return 0
 
 

@@ -1,11 +1,14 @@
-"""Faults planted under the timed path, to show that the check catches them.
+"""Faults planted under the timed path of the mesh kinds, to show that the
+check catches them.
 
 ``HalfBatch`` renders half of the views and leaves the rest out (a fit step
 then takes the mean over the views it has); ``Altered`` changes one view's
 answer where it is produced; ``VertexGrad`` halves the gradient that
 reaches the vertices, and so the offsets, and nothing else (the forward is
 untouched); ``unchanged`` makes every optimizer step leave the state as it
-was.  The harness's tests drive a run over each and see
+was.  A kind lists the faults it can have by name in its ``FAULTS``: each
+``plant(prog)`` a context manager that yields the program to drive in
+place of ``prog``.  The harness's tests drive a run over each and see
 ``correct`` come out false; ``calibrate.py`` reads the check's numbers of
 each on the card at the cell's size.  A cell on one card has no exchange
 between cards to leave out.
@@ -17,7 +20,10 @@ import contextlib
 import torch
 
 
-class _Wrapped:
+class Wrapped:
+    """A program wrapped by a fault; what the fault does not replace is the
+    inner program's."""
+
     def __init__(self, inner):
         self.inner = inner
 
@@ -25,13 +31,13 @@ class _Wrapped:
         return getattr(self.inner, key)
 
 
-class HalfBatch(_Wrapped):
+class HalfBatch(Wrapped):
     def render(self, vertices, faces, textures, eyes) -> dict:
         h = vertices.shape[0] // 2
         return self.inner.render(vertices[:h], faces[:h], textures[:h], eyes[:h])
 
 
-class Altered(_Wrapped):
+class Altered(Wrapped):
     def render(self, vertices, faces, textures, eyes) -> dict:
         out = dict(self.inner.render(vertices, faces, textures, eyes))
         rgb = out['rgb']
@@ -42,7 +48,7 @@ class Altered(_Wrapped):
         return out
 
 
-class VertexGrad(_Wrapped):
+class VertexGrad(Wrapped):
     def render(self, vertices, faces, textures, eyes) -> dict:
         v = vertices.detach()
         return self.inner.render(v + 0.5 * (vertices - v), faces, textures, eyes)
@@ -60,11 +66,20 @@ def unchanged():
         torch.optim.Adam.step = step
 
 
-PROGRAM_FAULTS = {'half': HalfBatch, 'altered': Altered, 'vertex_grad': VertexGrad}
+def wrapping(cls):
+    """The fault that wraps the program in ``cls``."""
+    @contextlib.contextmanager
+    def plant(prog):
+        yield cls(prog)
+    return plant
 
 
-def faulty(make, name: str):
-    """``make(cfg, device)`` with the program wrapped in fault ``name``."""
-    def build(cfg, device):
-        return PROGRAM_FAULTS[name](make(cfg, device))
-    return build
+@contextlib.contextmanager
+def state_unchanged(prog):
+    """The fault ``unchanged`` on the program ``prog``, which it leaves as
+    it is.  It freezes every ``torch.optim.Adam`` of the process, so a kind
+    lists it only where its reference steps an optimizer of its own (the
+    mesh references' ``scene.Adam``); a kind whose reference steps a
+    ``torch.optim.Adam`` freezes the program's own instance instead."""
+    with unchanged():
+        yield prog

@@ -8,7 +8,10 @@ configuration, a mix, a cell or a metric by adding files and entries:
                  sizes as run), ``configs/<config>.py`` (the system under
                  test, driven at those sizes) and ``reference/<config>.py``
                  (its plain reference)
-  traffic mix    ``traffic/<traffic>.json``, read by ``harness/traffic.py``
+  traffic mix    ``traffic/<traffic>.json``, whose ``kind`` names
+                 ``kinds/<kind>.py``: the module that makes the mix's
+                 inputs from the seed, drives its calls, set-up and window,
+                 and works out its check (``benchmark/README.md``)
   metric         ``metrics/<name>.py``, else ``metrics/<base>.py`` with
                  ``<base>`` the name before its first dot (``host_ms.fit``
                  and ``host_ms.render`` share ``metrics/host_ms.py``)
@@ -68,6 +71,14 @@ class Cell:
     def program_module(self):
         c = self.entry['config']
         return load_module(self.bench_dir / 'configs' / f'{c}.py', f'bench_config_{c}')
+
+    def kind_module(self):
+        kind = self.traffic['kind']
+        path = self.bench_dir / 'kinds' / f'{kind}.py'
+        if not path.is_file():
+            raise FileNotFoundError(f'the traffic mix {self.entry["traffic"]!r} is of the kind '
+                                    f'{kind!r}, and {path} is missing')
+        return load_module(path, f'bench_kind_{kind}')
 
     def reference_module(self):
         c = self.entry['config']

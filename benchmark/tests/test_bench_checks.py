@@ -1,7 +1,7 @@
 """The check that decides ``correct``: a sound run passes it, the control
 (the reference in bfloat16 in the program's place) fails the cell's
 limits, and so does a run with each fault the cell can have planted under
-the timed path (``harness/faults.py``).  Each run here is ``run_cell`` on
+the timed path (the kind's ``FAULTS``).  Each run here is ``run_cell`` on
 the CPU, everything but the look for a card, at a size the CPU holds.
 Also: ``run.py`` with no card, and a short run on the card where there is
 one."""
@@ -13,7 +13,7 @@ import time
 import pytest
 import torch
 
-from benchmark.harness import check, faults, runner, traffic
+from benchmark.harness import check, runner
 
 from conftest import ROOT, small_cell
 
@@ -22,10 +22,15 @@ CELLS = ['softras_sphere39k_1024.fit8', 'n3mr_sphere39k_1024.fit8',
 SEED = 2 ** 31 + 977
 
 
-def _run(name, build_program=None, tmp='.'):
+def _run(name, fault=None, tmp='.'):
+    """A run of the cell, with the kind's fault ``fault`` planted."""
     cell = small_cell(name)
-    return runner.run_cell(cell, SEED, 0.3, False, 'cpu', time.perf_counter(), tmp,
-                           build_program=build_program)
+    if fault is None:
+        return runner.run_cell(cell, SEED, 0.3, False, 'cpu', time.perf_counter(), tmp)
+    plant = cell.kind_module().FAULTS[fault]
+    with plant(cell.program_module().program(cell.config, 'cpu')) as broken:
+        return runner.run_cell(cell, SEED, 0.3, False, 'cpu', time.perf_counter(), tmp,
+                               build_program=lambda cfg, device: broken)
 
 
 @pytest.mark.parametrize('name', CELLS)
@@ -40,13 +45,14 @@ def test_control_fails(name, torch_threads):
     """The reference computed in bfloat16, in the program's place."""
     cell = small_cell(name)
     cfg, mix, ref = cell.config, cell.traffic, cell.reference_module()
-    inp = traffic.make_inputs(cfg, mix, SEED, 'cpu')
+    kind = cell.kind_module()
+    inp = kind.make_inputs(cfg, mix, SEED, 'cpu')
     if mix['kind'] == 'fit':
-        numbers = check.fit_numbers(check.reference_fit(ref, cfg, inp, mix, torch.bfloat16),
-                                    check.reference_fit(ref, cfg, inp, mix))
+        numbers = kind.compare(kind.reference(ref, cfg, inp, mix, torch.bfloat16),
+                               kind.reference(ref, cfg, inp, mix))
     else:
-        numbers = check.frames_numbers(check.reference_frames(ref, cfg, inp, 3, torch.bfloat16),
-                                       check.reference_frames(ref, cfg, inp, 3))
+        numbers = kind.compare(kind.reference(ref, cfg, inp, 3, torch.bfloat16),
+                               kind.reference(ref, cfg, inp, 3))
     correct, checks = check.judge(numbers, check.load_limits(cell.bench_dir, name))
     assert not correct, checks
 
@@ -54,8 +60,7 @@ def test_control_fails(name, torch_threads):
 @pytest.mark.parametrize('fault', ['half', 'altered'])
 @pytest.mark.parametrize('name', CELLS)
 def test_planted_fault_fails(name, fault, torch_threads, tmp_path):
-    make = small_cell(name).program_module().program
-    r = _run(name, faults.faulty(make, fault), str(tmp_path))
+    r = _run(name, fault, str(tmp_path))
     assert not r['correct'], r['checks']
 
 
@@ -63,16 +68,14 @@ def test_planted_fault_fails(name, fault, torch_threads, tmp_path):
 def test_vertex_gradient_fault_fails(name, torch_threads, tmp_path):
     """The offsets' gradient halved, the forward untouched: ``grad`` sees
     it although the textures' leaf is the larger."""
-    make = small_cell(name).program_module().program
-    r = _run(name, faults.faulty(make, 'vertex_grad'), str(tmp_path))
+    r = _run(name, 'vertex_grad', str(tmp_path))
     assert r['checks']['image']['value'] == 0.0
     assert not r['correct'], r['checks']
 
 
 @pytest.mark.parametrize('name', CELLS[:2])
 def test_unchanged_state_fails(name, torch_threads, tmp_path):
-    with faults.unchanged():
-        r = _run(name, tmp=str(tmp_path))
+    r = _run(name, 'unchanged', str(tmp_path))
     assert r['checks']['change']['value'] == pytest.approx(1.0)
     assert not r['correct']
 

@@ -8,7 +8,7 @@ one semantics agreeing."""
 import pytest
 import torch
 
-from benchmark.harness import check, traffic
+from benchmark.harness import check
 
 from conftest import small_cell
 
@@ -19,7 +19,7 @@ CELLS = ['softras_sphere39k_1024.fit8', 'n3mr_sphere39k_1024.fit8']
 def test_images_agree(name, torch_threads):
     cell = small_cell(name, views=3)
     cfg = cell.config
-    inp = traffic.make_inputs(cfg, cell.traffic, 11, 'cpu')
+    inp = cell.kind_module().make_inputs(cfg, cell.traffic, 11, 'cpu')
     prog = cell.program_module().program(cfg, 'cpu')
     verts = inp.batch(inp.vertices(inp.raw))
     with torch.no_grad():
@@ -39,13 +39,14 @@ def test_fit_steps_agree(name, torch_threads):
     change; the gradients entry by entry."""
     cell = small_cell(name)
     cfg, mix = cell.config, cell.traffic
-    inp = traffic.make_inputs(cfg, mix, 12, 'cpu')
-    step = traffic.FitStep(cell.program_module().program(cfg, 'cpu'), inp, mix)
-    prog = traffic.fit_setup(step, mix)
-    ref = check.reference_fit(cell.reference_module(), cfg, inp, mix)
+    kind = cell.kind_module()
+    inp = kind.make_inputs(cfg, mix, 12, 'cpu')
+    step = kind.Call(cell.program_module().program(cfg, 'cpu'), inp, mix)
+    prog = kind.sample(step, mix)
+    ref = kind.reference(cell.reference_module(), cfg, inp, mix)
     for g, r in zip(prog['grads'], ref['grads']):
         assert torch.allclose(g, r, atol=1e-5 * float(r.abs().max()), rtol=1e-4)
     assert abs(prog['losses'][0] - ref['losses'][0]) <= 1e-6 * ref['losses'][0]
-    numbers = check.fit_numbers(prog, ref)
+    numbers = kind.compare(prog, ref)
     assert numbers['grad'] < 1e-5 and numbers['image'] == 0.0
     assert numbers['change'] < 1e-3 and numbers['loss'] < 1e-3
